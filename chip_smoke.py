@@ -8,10 +8,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    for sm_90a from the checkout.
 2. kernel: the merge kernel against its plain PyTorch version on the card,
    exact equality, at the SF1 join shapes of TPC-H Q17 and Q18, ragged
-   sizes, empty sides, the INT32_MAX null-slot edge and probe 16M x build
-   4M. Prints the kernel's, the plain version's and the library call's
-   (torch.searchsorted + equality gather, never called by the port) times
-   from CUDA events, and the bound (bytes moved over 3.35 TB/s).
+   sizes, empty sides, the INT32_MAX null-slot edge, probe 16M x build 4M,
+   probe 1M x build 16M (a build much denser than the probe), a probe of
+   2M + 777 keys (over a thousand full tiles and a ragged last one) against
+   a sparser and a denser build, and a block_build sweep (128, 2048, 8192)
+   on one input whose outputs must be equal. For each shape it prints the
+   wrapper-inclusive time of back-to-back calls (CUDA events; the summary's
+   ``ms``, as since the first slice), the kernel's device time (a CUDA
+   graph of many launches, so host overhead drops out; ``device_ms``), the
+   wrapper's host microseconds per call, the plain version's time, the
+   library call's (torch.searchsorted + equality gather, never called by
+   the port) wrapper-inclusive and device times, and the byte bound. The
+   bound counts what the function must move: each probe key read and each
+   output written once, and the build read once or one 32-byte sector per
+   probe key where that is less, 8 * np + min(4 * nb, 32 * np) bytes over
+   3.35 TB/s. Its compare work is a few integer steps a key, far below the card's integer
+   rate, so bytes bound it and no operation term is counted. Last, a 1 x 1
+   call: its wrapper-inclusive time (the summary's ``launch_floor_ms``, as
+   before, though it measures the wrapper and not a launch), device time
+   and host microseconds.
 3. tpch: TPC-H Q18 and Q17 at SF1 through trino_tpu_torch.Session on CUDA.
    The rows must equal trino_tpu_torch/testdata/tpch_sf1_expected.json
    (written by the JAX package), and each query must launch the merge
@@ -33,8 +48,7 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-INT_OPS_PER_S = 67e12  # the card's non-tensor-core 32-bit rate (fp32 figure)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA's data sheet)
 INT32_MAX = 2**31 - 1
 
 
@@ -63,6 +77,54 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, launches: int, replays: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: ``launches`` calls captured
+    in one CUDA graph, replayed ``replays`` times between CUDA events. The
+    host's cost per call drops out; the graph's gaps between kernels stay."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * launches)
+    del graph
+    torch.cuda.synchronize()
+    return ms
+
+
+def host_us(fn, iters: int) -> float:
+    """Host microseconds per call of ``fn`` (the enqueue: no synchronise
+    inside the loop)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / iters
+    torch.cuda.synchronize()
+    return us
+
+
+def bound_bytes(nb: int, np_: int) -> int:
+    """What the function must move: the probe read and the output written
+    once, the build read once or one 32-byte sector a probe key."""
+    return 8 * np_ + min(4 * nb, 32 * np_)
 
 
 def library_merge(build, probe):
@@ -100,6 +162,21 @@ def kernel_cases(rng):
     cases.append(("int32_max_edge", b, p, 256))
     cases.append(("large_16m_4m", sorted_unique(4 << 20, 1 << 30),
                   probe_over(16 << 20, 1 << 30), 2048))
+    # a build 16x denser than the probe: each probe tile spans about 32K
+    # build keys, many ring chunks
+    cases.append(("large_1m_16m", sorted_unique(16 << 20, 1 << 30),
+                  probe_over(1 << 20, 1 << 30), 2048))
+    # over a thousand full probe tiles and a ragged last one, against a
+    # sparser build (one-chunk spans) and a denser one (several chunks)
+    cases.append(("ragged_2m_1m", sorted_unique(1 << 20, 1 << 30),
+                  probe_over((2 << 20) + 777, 1 << 30), 2048))
+    cases.append(("ragged_2m_8m", sorted_unique(8 << 20, 1 << 30),
+                  probe_over((2 << 20) + 777, 1 << 30), 2048))
+    # one input, three block_build values: the outputs must be equal
+    b = sorted_unique(1 << 16, 1 << 24)
+    p = probe_over(1 << 20, 1 << 24)
+    for bb in (128, 2048, 8192):
+        cases.append((f"sweep_bb{bb}", b, p, bb))
     return cases
 
 
@@ -111,6 +188,7 @@ def phase_kernel(device):
 
     rng = np.random.default_rng(1234)
     rows = []
+    sweep_out = None
     for name, b_np, p_np, bb in kernel_cases(rng):
         b = torch.from_numpy(b_np).to(device)
         p = torch.from_numpy(p_np).to(device)
@@ -121,31 +199,44 @@ def phase_kernel(device):
                 not torch.equal(got, want):
             bad = (got != want).nonzero()[:5].flatten().tolist()
             raise AssertionError(f"merge kernel != plain at {name}: first bad {bad}")
+        if name.startswith("sweep_"):
+            if sweep_out is not None and not torch.equal(got, sweep_out):
+                raise AssertionError(f"merge kernel output changes with block_build at {name}")
+            sweep_out = got
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item()) \
             if got.numel() else 0
         nb, np_ = b.shape[0], p.shape[0]
-        bytes_moved = 4 * (nb + 2 * np_)
+        nbytes = bound_bytes(nb, np_)
         big = np_ >= (1 << 20)
+        call = lambda: merge.merge_unique_sorted(b, p, block_build=bb)  # noqa: E731
+        lib = lambda: library_merge(b, p)  # noqa: E731
         row = {
             "shape": name, "build": nb, "probe": np_, "block_build": bb,
             "max_abs_err": err,
-            "kernel_ms": time_ms(lambda: merge.merge_unique_sorted(b, p, block_build=bb),
-                                 20 if big else 200),
+            "kernel_device_ms": graph_ms(call, 20 if big else 200),
+            "kernel_ms": time_ms(call, 20 if big else 200),
+            "wrapper_host_us": host_us(call, 20 if big else 500),
             "plain_ms": time_ms(lambda: merge.merge_unique_sorted_plain(b, p, block_build=bb),
                                 2 if big else 20),
-            "library_ms": (time_ms(lambda: library_merge(b, p), 20 if big else 200)
-                           if nb and np_ else None),
-            "bound_ms": 1e3 * max(bytes_moved / HBM_BYTES_PER_S,
-                                  (nb + np_) / INT_OPS_PER_S),
-            "bytes": bytes_moved,
+            "library_device_ms": graph_ms(lib, 20 if big else 200) if nb and np_ else None,
+            "library_ms": time_ms(lib, 20 if big else 200) if nb and np_ else None,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "bytes": nbytes,
         }
+        row["bound_share"] = (row["bound_ms"] / row["kernel_device_ms"]
+                              if nbytes and np_ and nb else None)
         rows.append(row)
         print("kernel", json.dumps(row), flush=True)
+        del b, p, got, want
+        torch.cuda.empty_cache()
     one_b = torch.zeros(1, dtype=torch.int32, device=device)
     one_p = torch.zeros(1, dtype=torch.int32, device=device)
-    floor = time_ms(lambda: merge.merge_unique_sorted(one_b, one_p), 500)
-    print("kernel", json.dumps({"launch_floor_ms_1x1": floor}), flush=True)
-    return rows, floor
+    one = lambda: merge.merge_unique_sorted(one_b, one_p)  # noqa: E731
+    call_1x1 = {"wrapper_call_ms_1x1": time_ms(one, 500),
+                "kernel_device_ms_1x1": graph_ms(one, 200),
+                "wrapper_host_us_1x1": host_us(one, 2000)}
+    print("kernel", json.dumps(call_1x1), flush=True)
+    return rows, call_1x1
 
 
 def jsonable_rows(rows):
@@ -251,7 +342,7 @@ def main() -> int:
           flush=True)
     if merge.build_log.strip():
         print(merge.build_log.strip(), flush=True)
-    rows, floor = phase_kernel(device)
+    rows, call_1x1 = phase_kernel(device)
     tpch, session, expected = phase_tpch(device)
     if "--profile" in sys.argv[1:]:
         phase_profile(session, expected)
@@ -266,12 +357,15 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_shape["kernel_ms"],
+        "device_ms": main_shape["kernel_device_ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": "bytes",
         "library_ms": main_shape["library_ms"],
+        "library_device_ms": main_shape["library_device_ms"],
         "shape": "q17_sf1 build 256 x probe 6113",
-        "launch_floor_ms": floor,
+        "launch_floor_ms": call_1x1["wrapper_call_ms_1x1"],
+        **call_1x1,
         "shapes": rows,
     }
     print(json.dumps({"kernels": [summary]}), flush=True)

@@ -33,6 +33,17 @@ def _sorted_probe(rng, np_, lo, hi):
     return np.sort(rng.integers(lo, hi, size=np_)).astype(np.int32)
 
 
+def _closed_form(b, p):
+    """The function the CUDA kernel computes: the lower bound of each key in
+    the build padded with one INT32_MAX, kept where the padded build holds
+    the key there, else -1; all -1 against an empty build."""
+    if b.shape[0] == 0:
+        return np.full(p.shape, -1, np.int32)
+    padded = np.concatenate([b, np.array([INT32_MAX], np.int32)])
+    lb = np.searchsorted(padded, p, side="left")
+    return np.where(padded[lb] == p, lb, -1).astype(np.int32)
+
+
 def _both(b, p, bb):
     ref = np.asarray(merge_pallas.merge_unique_sorted(
         jnp.asarray(b), jnp.asarray(p), block_build=bb, interpret=True))
@@ -49,6 +60,7 @@ def _both(b, p, bb):
     (4, 1, 1, 2048),
     (5, 700, 4096, 256),      # probe an exact number of tiles
     (6, 5000, 200, 512),      # build much larger than the probe
+    (7, 20000, 300, 512),     # build much denser: one tile spans ~40 windows
 ])
 def test_plain_matches_pallas_interpret(seed, nb, np_, bb):
     rng = np.random.default_rng(seed)
@@ -57,6 +69,29 @@ def test_plain_matches_pallas_interpret(seed, nb, np_, bb):
     ref, got = _both(b, p, bb)
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("bb", [128, 256, 2048, 8192])
+def test_plain_matches_closed_form(bb, seed):
+    """The reference's windowed arithmetic (128-aligned window starts,
+    block_build windows, the nb_pad clamp) never changes an answer: the
+    plain version equals the closed form the CUDA kernel computes, on
+    random sizes with dead INT32_MAX build tails, INT32_MAX probe keys,
+    builds denser and sparser than the probe, and empty sides."""
+    rng = np.random.default_rng(1000 * bb + seed)
+    for case in range(25):
+        nb = int(rng.integers(0, 3000)) if case % 8 else 0
+        np_ = int(rng.integers(0, 3000)) if case % 7 else 0
+        hi = int(rng.integers(max(nb, 1), 8 * nb + 20))
+        b = _sorted_build(rng, nb, hi, dead=int(rng.integers(0, 4)) if nb > 4 else 0)
+        p = _sorted_probe(rng, np_, -3, hi + 5)
+        if np_ and case % 3 == 0:
+            p[-int(rng.integers(1, min(np_, 4) + 1)):] = INT32_MAX
+        want = _closed_form(b, p)
+        got = merge.merge_unique_sorted_plain(torch.from_numpy(b), torch.from_numpy(p),
+                                              block_build=bb).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"case {case}: nb={nb} np={np_}")
 
 
 @pytest.mark.parametrize("nb,np_", [(0, 50), (50, 0), (0, 0)])
@@ -125,10 +160,19 @@ def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
     rng = np.random.default_rng(3)
-    for nb, np_, bb in [(256, 6113, 2048), (3001, 5003, 256), (1 << 16, 1 << 20, 2048)]:
+    for nb, np_, bb in [(256, 6113, 2048), (3001, 5003, 256), (1 << 16, 1 << 20, 2048),
+                        (1 << 20, 1 << 16, 2048),  # build denser than the probe
+                        # over a thousand full probe tiles and a ragged last
+                        # one, against a sparser and a denser build
+                        (1 << 20, (2 << 20) + 777, 2048),
+                        (8 << 20, (2 << 20) + 777, 2048)]:
         b = torch.from_numpy(_sorted_build(rng, nb, 4 * nb, dead=2)).cuda()
         p = torch.from_numpy(_sorted_probe(rng, np_, 0, 4 * nb)).cuda()
         before = merge.launches
         got = merge.merge_unique_sorted(b, p, block_build=bb)
         assert merge.launches == before + 1
         assert torch.equal(got, merge.merge_unique_sorted_plain(b, p, block_build=bb))
+        assert torch.equal(got.cpu(), torch.from_numpy(_closed_form(b.cpu().numpy(),
+                                                                    p.cpu().numpy())))
+        for other in (128, 8192):  # the kernel's answer does not depend on block_build
+            assert torch.equal(merge.merge_unique_sorted(b, p, block_build=other), got)
