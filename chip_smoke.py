@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. build: compiles trino_tpu_torch/csrc/merge_unique_sorted.cu with nvcc
    for sm_90a from the checkout.
 2. kernel: the merge kernel against its plain PyTorch version on the card,
-   exact equality, at the SF1 join shapes of TPC-H Q17 and Q18, ragged
+   exact equality, at the SF1 join shapes of TPC-H Q2, Q17 and Q18, ragged
    sizes, empty sides, the INT32_MAX null-slot edge, probe 16M x build 4M,
    probe 1M x build 16M (a build much denser than the probe), a probe of
    2M + 777 keys (over a thousand full tiles and a ragged last one) against
@@ -27,14 +27,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    call: its wrapper-inclusive time (the summary's ``launch_floor_ms``, as
    before, though it measures the wrapper and not a launch), device time
    and host microseconds.
-3. tpch: TPC-H Q18 and Q17 at SF1 through trino_tpu_torch.Session on CUDA.
-   The rows must equal trino_tpu_torch/testdata/tpch_sf1_expected.json
-   (written by the JAX package), and each query must launch the merge
-   kernel and select the merge-pallas join tier at least once. Prints cold
-   and warm wall time.
+3. tpch: all 22 TPC-H queries at SF1 through trino_tpu_torch.Session on
+   CUDA, each run twice in one session (cold: the first run, which also
+   generates the tables it is the first to scan; warm: the second). Each
+   run's rows must equal trino_tpu_torch/testdata/tpch_sf1_expected.json
+   (written by the JAX package), its join-tier selections must equal the
+   reference's recorded there, and a query whose reference selects the
+   merge-pallas tier must launch the merge kernel. Prints one line a query:
+   rows, cold and warm wall, merge-kernel launches and tier counts.
+4. mainpath: the merge kernel against its plain version, exact, on the
+   very build and probe tensors the cold runs of phase tpch handed to it
+   (one row a launch, with phase kernel's times), and every query whose
+   reference selects merge-pallas must have handed it some.
 
-With ``--profile`` it also runs each query once more under torch.profiler
-and prints the device time by kernel and the device's busy share.
+With ``--profile`` it also runs each query once more (warm) under
+torch.profiler and prints the device time by kernel, the device's busy
+share of the wall, the device launches and the largest device item.
 
 The last three lines of standard output are the kernel summary
 ``{"kernels": [...]}``, the card's name and power limit, and
@@ -177,7 +185,53 @@ def kernel_cases(rng):
     p = probe_over(1 << 20, 1 << 24)
     for bb in (128, 2048, 8192):
         cases.append((f"sweep_bb{bb}", b, p, bb))
+    # Q2's SF1 shape: a build of 1024 slots, 804 live partkeys and a dead
+    # INT32_MAX tail of 220, against 1024 probe keys that all match (517
+    # distinct); drawn last so the shapes above keep their earlier inputs
+    live = sorted_unique(804, 200_000)
+    b = np.concatenate([live, np.full(220, INT32_MAX, np.int32)])
+    p = np.sort(rng.choice(live, size=1024)).astype(np.int32)
+    cases.insert(2, ("q2_sf1", b, p, 2048))
     return cases
+
+
+def check_and_time(name, b, p, bb, **extra):
+    """The merge kernel against its plain version on the card at one input
+    (exact), then its times; returns (row, the kernel's output)."""
+    import torch
+
+    from trino_tpu_torch.ops import merge
+
+    got = merge.merge_unique_sorted(b, p, block_build=bb)
+    want = merge.merge_unique_sorted_plain(b, p, block_build=bb)
+    torch.cuda.synchronize()
+    if got.dtype != torch.int32 or got.shape != want.shape or not torch.equal(got, want):
+        bad = (got != want).nonzero()[:5].flatten().tolist()
+        raise AssertionError(f"merge kernel != plain at {name}: first bad {bad}")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item()) \
+        if got.numel() else 0
+    nb, np_ = b.shape[0], p.shape[0]
+    nbytes = bound_bytes(nb, np_)
+    big = np_ >= (1 << 20)
+    call = lambda: merge.merge_unique_sorted(b, p, block_build=bb)  # noqa: E731
+    lib = lambda: library_merge(b, p)  # noqa: E731
+    row = {
+        "shape": name, "build": nb, "probe": np_, "block_build": bb, **extra,
+        "max_abs_err": err,
+        "kernel_device_ms": graph_ms(call, 20 if big else 200),
+        "kernel_ms": time_ms(call, 20 if big else 200),
+        "wrapper_host_us": host_us(call, 20 if big else 500),
+        "plain_ms": time_ms(lambda: merge.merge_unique_sorted_plain(b, p, block_build=bb),
+                            2 if big else 20),
+        "library_device_ms": graph_ms(lib, 20 if big else 200) if nb and np_ else None,
+        "library_ms": time_ms(lib, 20 if big else 200) if nb and np_ else None,
+        "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+        "bytes": nbytes,
+    }
+    row["bound_share"] = (row["bound_ms"] / row["kernel_device_ms"]
+                          if nbytes and np_ and nb else None)
+    print("kernel", json.dumps(row), flush=True)
+    return row, got
 
 
 def phase_kernel(device):
@@ -192,42 +246,13 @@ def phase_kernel(device):
     for name, b_np, p_np, bb in kernel_cases(rng):
         b = torch.from_numpy(b_np).to(device)
         p = torch.from_numpy(p_np).to(device)
-        got = merge.merge_unique_sorted(b, p, block_build=bb)
-        want = merge.merge_unique_sorted_plain(b, p, block_build=bb)
-        torch.cuda.synchronize()
-        if got.dtype != torch.int32 or got.shape != want.shape or \
-                not torch.equal(got, want):
-            bad = (got != want).nonzero()[:5].flatten().tolist()
-            raise AssertionError(f"merge kernel != plain at {name}: first bad {bad}")
+        row, got = check_and_time(name, b, p, bb)
         if name.startswith("sweep_"):
             if sweep_out is not None and not torch.equal(got, sweep_out):
                 raise AssertionError(f"merge kernel output changes with block_build at {name}")
             sweep_out = got
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item()) \
-            if got.numel() else 0
-        nb, np_ = b.shape[0], p.shape[0]
-        nbytes = bound_bytes(nb, np_)
-        big = np_ >= (1 << 20)
-        call = lambda: merge.merge_unique_sorted(b, p, block_build=bb)  # noqa: E731
-        lib = lambda: library_merge(b, p)  # noqa: E731
-        row = {
-            "shape": name, "build": nb, "probe": np_, "block_build": bb,
-            "max_abs_err": err,
-            "kernel_device_ms": graph_ms(call, 20 if big else 200),
-            "kernel_ms": time_ms(call, 20 if big else 200),
-            "wrapper_host_us": host_us(call, 20 if big else 500),
-            "plain_ms": time_ms(lambda: merge.merge_unique_sorted_plain(b, p, block_build=bb),
-                                2 if big else 20),
-            "library_device_ms": graph_ms(lib, 20 if big else 200) if nb and np_ else None,
-            "library_ms": time_ms(lib, 20 if big else 200) if nb and np_ else None,
-            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-            "bytes": nbytes,
-        }
-        row["bound_share"] = (row["bound_ms"] / row["kernel_device_ms"]
-                              if nbytes and np_ and nb else None)
         rows.append(row)
-        print("kernel", json.dumps(row), flush=True)
-        del b, p, got, want
+        del b, p, got
         torch.cuda.empty_cache()
     one_b = torch.zeros(1, dtype=torch.int32, device=device)
     one_p = torch.zeros(1, dtype=torch.int32, device=device)
@@ -244,6 +269,10 @@ def jsonable_rows(rows):
             for r in rows]
 
 
+def tier_counts(metric, tiers):
+    return {t: metric.value(t) for t in tiers}
+
+
 def phase_tpch(device):
     import torch
 
@@ -257,45 +286,87 @@ def phase_tpch(device):
         expected = json.load(f)["queries"]
     session = Session(properties={"catalog": "tpch", "schema": "sf1",
                                   "fused_join_pallas": True}, device=device)
+    # the merge kernel's inputs as each cold run hands them to the wrapper,
+    # for phase_mainpath to hold against the plain version afterwards; the
+    # wrapper still counts every launch
+    captured = []
+    now = {"query": None, "run": None}
+    wrapper = merge.merge_unique_sorted
+
+    def capture(build, probe, block_build=2048):
+        if now["run"] == "cold":
+            captured.append((now["query"], build.clone(), probe.clone(), block_build))
+        return wrapper(build, probe, block_build=block_build)
+
+    merge.merge_unique_sorted = capture
     out = {}
-    for q in (18, 17):
-        runs = []
-        for label in ("cold", "warm"):
-            merge.launches = 0
-            sel0 = M.FUSED_JOIN_SELECTIONS.value("merge-pallas")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = session.execute(expected[str(q)]["sql"])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = merge.launches
-            selections = M.FUSED_JOIN_SELECTIONS.value("merge-pallas") - sel0
-            got = jsonable_rows(res.rows)
-            want = expected[str(q)]["rows"]
-            if got != want:
-                raise AssertionError(
-                    f"Q{q} rows differ from the expected rows: {len(got)} vs "
-                    f"{len(want)} rows; first got {got[:2]}, want {want[:2]}")
-            if launches < 1 or selections < 1:
-                raise AssertionError(
-                    f"Q{q} ({label}) did not run the merge kernel: launches="
-                    f"{launches}, merge-pallas selections={selections}")
-            runs.append({"run": label, "wall_s": wall, "merge_launches": launches,
-                         "merge_pallas_selections": selections})
-        out[q] = runs
-        print("tpch", json.dumps({"query": f"Q{q}", "scale": "sf1",
-                                  "rows": len(res.rows), "runs": runs}), flush=True)
-    return out, session, expected
+    try:
+        for q in range(1, 23):
+            entry = expected[str(q)]
+            want_tiers = entry["tiers"]
+            runs = []
+            for label in ("cold", "warm"):
+                now.update(query=q, run=label)
+                merge.launches = 0
+                t0_tiers = tier_counts(M.FUSED_JOIN_SELECTIONS, want_tiers)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = session.execute(entry["sql"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = merge.launches
+                tiers = {t: v - t0_tiers[t]
+                         for t, v in tier_counts(M.FUSED_JOIN_SELECTIONS, want_tiers).items()}
+                got = jsonable_rows(res.rows)
+                want = entry["rows"]
+                if got != want:
+                    same = sorted(map(repr, got)) == sorted(map(repr, want))
+                    raise AssertionError(
+                        f"Q{q} ({label}) rows differ from the expected rows: {len(got)} vs "
+                        f"{len(want)} rows{' (same rows, another order)' if same else ''}; "
+                        f"first got {got[:2]}, want {want[:2]}")
+                if tiers != want_tiers:
+                    raise AssertionError(
+                        f"Q{q} ({label}) join tiers {tiers} != the reference's {want_tiers}")
+                if want_tiers.get("merge-pallas", 0) >= 1 and launches < 1:
+                    raise AssertionError(
+                        f"Q{q} ({label}) selected merge-pallas but did not launch the merge "
+                        f"kernel: launches={launches}")
+                runs.append({"run": label, "wall_s": wall, "merge_launches": launches})
+            out[q] = runs
+            print("tpch", json.dumps({"query": f"Q{q}", "scale": "sf1", "rows": len(res.rows),
+                                      "tiers": tiers, "runs": runs}), flush=True)
+    finally:
+        merge.merge_unique_sorted = wrapper
+    return out, session, expected, captured
+
+
+def phase_mainpath(captured):
+    """The merge kernel against its plain version on the very inputs the
+    22 queries' cold runs gave it (exact), with the same times as phase
+    kernel; one row a launch, named after its query."""
+    import torch
+
+    rows = []
+    seen = {}
+    for q, b, p, bb in captured:
+        seen[q] = seen.get(q, 0) + 1
+        row, _ = check_and_time(f"q{q}_sf1_mainpath_{seen[q]}", b, p, bb,
+                                live_build=int((b != INT32_MAX).sum().item()))
+        rows.append(row)
+    del captured[:]
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_profile(session, expected):
-    """``--profile``: one warm run of each query under torch.profiler —
+    """``--profile``: one more warm run of each query under torch.profiler:
     device time by kernel name and the device's busy share of the wall."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for q in (18, 17):
+    for q in range(1, 23):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -321,7 +392,7 @@ def phase_profile(session, expected):
             "device_busy_share": device_s / wall if wall else None,
             "device_launches": sum(c for _, c, _ in by_kernel),
             "top": [{"kernel": k[:80], "calls": c, "device_ms": us / 1e3}
-                    for us, c, k in by_kernel[:12]]}), flush=True)
+                    for us, c, k in by_kernel[:8]]}), flush=True)
 
 
 def main() -> int:
@@ -343,12 +414,24 @@ def main() -> int:
     if merge.build_log.strip():
         print(merge.build_log.strip(), flush=True)
     rows, call_1x1 = phase_kernel(device)
-    tpch, session, expected = phase_tpch(device)
+    tpch, session, expected, captured = phase_tpch(device)
+    merge_queries = sorted(int(q) for q, e in expected.items()
+                           if e["tiers"].get("merge-pallas", 0) >= 1)
+    if sorted({q for q, *_ in captured}) != merge_queries:
+        raise AssertionError(f"merge kernel inputs captured for queries "
+                             f"{sorted({q for q, *_ in captured})}, want {merge_queries}")
+    rows += phase_mainpath(captured)
     if "--profile" in sys.argv[1:]:
         phase_profile(session, expected)
     main_shape = next(r for r in rows if r["shape"] == "q17_sf1")
     launches = sum(run["merge_launches"] for runs in tpch.values()
                    for run in runs if run["run"] == "cold")
+    if launches < 1:
+        raise AssertionError("the 22 queries' cold runs launched the merge kernel no time")
+    print("tpch_total", json.dumps({
+        f"{label}_wall_s": sum(run["wall_s"] for runs in tpch.values()
+                               for run in runs if run["run"] == label)
+        for label in ("cold", "warm")}), flush=True)
     summary = {
         "name": "merge_unique_sorted",
         "route": "cuda",

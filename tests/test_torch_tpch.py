@@ -1,5 +1,7 @@
-"""TPC-H Q17 and Q18 through both Sessions: the JAX package (trino_tpu) is
-the reference, the PyTorch port (trino_tpu_torch) runs on the CPU here.
+"""TPC-H Q1-Q9, Q17 and Q18 through both Sessions: the JAX package
+(trino_tpu) is the reference, the PyTorch port (trino_tpu_torch) runs on
+the CPU here. The other queries are in test_torch_tpch_more.py (a second
+file, so the xdist ``loadfile`` workers split them).
 
 Also the writer of the port's SF1 expected rows, which the GPU smoke run
 (chip_smoke.py) compares against on a machine without JAX:
@@ -37,24 +39,29 @@ def _tier_counts(metric):
     return {t: metric.value(t) for t in TIERS}
 
 
-def _run_both(q):
+def run_both(sql):
     """(reference rows, port rows, reference tier deltas, port tier deltas)."""
     j0 = _tier_counts(jax_metrics.FUSED_JOIN_SELECTIONS)
-    ref = JaxSession(properties=_props()).execute(QUERIES[q]).rows
+    ref = JaxSession(properties=_props()).execute(sql).rows
     j1 = _tier_counts(jax_metrics.FUSED_JOIN_SELECTIONS)
     t0 = _tier_counts(torch_metrics.FUSED_JOIN_SELECTIONS)
-    got = TorchSession(properties=_props(), device="cpu").execute(QUERIES[q]).rows
+    got = TorchSession(properties=_props(), device="cpu").execute(sql).rows
     t1 = _tier_counts(torch_metrics.FUSED_JOIN_SELECTIONS)
     return (ref, got, {t: j1[t] - j0[t] for t in TIERS},
             {t: t1[t] - t0[t] for t in TIERS})
 
 
-@pytest.mark.parametrize("q", [17, 18])
-def test_tpch_tiny_rows_equal(q):
-    ref, got, jt, tt = _run_both(q)
+def check_query(q):
+    """Exact rows and equal join-tier selections in both packages."""
+    ref, got, jt, tt = run_both(QUERIES[q])
     assert ref, "the reference returned no rows"
     assert got == ref
     assert tt == jt  # same join tiers in both packages
+
+
+@pytest.mark.parametrize("q", [1, 2, 3, 4, 5, 6, 7, 8, 9, 17, 18])
+def test_tpch_tiny_rows_equal(q):
+    check_query(q)
 
 
 def test_q18_tiny_merge_tier_forced(monkeypatch):
@@ -63,7 +70,7 @@ def test_q18_tiny_merge_tier_forced(monkeypatch):
     Pallas kernel in interpret mode, the port its plain merge on the CPU."""
     monkeypatch.setattr(jax_join, "DENSE_SPAN_MAX", 0)
     monkeypatch.setattr(torch_join, "DENSE_SPAN_MAX", 0)
-    ref, got, jt, tt = _run_both(18)
+    ref, got, jt, tt = run_both(QUERIES[18])
     assert got == ref
     assert jt["merge-pallas"] >= 1
     assert tt == jt
@@ -79,14 +86,19 @@ def test_session_without_gpu_raises():
 
 
 def test_expected_rows_file_matches_queries():
-    """The committed SF1 rows carry the SQL the smoke run executes."""
+    """The committed SF1 rows carry the SQL the smoke run executes, for all
+    22 queries, with the reference's join-tier selections."""
     with open(EXPECTED) as f:
         data = json.load(f)
     assert data["scale"] == "sf1"
-    for q in (17, 18):
+    assert sorted(data["queries"], key=int) == [str(q) for q in range(1, 23)]
+    for q in range(1, 23):
         entry = data["queries"][str(q)]
         assert entry["sql"] == QUERIES[q]
         assert entry["rows"] and all(len(r) == len(entry["columns"]) for r in entry["rows"])
+        assert set(entry["tiers"]) == set(TIERS)
+    assert data["queries"]["17"]["tiers"]["merge-pallas"] >= 1
+    assert data["queries"]["18"]["tiers"]["merge-pallas"] >= 1
 
 
 def jsonable_rows(rows):
@@ -99,10 +111,14 @@ def write_expected():
     session = JaxSession(properties=_props("sf1"))
     out = {"scale": "sf1", "writer": "trino_tpu (JAX, CPU) via "
            "tests/test_torch_tpch.py --write-expected", "queries": {}}
-    for q in (17, 18):
+    for q in range(1, 23):
+        t0 = _tier_counts(jax_metrics.FUSED_JOIN_SELECTIONS)
         res = session.execute(QUERIES[q])
+        t1 = _tier_counts(jax_metrics.FUSED_JOIN_SELECTIONS)
         out["queries"][str(q)] = {"sql": QUERIES[q], "columns": list(res.column_names),
-                                  "rows": jsonable_rows(res.rows)}
+                                  "rows": jsonable_rows(res.rows),
+                                  "tiers": {t: t1[t] - t0[t] for t in TIERS}}
+        print(f"Q{q}: {len(res.rows)} rows", flush=True)
     with open(EXPECTED, "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")

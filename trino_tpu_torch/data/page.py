@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from trino_tpu_torch import types as T
-from trino_tpu_torch.data.dictionary import Dictionary
+from trino_tpu_torch.data.dictionary import NULL_CODE, Dictionary
 
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
@@ -109,6 +109,39 @@ def merge_vrange(a, b):
     return (min(a[0], b[0]), max(a[1], b[1]))
 
 
+def _concat_col(ca: Column, cb: Column) -> Column:
+    va, vb = ca.values, cb.values
+    if va.dtype != vb.dtype:  # mixed physical widths: promote
+        dt = torch.promote_types(va.dtype, vb.dtype)
+        va, vb = va.to(dt), vb.to(dt)
+    d = ca.dictionary
+    if (d is not None and cb.dictionary is not None and d is not cb.dictionary
+            and d.values != cb.dictionary.values):
+        d = ca.dictionary.merge(cb.dictionary)
+
+        def recode(v, src):
+            t = np.asarray(src.recode_table(d))
+            # an all-NULL side has an empty vocabulary: pad the table
+            table = to_device(t if len(t) else np.array([NULL_CODE], np.int32), v.device)
+            return torch.where(v >= 0, table[v.long().clamp(min=0)],
+                               torch.full_like(v, NULL_CODE))
+
+        va, vb = recode(va, ca.dictionary), recode(vb, cb.dictionary)
+    nulls = None
+    if ca.nulls is not None or cb.nulls is not None:
+        na = ca.nulls if ca.nulls is not None else torch.zeros_like(va, dtype=torch.bool)
+        nb = cb.nulls if cb.nulls is not None else torch.zeros_like(vb, dtype=torch.bool)
+        nulls = torch.cat([na, nb])
+    hi = None
+    if ca.hi is not None or cb.hi is not None:
+        # a missing high limb is the sign extension of the low word
+        ha = ca.hi if ca.hi is not None else (va.to(torch.int64) >> 63)
+        hb = cb.hi if cb.hi is not None else (vb.to(torch.int64) >> 63)
+        hi = torch.cat([ha, hb])
+    vr = None if hi is not None else merge_vrange(ca.vrange, cb.vrange)
+    return Column(ca.type, torch.cat([va, vb]), nulls, d, vr, hi=hi)
+
+
 def _from_repr(typ: T.Type, r):
     if isinstance(typ, T.TimestampType):
         import datetime
@@ -162,6 +195,17 @@ class Page:
             for t in types
         ]
         return Page(cols, torch.zeros((1,), dtype=torch.bool, device=device))
+
+    @staticmethod
+    def concat_pages(a: "Page", b: "Page") -> "Page":
+        """Row-wise concatenation (n_a + n_b rows); differing dictionaries
+        are merged on the host and recoded by one gather on the device."""
+        cols = [_concat_col(ca, cb) for ca, cb in zip(a.columns, b.columns)]
+        sa = a.sel if a.sel is not None else torch.ones(
+            (a.num_rows,), dtype=torch.bool, device=cols[0].values.device)
+        sb = b.sel if b.sel is not None else torch.ones(
+            (b.num_rows,), dtype=torch.bool, device=cols[0].values.device)
+        return Page(cols, torch.cat([sa, sb]))
 
     def to_pylist(self) -> List[tuple]:
         """Materialize live rows as Python tuples (host side)."""

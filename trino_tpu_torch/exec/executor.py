@@ -6,14 +6,17 @@ device: filters keep selection masks instead of compacting, aggregations
 emit padded outputs with a live-group prefix, sorts move dead rows last.
 Ported nodes: TableScan (connector splits straight to the device, with
 host-side dynamic-filter pruning), Filter, Compact, Project, Aggregation
-(single step), Join (N:1 lookup and semi/anti, through the dense / fused /
-merge tier gate), Sort, TopN, Limit and Output. The device cache, the
-staging pool, spill, M:N expansion joins and the compiled tier are not
+(single step, count(DISTINCT) included), Join (N:1 lookup and semi/anti
+through the dense / fused / merge tier gate; M:N inner and left expansion,
+semi/anti with a residual filter, the singleton cross join of a scalar
+subquery and the true cross join), Sort, TopN, Limit and Output. An
+expansion's output is sized by one host read of its exact total. The
+device cache, the staging pool, spill and the compiled tier are not
 ported.
 
 Data-dependent runtime errors (division by zero, decimal overflow,
-capacity overflow) are collected as boolean flags and checked once after
-execution.
+capacity overflow, a scalar subquery without exactly one row) are
+collected as boolean flags and checked once after execution.
 """
 from __future__ import annotations
 
@@ -75,6 +78,32 @@ def _key_lowereds(c: Column, force_two_limb: bool = False) -> List[join_ops.Lowe
     lo = c.values.to(torch.int64)
     hi = c.hi if c.hi is not None else (lo >> 63)
     return [(hi, valid), (lo ^ _SIGN64, valid)]
+
+
+def _flat_arrays(cols: List[Column]) -> List[torch.Tensor]:
+    """Every array of ``cols`` (values, then nulls and hi where present),
+    to ride one permutation or gather together."""
+    out = []
+    for c in cols:
+        out.append(c.values)
+        if c.nulls is not None:
+            out.append(c.nulls)
+        if c.hi is not None:
+            out.append(c.hi)
+    return out
+
+
+def _cols_from_flat(cols: List[Column], arrays: List[torch.Tensor]) -> List[Column]:
+    """``cols`` rebuilt from their ``_flat_arrays`` after a permutation."""
+    out = []
+    it = iter(arrays)
+    for c in cols:
+        v = next(it)
+        nulls = next(it) if c.nulls is not None else None
+        hi = next(it) if c.hi is not None else None
+        out.append(Column(c.type, v, nulls, c.dictionary,
+                          c.vrange if hi is None else None, hi=hi))
+    return out
 
 
 def scan_constraint_with(node: P.TableScanNode, dyn_domains):
@@ -470,10 +499,14 @@ class Executor:
 
     def _exec_aggregate(self, call: P.AggregateCall, page, layout, arg_l, sel_l,
                         hi_l=None):
-        """``arg_l``/``sel_l``/``hi_l`` in layout space. Returns
+        """``arg_l``/``sel_l``/``hi_l`` in layout space; count(DISTINCT)
+        re-groups and takes the original-order page column instead. Returns
         (vals, valid), or (lo, valid, hi) for two-limb sums."""
         if call.distinct:
-            raise NotImplementedError(f"{call.function}(DISTINCT) is not ported")
+            if call.function != "count":
+                raise NotImplementedError(f"{call.function}(DISTINCT) is not ported")
+            return agg_ops.agg_count_distinct(
+                layout, _col_to_lowered(page.columns[call.arg_channel]), page.sel)
         if hi_l is not None and call.function not in ("sum", "count"):
             arg_l = self._narrow_lowered_or_flag(arg_l, hi_l, sel_l)
             hi_l = None
@@ -523,12 +556,15 @@ class Executor:
         left = self.execute(node.left)
         if node.join_type in ("semi", "anti"):
             if node.filter is not None:
-                raise NotImplementedError("semi/anti join with a residual filter")
+                return self.semi_join_filtered(node, left, right)
             return self.semi_join(node, left, right)
-        if node.left_keys and node.right_unique:
+        if not node.left_keys:
+            if node.singleton:
+                return self.singleton_cross(node, left, right)
+            return self.expand_join(node, left, right)  # true cross join
+        if node.right_unique:
             return self.lookup_join(node, left, right)
-        raise NotImplementedError(
-            "cross, singleton and M:N expansion joins are not ported")
+        return self.expand_join(node, left, right)
 
     def _collect_dynamic_filters(self, node: P.JoinNode, build: Page) -> None:
         """Build-side key domains, extracted host-side (one device sync per
@@ -731,6 +767,103 @@ class Executor:
         sel = keep if left.sel is None else left.sel & keep
         return Page(left.columns, sel)
 
+    def _expansion_keys(self, node: P.JoinNode, left: Page, right: Page):
+        if node.left_keys:
+            return self._join_keys_aligned(left, right, node.left_keys, node.right_keys)
+        # cross join: everything matches everything (a constant key)
+        return ([(torch.zeros((right.num_rows,), dtype=torch.int32, device=self.device), None)],
+                [(torch.zeros((left.num_rows,), dtype=torch.int32, device=self.device), None)])
+
+    def _expand_matches(self, node: P.JoinNode, left: Page, right: Page, plain_outer: bool):
+        """The probe-major M:N expansion: (p, live, matched, columns) with
+        the probe columns gathered at each output slot's probe row ``p`` and
+        the build columns at its match (NULL where ``matched`` is false).
+        ``plain_outer`` gives every live probe row at least one slot. One
+        host read of the exact total sizes the output."""
+        build_keys, probe_keys = self._expansion_keys(node, left, right)
+        build = join_ops.build_side(
+            build_keys, right.sel,
+            presorted=bool(node.left_keys) and self._build_presorted(right, node.right_keys))
+        lo, counts = join_ops.probe_counts(build, probe_keys, left.sel)
+        emit = counts
+        if plain_outer:
+            probe_live = (torch.ones_like(counts, dtype=torch.bool) if left.sel is None
+                          else left.sel)
+            emit = torch.where(probe_live, counts.clamp(min=1), torch.zeros_like(counts))
+        total = int(emit.to(torch.int64).sum().item())
+        p, k, live, _ = join_ops.expand(emit, max(total, 1))
+        g = ranks_ops.batched_gather([lo, counts] + _flat_arrays(left.columns), p)
+        matched = live & (k < g[1])
+        rows = build.rows[(g[0] + k).clamp(0, build.n - 1)]
+        out_cols = _cols_from_flat(left.columns, g[2:])
+        out_cols.extend(self._gather_right_cols(right.columns, rows, matched))
+        return p, live, matched, out_cols
+
+    def expand_join(self, node: P.JoinNode, left: Page, right: Page) -> Page:
+        """General M:N inner/left join (and the true cross join): count the
+        matches per probe row, then gather into an exact-size probe-major
+        output."""
+        outer = node.join_type == "left"
+        p, live, matched, out_cols = self._expand_matches(
+            node, left, right, plain_outer=outer and node.filter is None)
+        if node.filter is None:
+            return Page(out_cols, live)
+        lv = self._lower(node.filter, Page(out_cols, live))
+        passed = lv.vals if lv.valid is None else (lv.vals & lv.valid)
+        if not outer:
+            return Page(out_cols, live & passed)
+        # left join with a filter: the expanded rows that pass, plus one
+        # null-build row for each probe row with no passing match
+        passing = live & matched & passed
+        n = left.num_rows
+        any_pass = seg.monotonic_segment_sum(passing.to(torch.int32), p, n) > 0
+        probe_live = torch.ones_like(any_pass) if left.sel is None else left.sel
+        tail_cols = list(left.columns)
+        for rc in right.columns:
+            tail_cols.append(Column(rc.type, torch.zeros((n,), dtype=rc.values.dtype,
+                                                         device=self.device),
+                                    torch.ones((n,), dtype=torch.bool, device=self.device),
+                                    rc.dictionary))
+        return Page.concat_pages(Page(out_cols, passing),
+                                 Page(tail_cols, probe_live & ~any_pass))
+
+    def semi_join_filtered(self, node: P.JoinNode, left: Page, right: Page) -> Page:
+        """Semi/anti join with a residual filter (a correlated EXISTS with
+        non-equality predicates): expand the matches, evaluate the filter,
+        then reduce any-passing back onto the probe rows."""
+        p, live, _, exp_cols = self._expand_matches(node, left, right, plain_outer=False)
+        lv = self._lower(node.filter, Page(exp_cols, live))
+        passed = lv.vals if lv.valid is None else (lv.vals & lv.valid)
+        hit = seg.monotonic_segment_sum((live & passed).to(torch.int32), p,
+                                        left.num_rows) > 0
+        keep = hit if node.join_type == "semi" else ~hit
+        sel = keep if left.sel is None else left.sel & keep
+        return Page(left.columns, sel)
+
+    def singleton_cross(self, node: P.JoinNode, left: Page, right: Page) -> Page:
+        """Cross join against a single-row relation (a scalar subquery);
+        zero or several live rows raise through the deferred error flags."""
+        if right.sel is None:
+            live = torch.tensor(right.num_rows, dtype=torch.int64, device=self.device)
+            idx = torch.zeros((), dtype=torch.int64, device=self.device)
+        else:
+            live = right.sel.sum()
+            idx = torch.argmax(right.sel.to(torch.int32))
+        self.errors.append(("SCALAR_SUBQUERY_MULTIPLE_ROWS", live > 1))
+        self.errors.append(("SCALAR_SUBQUERY_NO_ROWS", live < 1))
+        n = left.num_rows
+        out_cols = list(left.columns)
+        for rc in right.columns:
+            nulls = rc.nulls[idx].expand(n) if rc.nulls is not None else None
+            out_cols.append(Column(rc.type, rc.values[idx].expand(n), nulls, rc.dictionary,
+                                   rc.vrange))
+        page = Page(out_cols, left.sel)
+        if node.filter is not None:
+            lv = self._lower(node.filter, page)
+            passed = lv.vals if lv.valid is None else lv.vals & lv.valid
+            page = Page(out_cols, passed if page.sel is None else page.sel & passed)
+        return page
+
     # ------------------------------------------------------------- ordering
     def _exec_SortNode(self, node: P.SortNode) -> Page:
         return self.sorted_page(self.execute(node.source), node.sort_channels)
@@ -742,35 +875,13 @@ class Executor:
         n = page.num_rows
         keys = [(kl, asc, nf) for c, asc, nf in sort_channels
                 for kl in _key_lowereds(page.columns[c])]
-        payloads = []
-        for c in page.columns:
-            payloads.append(c.values)
-            if c.nulls is not None:
-                payloads.append(c.nulls)
-            if c.hi is not None:
-                payloads.append(c.hi)
-        sorted_arrays = sort_ops.sort_payloads(keys, page.sel, payloads)
+        sorted_arrays = sort_ops.sort_payloads(keys, page.sel, _flat_arrays(page.columns))
         live = (torch.tensor(n, dtype=torch.int64, device=self.device)
                 if page.sel is None else page.sel.sum())
         if limit is not None:
             live = torch.clamp(live, max=limit)
         sel = torch.arange(n, device=self.device) < live
-        cols = []
-        i = 0
-        for c in page.columns:
-            v = sorted_arrays[i]
-            i += 1
-            nulls = None
-            if c.nulls is not None:
-                nulls = sorted_arrays[i]
-                i += 1
-            chi = None
-            if c.hi is not None:
-                chi = sorted_arrays[i]
-                i += 1
-            cols.append(Column(c.type, v, nulls, c.dictionary,
-                               c.vrange if chi is None else None, hi=chi))
-        return Page(cols, sel)
+        return Page(_cols_from_flat(page.columns, sorted_arrays), sel)
 
     def _exec_TopNNode(self, node: P.TopNNode) -> Page:
         return self.sorted_page(self.execute(node.source), node.sort_channels,

@@ -1,9 +1,11 @@
 """Aggregate accumulation over a GroupLayout: the port of the
 trino_tpu/ops/aggregate.py calls the ported queries reach — count, sum
-(int64 and the exact int128 limb sum), avg through ``finish_avg``, min and
-max.
+(int64 and the exact int128 limb sum), avg through ``finish_avg``, min,
+max and count(DISTINCT).
 
-Argument and mask arrays are in LAYOUT SPACE (segments.seg_sum).
+Argument and mask arrays are in LAYOUT SPACE (segments.seg_sum), except
+for ``agg_count_distinct``, which re-groups and takes original-order
+arguments.
 """
 from __future__ import annotations
 
@@ -71,6 +73,29 @@ def agg_sum_128(layout: GroupLayout, lo: torch.Tensor, hi: Optional[torch.Tensor
     out_hi = w2 | (w3 << 32)
     cnt = seg.seg_count(layout, m)
     return (out_hi, out_lo), cnt > 0
+
+
+def agg_count_distinct(layout: GroupLayout, arg: Lowered, sel):
+    """count(DISTINCT x) per group: re-group on (gid, x) pairs, then count
+    the distinct pairs back into the outer group. The inner grouping sorts
+    by (outer gid, x), so the outer gid of each distinct pair is
+    non-decreasing across inner slots: a monotonic segment sum."""
+    from trino_tpu_torch.ops import groupby as gb
+
+    vals, valid = arg
+    n = vals.shape[0]
+    live = _live(sel, valid)
+    outer_gids = layout.gids_orig()
+    order, gid_sorted, num_inner, _ = gb.group_plan([(outer_gids, None), (vals, None)], live)
+    inner = seg.sorted_layout(order, gid_sorted, num_inner)
+    inner_live = torch.arange(n, device=vals.device) < num_inner
+    # outer gid per inner slot; dead slots pushed past every real group
+    outer_of_slot = torch.where(
+        inner_live, outer_gids[inner.rep.long().clamp(0, n - 1)].to(torch.int32),
+        torch.full((n,), layout.capacity, dtype=torch.int32, device=vals.device))
+    cnt = seg.monotonic_segment_sum(inner_live.to(torch.int64), outer_of_slot,
+                                    layout.capacity)
+    return cnt, None
 
 
 def agg_min(layout: GroupLayout, arg: Lowered, sel):

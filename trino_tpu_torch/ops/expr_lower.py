@@ -1,13 +1,17 @@
 """Expression IR -> PyTorch lowering: the subset of trino_tpu/ops/expr_lower.py
 that the ported queries reach.
 
-Lowered here: column refs, constants, the six comparisons (numeric, date,
-decimal at a common scale, int128 two-limb, and varchar equality/order on
-dictionary codes), ``and``/``or`` with Kleene logic, and
-``add``/``sub``/``mul``/``div`` over decimals (with the reference's
-rescaling, value-range bounds and the int128 path where a bound cannot
-prove an int64 fit), floats and integers. Any other expression kind raises
-NotImplementedError naming itself.
+Lowered here: column refs, constants, searched CASE, the six comparisons
+(numeric, date, decimal at a common scale, int128 two-limb, and varchar
+equality/order on dictionary codes), ``and``/``or``/``not`` with Kleene
+logic, ``between`` and ``in_list``, ``add``/``sub``/``mul``/``div`` over
+decimals (with the reference's rescaling, value-range bounds and the
+int128 path where a bound cannot prove an int64 fit), floats and integers,
+``extract_year`` and ``date_add_months`` on dates, and the
+dictionary-first ``like`` and ``substring``: the string work runs on the
+host once over the vocabulary, and each row is one gather by code on the
+device. Any other expression kind raises NotImplementedError naming
+itself.
 
 A lowered value is ``LoweredVal(vals, valid, dictionary, bound, hi)``;
 ``valid`` is a bool tensor or None (all valid). Data-dependent errors
@@ -17,6 +21,8 @@ and raised after execution, as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import operator
+import re
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -25,6 +31,7 @@ import torch
 from trino_tpu_torch import types as T
 from trino_tpu_torch.data.dictionary import NULL_CODE, Dictionary
 from trino_tpu_torch.data.page import Column, to_device, torch_dtype
+from trino_tpu_torch.ops import datetime_ops as dt
 from trino_tpu_torch.sql import ir
 
 DIVISION_BY_ZERO = "DIVISION_BY_ZERO"
@@ -83,6 +90,8 @@ def lower(expr: ir.Expr, ctx: LowerCtx) -> LoweredVal:
         return LoweredVal(col.values, valid, col.dictionary, bound, hi=col.hi)
     if isinstance(expr, ir.Constant):
         return _lower_constant(expr, ctx)
+    if isinstance(expr, ir.Case):
+        return _lower_case(expr, ctx)
     if isinstance(expr, ir.Call):
         fn = FUNCTIONS.get(expr.name)
         if fn is None:
@@ -119,15 +128,8 @@ def _align_varchar(a: LoweredVal, b: LoweredVal, device) -> Tuple[torch.Tensor, 
     if a.dictionary is b.dictionary or a.dictionary.values == b.dictionary.values:
         return a.vals, b.vals
     merged = a.dictionary.merge(b.dictionary)
-
-    def recode(lv: LoweredVal) -> torch.Tensor:
-        t = np.asarray(lv.dictionary.recode_table(merged))
-        table = to_device(t if len(t) else np.array([NULL_CODE], np.int32), device)
-        codes = lv.vals
-        return torch.where(codes >= 0, table[codes.long().clamp(min=0)],
-                           torch.full_like(codes, NULL_CODE))
-
-    return recode(a), recode(b)
+    return tuple(_code_lut(lv, lv.dictionary.recode_table(merged), NULL_CODE, device)
+                 for lv in (a, b))
 
 
 def as_i128(lv: LoweredVal):
@@ -137,29 +139,33 @@ def as_i128(lv: LoweredVal):
     return hi, lo
 
 
+def _compare(ctx: LowerCtx, op: Callable, a: LoweredVal, at: T.Type,
+             b: LoweredVal, bt: T.Type) -> LoweredVal:
+    """``op`` over two lowered operands of SQL types ``at`` and ``bt``."""
+    if a.hi is not None or b.hi is not None:
+        # two-limb operand(s): compare as int128 at the common scale
+        from trino_tpu_torch.ops import int128 as i128
+
+        if at.is_floating or bt.is_floating:
+            raise NotImplementedError("comparing a long decimal with a float")
+        s = max(_scale_of(at), _scale_of(bt))
+        a128 = i128.rescale(as_i128(a), _scale_of(at), s)
+        b128 = i128.rescale(as_i128(b), _scale_of(bt), s)
+        cmp = i128.compare(a128, b128)
+        return LoweredVal(op(cmp, torch.zeros_like(cmp)), and_valid(a.valid, b.valid))
+    if at.is_varchar and bt.is_varchar:
+        av, bv = _align_varchar(a, b, ctx.device)
+    elif at.is_nested or bt.is_nested or at.is_varchar or bt.is_varchar:
+        raise NotImplementedError(f"comparing {at} with {bt}")
+    else:
+        av, bv = _numeric_align(a.vals, at, b.vals, bt)
+    return LoweredVal(op(av, bv), and_valid(a.valid, b.valid))
+
+
 def _comparison(op: Callable) -> Callable:
     def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
-        a = lower(expr.args[0], ctx)
-        b = lower(expr.args[1], ctx)
-        at, bt = expr.args[0].type, expr.args[1].type
-        if a.hi is not None or b.hi is not None:
-            # two-limb operand(s): compare as int128 at the common scale
-            from trino_tpu_torch.ops import int128 as i128
-
-            if at.is_floating or bt.is_floating:
-                raise NotImplementedError("comparing a long decimal with a float")
-            s = max(_scale_of(at), _scale_of(bt))
-            a128 = i128.rescale(as_i128(a), _scale_of(at), s)
-            b128 = i128.rescale(as_i128(b), _scale_of(bt), s)
-            cmp = i128.compare(a128, b128)
-            return LoweredVal(op(cmp, torch.zeros_like(cmp)), and_valid(a.valid, b.valid))
-        if at.is_varchar and bt.is_varchar:
-            av, bv = _align_varchar(a, b, ctx.device)
-        elif at.is_nested or bt.is_nested or at.is_varchar or bt.is_varchar:
-            raise NotImplementedError(f"comparing {at} with {bt}")
-        else:
-            av, bv = _numeric_align(a.vals, at, b.vals, bt)
-        return LoweredVal(op(av, bv), and_valid(a.valid, b.valid))
+        a, b = expr.args
+        return _compare(ctx, op, lower(a, ctx), a.type, lower(b, ctx), b.type)
 
     return fn
 
@@ -270,16 +276,33 @@ def _decimal_arith(name: str, ctx: LowerCtx, a: LoweredVal, b: LoweredVal,
                 out_bound = _rescaled_bound(ba * bb, sa + sb, rs)
         if need128:
             if two_limb_in:
-                raise NotImplementedError("multiplying long decimals")
-            prod = i128.mul_int64(av.to(torch.int64), bv.to(torch.int64))
+                prod, ovm = i128.mul_checked(as_i128(a), as_i128(b))
+                ctx.add_error(DECIMAL_OVERFLOW, ovm, valid)
+            else:
+                prod = i128.mul_int64(av.to(torch.int64), bv.to(torch.int64))
             return _finish128(ctx, i128.rescale(prod, sa + sb, rs), valid, rt)
         out = _rescale_decimal(av.to(torch.int64) * bv.to(torch.int64), sa + sb, rs)
         return LoweredVal(out, valid, None, out_bound)
     if name == "div":
-        if b.hi is not None:
-            raise NotImplementedError("dividing by a long decimal")
-        ctx.add_error(DIVISION_BY_ZERO, bv == 0, valid)
         shift = rs - sa + sb
+        if b.hi is not None:
+            # two-limb divisor: full 128/128 long division, half-up
+            bh, bl = as_i128(b)
+            is_zero = (bh == 0) & (bl == 0)
+            ctx.add_error(DIVISION_BY_ZERO, is_zero, valid)
+            num128, ovn = i128.rescale_checked(as_i128(a), 0, shift)
+            ctx.add_error(DECIMAL_OVERFLOW, ovn, valid)
+            nabs, nneg = i128.abs128(num128)
+            dabs, dneg = i128.abs128((bh, torch.where(is_zero, torch.ones_like(bl), bl)))
+            q, r = i128.divmod_u128(nabs, dabs)
+            r2 = i128.add(r, r)  # round half away from zero: 2r >= d
+            up = i128._ult(dabs[0], r2[0]) | ((r2[0] == dabs[0]) & i128._uge(r2[1], dabs[1]))
+            q = i128.add(q, (torch.zeros_like(q[0]), up.to(torch.int64)))
+            negq = i128.neg(q)
+            flip = nneg ^ dneg
+            out128 = (torch.where(flip, negq[0], q[0]), torch.where(flip, negq[1], q[1]))
+            return _finish128(ctx, out128, valid, rt)
+        ctx.add_error(DIVISION_BY_ZERO, bv == 0, valid)
         den64 = torch.where(bv == 0, torch.ones_like(bv), bv).to(torch.int64)
         need128 = two_limb_in or pa + shift > 18
         if need128 and have_bounds and ba * 10 ** max(shift, 0) < _INT64_SAFE:
@@ -366,17 +389,224 @@ def _lower_or(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
     return LoweredVal(known_true, known_true | (a_valid & b_valid))
 
 
+def _lower_not(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    a = lower(expr.args[0], ctx)
+    return LoweredVal(~a.vals, a.valid)
+
+
+def _lower_between(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    x, lo, hi = expr.args
+    xl = lower(x, ctx)  # once: x may be host vocabulary work (substring)
+    ge = _compare(ctx, operator.ge, xl, x.type, lower(lo, ctx), lo.type)
+    le = _compare(ctx, operator.le, xl, x.type, lower(hi, ctx), hi.type)
+    return LoweredVal(ge.vals & le.vals, and_valid(ge.valid, le.valid))
+
+
+def _lower_in_list(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """x IN (c1, ..., cn): TRUE if any item matches; NULL if none matches
+    and x or a list item is NULL; else FALSE. x is lowered once, not once
+    per item: it may be host vocabulary work (Q22's substring)."""
+    hits = None
+    any_null_item = False
+    x = expr.args[0]
+    xl = lower(x, ctx)
+    for item in expr.args[1:]:
+        if isinstance(item, ir.Constant) and item.value is None:
+            any_null_item = True
+            continue
+        eq = _compare(ctx, operator.eq, xl, x.type, lower(item, ctx), item.type)
+        h = eq.vals if eq.valid is None else eq.vals & eq.valid
+        hits = h if hits is None else hits | h
+    if hits is None:
+        hits = torch.zeros((ctx.num_rows,), dtype=torch.bool, device=ctx.device)
+    x_null = torch.zeros_like(hits) if xl.valid is None else ~xl.valid
+    unknown = (~hits) & (x_null | any_null_item)
+    return LoweredVal(hits, ~unknown if (any_null_item or xl.valid is not None) else None)
+
+
+def _code_lut(x: LoweredVal, lut: np.ndarray, miss, device) -> torch.Tensor:
+    """Per-row gather of a host table indexed by dictionary code; NULL
+    codes read ``miss``."""
+    table = to_device(lut if len(lut) else np.full((1,), miss, lut.dtype), device)
+    codes = x.vals.long()
+    got = table[codes.clamp(0, max(len(lut) - 1, 0))]
+    return torch.where(codes >= 0, got, torch.full_like(got, miss))
+
+
+def _lower_like(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """LIKE on dictionary-coded varchar: the pattern runs on the host once
+    over the vocabulary, and the device gathers the boolean table by code."""
+    x = lower(expr.args[0], ctx)
+    pat = expr.args[1]
+    if not isinstance(pat, ir.Constant) or x.dictionary is None:
+        raise NotImplementedError("LIKE with a non-literal pattern")
+    rx = re.compile(_like_to_regex(pat.value), re.S)
+    lut = np.array([rx.fullmatch(v) is not None for v in x.dictionary.values], dtype=bool)
+    return LoweredVal(_code_lut(x, lut, False, ctx.device), x.valid)
+
+
+def _like_to_regex(pattern: str, escape: Optional[str] = None) -> str:
+    out = []
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if escape and c == escape and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        if c == "%":
+            out.append(".*")
+        elif c == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(c))
+        i += 1
+    return "".join(out)
+
+
+def _vocab_transform(ctx: LowerCtx, x: LoweredVal, fn) -> LoweredVal:
+    """A host string -> string function applied once over the vocabulary,
+    an order-preserving dictionary rebuilt from the results, and the codes
+    recoded on the device by one gather."""
+    mapped = [fn(v) for v in x.dictionary.values]
+    d_new = Dictionary.build(mapped)
+    lut = np.array([d_new.code_of(m) for m in mapped], dtype=np.int32)
+    return LoweredVal(_code_lut(x, lut, NULL_CODE, ctx.device), x.valid, d_new)
+
+
+def _sql_substring(v: str, start: int, length: Optional[int]) -> str:
+    """Trino substr: 1-based; start 0 or out of range gives ''; a negative
+    start counts from the end; the length bounds the window from the
+    normalized start."""
+    n = len(v)
+    if start == 0:
+        return ""
+    if start > 0:
+        if start > n:
+            return ""
+        i = start - 1
+    else:
+        if -start > n:
+            return ""
+        i = n + start
+    end = n if length is None else min(n, i + max(length, 0))
+    return v[i:end]
+
+
+def _lower_substring(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    x = lower(expr.args[0], ctx)
+    consts = expr.args[1:]
+    if x.dictionary is None or not all(isinstance(c, ir.Constant) for c in consts):
+        raise NotImplementedError("substring with non-literal bounds")
+    start = int(consts[0].value)
+    length = int(consts[1].value) if len(consts) > 1 else None
+    return _vocab_transform(ctx, x, lambda v: _sql_substring(v, start, length))
+
+
+def _lower_extract_year(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    a = lower(expr.args[0], ctx)
+    t = expr.args[0].type
+    if t != T.DATE:
+        raise NotImplementedError(f"extract(year) over {t}")
+    return LoweredVal(dt.extract_year(a.vals), a.valid)
+
+
+def _lower_date_add_months(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    a = lower(expr.args[0], ctx)
+    n = lower(expr.args[1], ctx)
+    t = expr.args[0].type
+    if t != T.DATE:
+        raise NotImplementedError(f"date_add_months over {t}")
+    out = dt.add_months(a.vals, n.vals).to(torch.int32)
+    return LoweredVal(out, and_valid(a.valid, n.valid))
+
+
+def _unify_branch_dicts(branches, device):
+    """Branch values recoded onto one merged vocabulary (CASE results must
+    agree on codes; literal and column dictionaries differ). Returns
+    (recoded branches, merged dictionary)."""
+    merged = None
+    for v in branches:
+        if v is None or v.dictionary is None:
+            continue
+        if merged is None:
+            merged = v.dictionary
+        elif merged.values != v.dictionary.values:
+            merged = merged.merge(v.dictionary)
+    if merged is None:
+        return branches, None
+
+    def recode(v):
+        if v is None or v.dictionary is None or v.dictionary.values == merged.values:
+            return v
+        tbl = v.dictionary.recode_table(merged)
+        return LoweredVal(_code_lut(v, tbl, NULL_CODE, device), v.valid, merged, hi=v.hi)
+
+    return [recode(v) for v in branches], merged
+
+
+def _lower_case(expr: ir.Case, ctx: LowerCtx) -> LoweredVal:
+    """Searched CASE: the first WHEN whose condition is TRUE wins; no
+    match and no ELSE gives NULL."""
+    dtype = torch_dtype(expr.type.np_dtype)
+    n = ctx.num_rows
+    vals = torch.zeros((n,), dtype=dtype, device=ctx.device)
+    valid = torch.zeros((n,), dtype=torch.bool, device=ctx.device)
+    decided = torch.zeros_like(valid)
+    true = torch.ones_like(valid)
+    dictionary = None
+    hi = None  # grows when any branch carries a two-limb long decimal
+    conds = [lower(c, ctx) for c, _ in expr.whens]
+    branch_vals = [lower(v, ctx) for _, v in expr.whens]
+    default_l = lower(expr.default, ctx) if expr.default is not None else None
+    if expr.type.is_varchar:
+        unified, dictionary = _unify_branch_dicts(branch_vals + [default_l], ctx.device)
+        branch_vals, default_l = unified[:-1], unified[-1]
+    for c, v in zip(conds, branch_vals):
+        cv = c.vals if c.valid is None else c.vals & c.valid
+        take = cv & ~decided
+        if v.hi is not None and hi is None:
+            hi = vals.to(torch.int64) >> 63  # promote the branches so far
+        if hi is not None:
+            vh, vl = as_i128(v)
+            vals = torch.where(take, vl, vals.to(torch.int64))
+            hi = torch.where(take, vh, hi)
+        else:
+            vals = torch.where(take, v.vals.to(dtype), vals)
+        valid = torch.where(take, v.valid if v.valid is not None else true, valid)
+        decided = decided | take
+    if default_l is not None:
+        d = default_l
+        if d.hi is not None and hi is None:
+            hi = vals.to(torch.int64) >> 63
+        if hi is not None:
+            dh, dl = as_i128(d)
+            vals = torch.where(decided, vals.to(torch.int64), dl)
+            hi = torch.where(decided, hi, dh)
+        else:
+            vals = torch.where(decided, vals, d.vals.to(dtype))
+        valid = torch.where(decided, valid, d.valid if d.valid is not None else true)
+    return LoweredVal(vals, valid, dictionary, hi=hi)
+
+
 FUNCTIONS: Dict[str, Callable[..., LoweredVal]] = {
-    "eq": _comparison(lambda a, b: a == b),
-    "ne": _comparison(lambda a, b: a != b),
-    "lt": _comparison(lambda a, b: a < b),
-    "le": _comparison(lambda a, b: a <= b),
-    "gt": _comparison(lambda a, b: a > b),
-    "ge": _comparison(lambda a, b: a >= b),
+    "eq": _comparison(operator.eq),
+    "ne": _comparison(operator.ne),
+    "lt": _comparison(operator.lt),
+    "le": _comparison(operator.le),
+    "gt": _comparison(operator.gt),
+    "ge": _comparison(operator.ge),
     "add": _arith("add"),
     "sub": _arith("sub"),
     "mul": _arith("mul"),
     "div": _arith("div"),
     "and": _lower_and,
     "or": _lower_or,
+    "not": _lower_not,
+    "between": _lower_between,
+    "in_list": _lower_in_list,
+    "like": _lower_like,
+    "substring": _lower_substring,
+    "extract_year": _lower_extract_year,
+    "date_add_months": _lower_date_add_months,
 }

@@ -111,6 +111,50 @@ def mul_small_checked(a: I128, m: int) -> Tuple[I128, torch.Tensor]:
     return (torch.where(n, nres[0], res[0]), torch.where(n, nres[1], res[1])), overflow
 
 
+def mul_checked(a: I128, b: I128) -> Tuple[I128, torch.Tensor]:
+    """(a * b, overflowed) for two int128 operands: the low 128 bits of the
+    signed product, flagging rows whose |a|*|b| exceeds 2^127 - 1."""
+    (ahi, alo), na = abs128(a)
+    (bhi, blo), nb = abs128(b)
+    p_hi, p_lo = _mul_u64(alo, blo)  # |a|.lo * |b|.lo, 128-bit
+    c1_hi, c1_lo = _mul_u64(alo, bhi)  # contributes << 64
+    c2_hi, c2_lo = _mul_u64(ahi, blo)  # contributes << 64
+    hh = (ahi != 0) & (bhi != 0)  # |a|.hi * |b|.hi is always >= 2^128
+    hi1 = p_hi + c1_lo
+    hi2 = hi1 + c2_lo
+    overflow = (hh | (c1_hi != 0) | (c2_hi != 0) | _ult(hi1, p_hi) | _ult(hi2, hi1)
+                | (hi2 < 0))  # >= 2^127
+    res = (hi2, p_lo)
+    nres = neg(res)
+    flip = na ^ nb
+    return (torch.where(flip, nres[0], res[0]), torch.where(flip, nres[1], res[1])), overflow
+
+
+def divmod_u128(a: I128, b: I128) -> Tuple[I128, I128]:
+    """Unsigned 128/128 division of non-negative operands (b > 0):
+    shift-subtract long division, 128 vector steps. Returns (quotient,
+    remainder)."""
+    n_hi, n_lo = a
+    d_hi, d_lo = b
+    r_hi = torch.zeros_like(n_hi)
+    r_lo = torch.zeros_like(n_lo)
+    q_hi = torch.zeros_like(n_hi)
+    q_lo = torch.zeros_like(n_lo)
+    for i in range(127, -1, -1):
+        bit = _lsr(n_hi, i - 64) & 1 if i >= 64 else _lsr(n_lo, i) & 1
+        r_hi = (r_hi << 1) | _lsr(r_lo, 63)
+        r_lo = (r_lo << 1) | bit
+        ge = _ult(d_hi, r_hi) | ((r_hi == d_hi) & _uge(r_lo, d_lo))
+        borrow = _ult(r_lo, d_lo).to(torch.int64)
+        r_lo = torch.where(ge, r_lo - d_lo, r_lo)
+        r_hi = torch.where(ge, r_hi - d_hi - borrow, r_hi)
+        if i >= 64:
+            q_hi = q_hi | (ge.to(torch.int64) << (i - 64))
+        else:
+            q_lo = q_lo | (ge.to(torch.int64) << i)
+    return (q_hi, q_lo), (r_hi, r_lo)
+
+
 def _divmod_core(hi: torch.Tensor, lo: torch.Tensor, dd: torch.Tensor):
     """Unsigned (hi, lo) divided by ``dd`` (0 < dd < 2^63, hi < 2^63 — the
     callers divide absolute values): divide the high word, then

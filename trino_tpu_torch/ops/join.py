@@ -1,6 +1,5 @@
 """Join kernels: lookup (N:1) and semi/anti membership, sort-merge and dense
-direct-address — the port of trino_tpu/ops/join.py (M:N expansion is not
-ported yet).
+direct-address, and the M:N expansion — the port of trino_tpu/ops/join.py.
 
 The build side sorts by key once; probe ranges come from merge ranks
 (ops/ranks.py). Single-key builds mask dead rows with the key dtype's max
@@ -174,6 +173,29 @@ def probe_counts(
     if probe_sel is not None:
         counts = torch.where(probe_sel, counts, zero)
     return lo, counts
+
+
+def expand(counts: torch.Tensor, capacity: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Map output slot j -> (probe row, offset within its match range).
+
+    Returns (probe_row[cap], offset_in_range[cap], live[cap], total), all
+    indices int64. The output is probe-major: all matches of probe row 0,
+    then row 1, and so on."""
+    n = counts.shape[0]
+    device = counts.device
+    if n == 0:  # zero-row probe page: every output slot dead
+        z = torch.zeros((capacity,), dtype=torch.int64, device=device)
+        return z, z, torch.zeros((capacity,), dtype=torch.bool, device=device), \
+            torch.zeros((), dtype=torch.int64, device=device)
+    offsets = torch.cumsum(counts.to(torch.int64), 0)  # inclusive; totals pass 2^31
+    total = offsets[n - 1]
+    starts = offsets - counts.to(torch.int64)
+    j = torch.arange(capacity, dtype=torch.int64, device=device)
+    p = torch.searchsorted(offsets, j, right=True).clamp(0, n - 1)
+    k = j - starts[p]
+    live = j < torch.clamp(total, max=capacity)
+    return p, k, live, total
 
 
 def probe_unique(

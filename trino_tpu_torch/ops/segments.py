@@ -56,6 +56,13 @@ class GroupLayout:
     def gids_layout(self) -> torch.Tensor:
         return self.gids if self.gids is not None else self.gid_sorted
 
+    def gids_orig(self) -> torch.Tensor:
+        """Per-row group ids in original row order (for nested regroupings
+        such as count(DISTINCT))."""
+        if self.gids is not None:
+            return self.gids
+        return ranks.apply_inverse(self.order, [self.gid_sorted])[0]
+
 
 def direct_layout(gids: torch.Tensor, capacity: int,
                   live: Optional[torch.Tensor]) -> GroupLayout:
