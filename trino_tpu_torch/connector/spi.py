@@ -129,15 +129,72 @@ class ColumnData:
     hi: Optional[np.ndarray] = None
 
 
+@dataclasses.dataclass
+class ColumnParts:
+    """A flat column's scanned parts, recoded onto one merged dictionary,
+    before they are joined: the per-part arrays (a part without nulls gets
+    all-False nulls, one without a high limb the sign extension of its low
+    word) and the table-wide metadata of the whole."""
+
+    type: T.Type
+    values: List[np.ndarray]
+    nulls: Optional[List[np.ndarray]]
+    hi: Optional[List[np.ndarray]]
+    dictionary: Optional[Dictionary]
+    vrange: Optional[tuple]
+    sorted: bool
+
+
+def column_parts(cols: Sequence[ColumnData]) -> ColumnParts:
+    """Merge the varchar dictionaries of flat column parts where they
+    disagree (range-dependent vocabularies) and recode only the parts whose
+    vocabulary differs; union the vranges. The one rule behind both
+    ``concat_column_data`` and the engine's scan staging, which copies each
+    part straight into its slice of a device column."""
+    from trino_tpu_torch.data.page import merge_vrange
+
+    vrange = cols[0].vrange
+    for cd in cols[1:]:
+        vrange = merge_vrange(vrange, cd.vrange)
+    d = cols[0].dictionary
+    if d is not None:
+        for cd in cols[1:]:
+            if cd.dictionary is not d and cd.dictionary.values != d.values:
+                d = d.merge(cd.dictionary)
+    values = []
+    for cd in cols:
+        v = np.asarray(cd.values)
+        if d is not None and cd.dictionary is not d and cd.dictionary.values != d.values:
+            v = np.where(v >= 0, np.asarray(cd.dictionary.recode_table(d))[np.clip(v, 0, None)],
+                         -1).astype(np.int32)
+        values.append(v)
+    nulls = None
+    if any(cd.nulls is not None for cd in cols):
+        nulls = [np.asarray(cd.nulls) if cd.nulls is not None else np.zeros(len(v), bool)
+                 for cd, v in zip(cols, values)]
+    hi = None
+    if any(cd.hi is not None for cd in cols):
+        hi = [np.asarray(cd.hi) if cd.hi is not None else v.astype(np.int64) >> 63
+              for cd, v in zip(cols, values)]
+    # sortedness survives when every part is sorted AND callers pass parts
+    # in ascending key order (connector scans enumerate ranges ascending);
+    # last-of-prev <= first-of-next is verified cheaply
+    srt = all(cd.sorted for cd in cols)
+    if srt:
+        for a, b in zip(cols, cols[1:]):
+            va, vb = np.asarray(a.values), np.asarray(b.values)
+            if len(va) and len(vb) and va[-1] > vb[0]:
+                srt = False
+                break
+    return ColumnParts(cols[0].type, values, nulls, hi, d, vrange, srt)
+
+
 def concat_column_data(cols: Sequence[ColumnData]) -> ColumnData:
-    """Host-side row-wise concat of scanned column parts, merging varchar
-    dictionaries when parts disagree (range-dependent vocabularies). The
-    single shared implementation for engine scan assembly and connectors."""
+    """Host-side row-wise concat of scanned column parts (``column_parts``
+    joined). The single shared implementation for connectors."""
     assert cols
     if len(cols) == 1:
         return cols[0]
-    from trino_tpu_torch.data.page import merge_vrange
-
     if cols[0].children is not None:
         # nested: lengths concatenate; flat children concatenate recursively
         vals = np.concatenate([np.asarray(cd.values) for cd in cols])
@@ -156,54 +213,13 @@ def concat_column_data(cols: Sequence[ColumnData]) -> ColumnData:
         ]
         return ColumnData(cols[0].type, vals, nulls, children=kids)
 
-    vrange = cols[0].vrange
-    for cd in cols[1:]:
-        vrange = merge_vrange(vrange, cd.vrange)
-    d = cols[0].dictionary
-    if d is not None:
-        for cd in cols[1:]:
-            if cd.dictionary.values != d.values:
-                d = d.merge(cd.dictionary)
-        vals = np.concatenate([
-            np.where(
-                np.asarray(cd.values) >= 0,
-                np.asarray(cd.dictionary.recode_table(d))[
-                    np.clip(np.asarray(cd.values), 0, None)],
-                -1,
-            ).astype(np.int32)
-            if cd.dictionary.values != d.values
-            else np.asarray(cd.values)
-            for cd in cols
-        ])
-    else:
-        vals = np.concatenate([np.asarray(cd.values) for cd in cols])
-    nulls = (
-        np.concatenate([
-            np.asarray(cd.nulls) if cd.nulls is not None
-            else np.zeros(len(cd.values), bool)
-            for cd in cols
-        ])
-        if any(cd.nulls is not None for cd in cols)
-        else None
-    )
-    if any(cd.hi is not None for cd in cols):
-        hi = np.concatenate([
-            np.asarray(cd.hi) if cd.hi is not None
-            else (np.asarray(cd.values).astype(np.int64) >> 63)
-            for cd in cols
-        ])
-        return ColumnData(cols[0].type, vals.astype(np.int64), nulls, hi=hi)
-    # sortedness survives concat when every part is sorted AND callers pass
-    # parts in ascending key order (connector scans enumerate ranges
-    # ascending); last-of-prev <= first-of-next is verified cheaply
-    srt = all(cd.sorted for cd in cols)
-    if srt:
-        for a, b in zip(cols, cols[1:]):
-            va, vb = np.asarray(a.values), np.asarray(b.values)
-            if len(va) and len(vb) and va[-1] > vb[0]:
-                srt = False
-                break
-    return ColumnData(cols[0].type, vals, nulls, d, vrange, srt)
+    parts = column_parts(cols)
+    vals = np.concatenate(parts.values)
+    nulls = np.concatenate(parts.nulls) if parts.nulls is not None else None
+    if parts.hi is not None:
+        return ColumnData(parts.type, vals.astype(np.int64), nulls,
+                          hi=np.concatenate(parts.hi))
+    return ColumnData(parts.type, vals, nulls, parts.dictionary, parts.vrange, parts.sorted)
 
 
 def column_data_from_column(col) -> ColumnData:

@@ -10,6 +10,10 @@ The physical dtypes are the reference's: integer, date and decimal columns
 whose table-wide ``vrange`` fits int32 ride int32 (``fits_int32``), so the
 dense-join gate, the merge kernel's int32 contract and ``vrange`` agree
 with the JAX package. Nested (array/map/row) columns are not ported.
+
+Python rows enter as host ``ColumnData`` (``column_data_from_python``,
+used by the memory connector and VALUES) and reach the device only
+through staging or ``to_device``.
 """
 from __future__ import annotations
 
@@ -82,11 +86,12 @@ class Column:
         if self.hi is not None:
             his = host(self.hi).tolist()
             los = vals.astype(np.int64).view(np.uint64).tolist()
-            out = [_from_repr(self.type, (h << 64) | lo) for h, lo in zip(his, los)]
+            decode = _repr_decoder(self.type)
+            out = [decode((h << 64) | lo) for h, lo in zip(his, los)]
         elif self.type.is_varchar:
             out = self.dictionary.decode(vals)
         else:
-            out = [_from_repr(self.type, v) for v in vals.tolist()]
+            out = list(map(_repr_decoder(self.type), vals.tolist()))
         if nulls is not None:
             out = [None if isnull else v for v, isnull in zip(out, nulls)]
         return out
@@ -107,6 +112,110 @@ def merge_vrange(a, b):
     if a is None or b is None:
         return None
     return (min(a[0], b[0]), max(a[1], b[1]))
+
+
+def _repr_encoder(typ: T.Type):
+    """Python value -> storage representation (int days, scaled int, ...)
+    for one type: the type is dispatched once, the function returned runs
+    per value."""
+    if isinstance(typ, T.TimestampType):
+        import datetime
+
+        unit = 10 ** typ.precision
+        epoch = datetime.datetime(1970, 1, 1)
+
+        def timestamp(v):
+            if isinstance(v, str):
+                v = datetime.datetime.fromisoformat(v)
+            if isinstance(v, datetime.datetime):
+                if v.tzinfo is not None:
+                    v = v.astimezone(datetime.timezone.utc).replace(tzinfo=None)
+                delta = v - epoch
+                micros = (delta.days * 86_400_000_000
+                          + delta.seconds * 1_000_000 + delta.microseconds)
+                return micros * unit // 1_000_000
+            if isinstance(v, datetime.date):
+                return (v - datetime.date(1970, 1, 1)).days * 86_400 * unit
+            return int(v)
+
+        return timestamp
+    if typ == T.DATE:
+        import datetime
+
+        epoch = datetime.date(1970, 1, 1)
+
+        def date(v):
+            if isinstance(v, str):
+                v = datetime.date.fromisoformat(v)
+            if isinstance(v, datetime.date):
+                return (v - epoch).days
+            return int(v)
+
+        return date
+    if typ.is_decimal:
+        import decimal
+
+        ctx = decimal.getcontext().copy()
+        ctx.prec = 60  # p=38 plus headroom: scaleb must not round
+        scale = typ.scale
+
+        def scaled(v):
+            return int(decimal.Decimal(str(v)).scaleb(scale, context=ctx)
+                       .to_integral_value(context=ctx))
+
+        return scaled
+    if typ == T.BOOLEAN:
+        return bool
+    if typ.is_floating:
+        return float
+    return int
+
+
+def column_data_from_python(typ: T.Type, data: Sequence):
+    """Python values (None = NULL) -> a host ``ColumnData``: what the
+    reference's ``Column.from_python`` and ``spi.column_data_from_column``
+    give together, without a trip through the device. Long decimals beyond
+    int64 take two limbs."""
+    from trino_tpu_torch.connector.spi import ColumnData
+
+    n = len(data)
+    nulls = (np.array([v is None for v in data], dtype=np.bool_)
+             if any(v is None for v in data) else None)
+    if typ.is_varchar:
+        if typ.is_varbinary:
+            # bytes ride the dictionary as hex strings (hex order is
+            # unsigned-byte order)
+            data = [v.hex() if isinstance(v, (bytes, bytearray)) else v for v in data]
+        d = Dictionary.build(data)
+        return ColumnData(typ, d.encode(list(data)), nulls, d)
+    if typ.is_nested:
+        raise NotImplementedError(f"nested column {typ} is not ported")
+    np_dtype = typ.np_dtype
+    encode = _repr_encoder(typ)
+    reprs = [0 if v is None else encode(v) for v in data]
+    if typ.is_decimal and any(
+            isinstance(r, int) and not -(2**63) <= r < 2**63 for r in reprs):
+        lo = np.array([r & (2**64 - 1) for r in reprs], dtype=np.uint64)
+        hi = np.array([r >> 64 for r in reprs], dtype=np.int64)
+        return ColumnData(typ, lo.view(np.int64), nulls, hi=hi)
+    arr = np.array(reprs, dtype=np_dtype) if n else np.empty(0, dtype=np_dtype)
+    return ColumnData(typ, arr, nulls)
+
+
+def host_take(c: Column, idx: np.ndarray) -> Column:
+    """Row gather through the host (numpy), back onto the column's device.
+    The sorted flag survives only order-preserving gathers."""
+    device = c.values.device
+    monotone = bool(c.ascending) and (len(idx) < 2 or bool(np.all(np.diff(idx) >= 0)))
+    return Column(
+        c.type,
+        to_device(to_numpy(c.values)[idx], device),
+        to_device(to_numpy(c.nulls)[idx], device) if c.nulls is not None else None,
+        c.dictionary,
+        c.vrange,
+        ascending=monotone,
+        hi=to_device(to_numpy(c.hi)[idx], device) if c.hi is not None else None,
+    )
 
 
 def _concat_col(ca: Column, cb: Column) -> Column:
@@ -142,32 +251,50 @@ def _concat_col(ca: Column, cb: Column) -> Column:
     return Column(ca.type, torch.cat([va, vb]), nulls, d, vr, hi=hi)
 
 
-def _from_repr(typ: T.Type, r):
+def _repr_decoder(typ: T.Type):
+    """Storage representation -> Python value for one type, dispatched
+    once; the function returned runs per value."""
     if isinstance(typ, T.TimestampType):
         import datetime
 
         unit = 10 ** typ.precision
-        micros = int(r) * 1_000_000 // unit
         base = datetime.datetime(
             1970, 1, 1,
             tzinfo=datetime.timezone.utc if typ.with_tz else None)
-        return base + datetime.timedelta(microseconds=micros)
+
+        def timestamp(r):
+            return base + datetime.timedelta(microseconds=int(r) * 1_000_000 // unit)
+
+        return timestamp
     if typ == T.DATE:
         import datetime
 
-        return datetime.date(1970, 1, 1) + datetime.timedelta(days=int(r))
+        epoch = datetime.date(1970, 1, 1)
+
+        def date(r):
+            return epoch + datetime.timedelta(days=int(r))
+
+        return date
     if typ.is_decimal:
         import decimal
-        from decimal import Decimal
 
-        with decimal.localcontext() as ctx:
-            ctx.prec = 60
-            return Decimal(r).scaleb(-typ.scale)
+        ctx = decimal.getcontext().copy()
+        ctx.prec = 60
+        scale = -typ.scale
+
+        def scaled(r):
+            return decimal.Decimal(r).scaleb(scale, context=ctx)
+
+        return scaled
     if typ == T.BOOLEAN:
-        return bool(r)
+        return bool
     if typ.is_floating:
-        return float(r)
-    return int(r)
+        return float
+    return int
+
+
+def _from_repr(typ: T.Type, r):
+    return _repr_decoder(typ)(r)
 
 
 @dataclasses.dataclass
@@ -207,6 +334,13 @@ class Page:
             (b.num_rows,), dtype=torch.bool, device=cols[0].values.device)
         return Page(cols, torch.cat([sa, sb]))
 
+    def compact(self) -> "Page":
+        """Drop dead rows (a gather through the host)."""
+        if self.sel is None:
+            return self
+        idx = np.nonzero(to_numpy(self.sel))[0]
+        return Page([host_take(c, idx) for c in self.columns], None)
+
     def to_pylist(self) -> List[tuple]:
         """Materialize live rows as Python tuples (host side)."""
         idx = None
@@ -215,7 +349,7 @@ class Page:
             idx = np.nonzero(to_numpy(self.sel))[0]
             n = len(idx)
         cols = [c.to_python(idx) for c in self.columns]
-        return [tuple(col[i] for col in cols) for i in range(n)]
+        return list(zip(*cols)) if cols else [()] * n
 
 
 def page_from_numpy(columns: Iterable, sel=None, *, live_prefix: bool = False,

@@ -4,15 +4,19 @@ trino_tpu/exec/executor.py for the local path.
 Each plan node is a whole-column tensor transformation on the session's
 device: filters keep selection masks instead of compacting, aggregations
 emit padded outputs with a live-group prefix, sorts move dead rows last.
-Ported nodes: TableScan (connector splits straight to the device, with
-host-side dynamic-filter pruning), Filter, Compact, Project, Aggregation
-(single step, count(DISTINCT) included), Join (N:1 lookup and semi/anti
-through the dense / fused / merge tier gate; M:N inner and left expansion,
-semi/anti with a residual filter, the singleton cross join of a scalar
-subquery and the true cross join), Sort, TopN, Limit and Output. An
-expansion's output is sized by one host read of its exact total. The
-device cache, the staging pool, spill and the compiled tier are not
-ported.
+Ported nodes: TableScan (adaptive splits staged in parallel through the
+host-RAM tier and double-buffered copies, exec/staging.py, behind the
+opt-in device table cache, devcache/), Values, Filter, Compact, Project,
+Aggregation (single step, count(DISTINCT) included), Join (N:1 lookup and
+semi/anti through the dense / fused / merge tier gate, where a bare
+cached scan's sorted build goes to the merge tier; M:N inner and left
+expansion, semi/anti with a residual filter, the singleton cross join of a
+scalar subquery and the true cross join), Sort, TopN, Limit and Output.
+An expansion's output is sized by one host read of its exact total. A
+per-query MemoryContext (exec/memory.py) observes every node's output
+bytes; over the ``query_max_device_memory`` budget, joins and grouped
+aggregations hash-partition their inputs on the host and run in passes.
+The compiled tier is not ported.
 
 Data-dependent runtime errors (division by zero, decimal overflow,
 capacity overflow, a scalar subquery without exactly one row) are
@@ -21,14 +25,16 @@ collected as boolean flags and checked once after execution.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from trino_tpu_torch import types as T
-from trino_tpu_torch.data.page import (Column, Page, fits_int32, to_device, to_numpy,
-                                      torch_dtype)
+from trino_tpu_torch.data.page import (Column, Page, column_data_from_python, to_device,
+                                      to_numpy, torch_dtype)
+from trino_tpu_torch.exec import memory as _mem
 from trino_tpu_torch.obs import metrics as M
 from trino_tpu_torch.ops import aggregate as agg_ops
 from trino_tpu_torch.ops import expr_lower as L
@@ -163,30 +169,6 @@ def apply_dynamic_domains(node, dyn_domains, datas):
     return out
 
 
-def page_from_host_columns(column_types, host_cols, device) -> Page:
-    """Host ColumnData list -> device Page, with the reference's physical
-    int32 narrowing of provably fitting int64 columns (table-wide vrange)."""
-    if host_cols is None:
-        return Page.all_dead(column_types, device)
-    cols = []
-    for typ, cd in zip(column_types, host_cols):
-        if typ.is_nested:
-            raise NotImplementedError(f"scanning a {typ} column")
-        vals = np.asarray(cd.values)
-        if cd.hi is None and vals.dtype == np.int64 and fits_int32(cd.vrange):
-            vals = vals.astype(np.int32)
-        cols.append(Column(
-            typ,
-            to_device(vals, device),
-            to_device(np.asarray(cd.nulls), device) if cd.nulls is not None else None,
-            cd.dictionary,
-            cd.vrange,
-            ascending=bool(getattr(cd, "sorted", False)),
-            hi=to_device(np.asarray(cd.hi), device) if cd.hi is not None else None,
-        ))
-    return Page(cols)
-
-
 class Executor:
     """Eager plan interpreter on ``session.device``; ``execute_checked``
     runs the plan and raises deferred errors."""
@@ -205,6 +187,13 @@ class Executor:
         self.props = getattr(session, "properties", None) or {}
         self.enable_dynamic_filtering = bool(
             self.props.get("dynamic_filtering_enabled", True))
+        # per scan node: the device-cache disposition (hit | miss | bypass)
+        # and the rows its page holds
+        self.scan_cache: Dict[int, str] = {}
+        self.scan_stats: Dict[int, int] = {}
+        # device-memory budget, peak and spill decisions (exec/memory.py)
+        self.memory = _mem.MemoryContext(self.props.get("query_max_device_memory"))
+        self.spill_enabled = bool(self.props.get("spill_enabled", True))
 
     # ------------------------------------------------------------------ api
     def execute_checked(self, node: P.PlanNode) -> Page:
@@ -219,7 +208,10 @@ class Executor:
         method = getattr(self, f"_exec_{type(node).__name__}", None)
         if method is None:
             raise NotImplementedError(f"executor: {type(node).__name__} is not ported")
-        return method(node)
+        page = method(node)
+        # each operator's output rolls into the query's peak (exact bytes)
+        self.memory.observe(_mem.page_bytes(page))
+        return page
 
     def _narrow_lowered_or_flag(self, arg, hi_l, sel_l=None):
         """Degrade a two-limb argument to its low word for consumers without
@@ -243,22 +235,57 @@ class Executor:
         return out
 
     # ----------------------------------------------------------------- scan
+    def _host_applied_domains(self, node: P.TableScanNode) -> Dict:
+        """The dynamic domains this executor applies on the host at the scan:
+        part of the cache signature (devcache/keys.py)."""
+        return dynamic_domain_map(node, self.dyn_domains)
+
     def _exec_TableScanNode(self, node: P.TableScanNode) -> Page:
-        from trino_tpu_torch.connector.spi import concat_column_data
+        from trino_tpu_torch import devcache
+        from trino_tpu_torch.exec import staging
 
         conn = self.session.catalogs[node.catalog]
         constraint = scan_constraint_with(node, self.dyn_domains)
-        splits = conn.get_splits(node.schema, node.table, 1, constraint=constraint,
-                                 handle=node.table_handle)
-        columns = list(node.column_names)
-        datas = [conn.scan(s, columns, constraint=constraint) for s in splits]
-        datas = apply_dynamic_domains(node, self.dyn_domains, datas)
-        host_cols = None
-        if datas:
-            host_cols = [concat_column_data([d[c] for d in datas]) for c in columns]
-            if len(np.asarray(host_cols[0].values)) == 0:
-                host_cols = None
-        return page_from_host_columns(node.column_types, host_cols, self.device)
+        applied = self._host_applied_domains(node)
+
+        def load():
+            t0 = time.perf_counter()
+            # adaptive split sizing (a pushdown handle stays one split)
+            target = staging.target_split_count(
+                self.session, conn, node.schema, node.table,
+                handle=node.table_handle)
+            splits = conn.get_splits(node.schema, node.table, target,
+                                     constraint=constraint, handle=node.table_handle)
+
+            def prune(datas):
+                return apply_dynamic_domains(node, self.dyn_domains, datas)
+
+            page, scanned, _prof = staging.staged_scan_page(
+                self.session, node, conn, splits, constraint,
+                prune=prune, applied_domains=applied)
+            M.STAGING_SECONDS.inc(time.perf_counter() - t0)
+            return page, scanned, _mem.page_bytes(page), len(splits)
+
+        ent, disposition = devcache.cached_stage(
+            self.session, node, constraint, applied, "table", load)
+        self.scan_cache[node.id] = disposition
+        self.scan_stats[node.id] = ent.rows
+        return ent.value
+
+    def _exec_ValuesNode(self, node: P.ValuesNode) -> Page:
+        cols = []
+        for i, t in enumerate(node.types):
+            cd = column_data_from_python(t, [r[i] for r in node.rows])
+            cols.append(Column(
+                t, to_device(cd.values, self.device),
+                to_device(cd.nulls, self.device) if cd.nulls is not None else None,
+                cd.dictionary,
+                hi=to_device(cd.hi, self.device) if cd.hi is not None else None))
+        if not cols:
+            # zero-column rows (SELECT without FROM)
+            return Page([Column(T.BIGINT, torch.zeros((len(node.rows),), dtype=torch.int64,
+                                                      device=self.device))])
+        return Page(cols)
 
     # --------------------------------------------------------------- filter
     def _exec_FilterNode(self, node: P.FilterNode) -> Page:
@@ -449,6 +476,10 @@ class Executor:
     def aggregate_page(self, node: P.AggregationNode, page: Page) -> Page:
         """Group and aggregate; the output has ``capacity`` rows with sel
         marking live groups."""
+        if node.group_channels:
+            spilled = self._maybe_spill_aggregation(node, page)
+            if spilled is not None:
+                return spilled
         if page.num_rows == 0:
             page = Page(
                 [Column(c.type, torch.zeros((1,), dtype=c.values.dtype, device=self.device),
@@ -473,6 +504,29 @@ class Executor:
                                    (~valid) if valid is not None else None,
                                    dictionary, hi=hi_out))
         return Page(out_cols, out_sel)
+
+    _in_spill_pass = False  # reentrancy guard for the aggregation passes
+
+    def _maybe_spill_aggregation(self, node: P.AggregationNode, page: Page):
+        """Over-budget group-by: hash-partition the rows by group key on the
+        host, aggregate each partition fully on the device, concatenate.
+        Partitions hold disjoint key sets, so each pass's result is exact."""
+        if self._in_spill_pass or not self.spill_enabled:
+            return None
+        projected = _mem.page_bytes(page)
+        parts = self.memory.spill_partitions(projected)
+        if parts <= 1:
+            return None
+        self.memory.record_spill(node.id, "aggregation", parts, projected)
+        out = None
+        self._in_spill_pass = True
+        try:
+            for part in _mem.partition_page_host(page, node.group_channels, parts):
+                res = self.aggregate_page(node, part).compact()
+                out = res if out is None else Page.concat_pages(out, res)
+        finally:
+            self._in_spill_pass = False
+        return out
 
     def _gathered_key_cols(self, page: Page, channels, layout) -> List[Column]:
         """Group-key columns gathered at each slot's representative row,
@@ -554,6 +608,45 @@ class Executor:
         if self.enable_dynamic_filtering and node.dyn_filter_keys:
             self._collect_dynamic_filters(node, right)
         left = self.execute(node.left)
+        if node.left_keys:
+            spilled = self._maybe_spill_join(node, left, right)
+            if spilled is not None:
+                return spilled
+        return self._run_join_kernel(node, left, right)
+
+    _in_join_spill = False  # the join passes run on partitions, not scans
+
+    def _maybe_spill_join(self, node: P.JoinNode, left: Page, right: Page):
+        """When probe + build exceed the device budget, hash-partition both
+        sides by join key on the host and run the join as independent
+        passes; equal keys co-locate, so the union of the passes is the
+        exact join."""
+        if not self.spill_enabled:
+            return None
+        projected = _mem.page_bytes(left) + _mem.page_bytes(right)
+        parts = self.memory.spill_partitions(projected)
+        if parts <= 1:
+            return None
+        self.memory.record_spill(node.id, "join", parts, projected)
+        lparts = _mem.partition_page_host(left, node.left_keys, parts)
+        rparts = _mem.partition_page_host(right, node.right_keys, parts)
+        out = None
+        hint_key = f"join:{node.id}"
+        self._in_join_spill = True
+        try:
+            for lp, rp in zip(lparts, rparts):
+                # each pass sizes its own expansion
+                self.capacity_hints.pop(hint_key, None)
+                res = self._run_join_kernel(node, lp, rp).compact()
+                out = res if out is None else Page.concat_pages(out, res)
+        finally:
+            self._in_join_spill = False
+            self.capacity_hints.pop(hint_key, None)
+        return out
+
+    def _run_join_kernel(self, node: P.JoinNode, left: Page, right: Page) -> Page:
+        """The one join dispatch, shared by the direct path and the spilled
+        passes."""
         if node.join_type in ("semi", "anti"):
             if node.filter is not None:
                 return self.semi_join_filtered(node, left, right)
@@ -686,17 +779,45 @@ class Executor:
         M.FUSED_JOIN_SELECTIONS.inc(1, "merge-pallas" if use_kernel else "merge-sorted")
         return fused_ops.merge_sorted_build(build, probe_keys, use_pallas=use_kernel)
 
+    def _cached_sorted_build(self, node: P.JoinNode, right: Page, build_keys):
+        """The SortedBuild served by the device cache, or None. The build
+        side must be a bare versioned TableScanNode, so the artifact's
+        identity is provable from the scan signature and the join-key
+        signature. Never inside a spilled join: there ``right`` is one
+        hash partition of the scan, not the scan."""
+        scan = node.right
+        if self._in_join_spill or not isinstance(scan, P.TableScanNode):
+            return None
+        from trino_tpu_torch import devcache
+
+        constraint = scan_constraint_with(scan, self.dyn_domains)
+        dtypes = ",".join(str(v.dtype).replace("torch.", "") for v, _ in build_keys)
+
+        def load():
+            build = join_ops.build_side(build_keys, right.sel)
+            arrays = list(build.cols) + [build.rows, build.live]
+            nbytes = sum(int(a.numel()) * a.element_size() for a in arrays)
+            return build, int(build.n), nbytes, 0
+
+        built, _disposition = devcache.cached_build(
+            self.session, scan, constraint, self._host_applied_domains(scan),
+            tuple(node.right_keys), dtypes, load)
+        return built
+
     def _sortmerge_probe(self, node: P.JoinNode, left: Page, right: Page):
         """(build_row_idx, matched) for the N:1 lookup join when the dense
-        table does not apply: the merge tier for a presorted build key, the
-        fused sort-merge tier otherwise; legacy build_side + probe_unique
-        when the fused tier is disabled."""
+        table does not apply: the merge tier for a presorted build key or a
+        device-cached sorted build, the fused sort-merge tier otherwise;
+        legacy build_side + probe_unique when the fused tier is disabled."""
         build_keys, probe_keys = self._join_keys_aligned(
             left, right, node.left_keys, node.right_keys)
         presorted = self._build_presorted(right, node.right_keys)
         if self._fused_join_enabled():
-            if presorted:
-                build = join_ops.build_side(build_keys, right.sel, presorted=True)
+            cached = None if presorted else self._cached_sorted_build(
+                node, right, build_keys)
+            if presorted or cached is not None:
+                build = cached if cached is not None else join_ops.build_side(
+                    build_keys, right.sel, presorted=True)
                 return self._merge_sorted_tier(node, left, right, build,
                                                build_keys, probe_keys)
             M.FUSED_JOIN_SELECTIONS.inc(1, "fused")
@@ -752,8 +873,14 @@ class Executor:
                 left, right, node.left_keys, node.right_keys)
             presorted = self._build_presorted(right, node.right_keys)
             if self._fused_join_enabled():
-                if presorted:
-                    build = join_ops.build_side(build_keys, right.sel, presorted=True)
+                # the lookup join's gate: presorted or cached sorted builds
+                # take the merge tier (build duplicates are fine for
+                # membership), everything else fuses
+                cached = None if presorted else self._cached_sorted_build(
+                    node, right, build_keys)
+                if presorted or cached is not None:
+                    build = cached if cached is not None else join_ops.build_side(
+                        build_keys, right.sel, presorted=True)
                     _rows, hit = self._merge_sorted_tier(
                         node, left, right, build, build_keys, probe_keys)
                 else:

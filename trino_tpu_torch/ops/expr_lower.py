@@ -92,6 +92,8 @@ def lower(expr: ir.Expr, ctx: LowerCtx) -> LoweredVal:
         return _lower_constant(expr, ctx)
     if isinstance(expr, ir.Case):
         return _lower_case(expr, ctx)
+    if isinstance(expr, ir.Cast):
+        return _lower_cast(expr, ctx)
     if isinstance(expr, ir.Call):
         fn = FUNCTIONS.get(expr.name)
         if fn is None:
@@ -120,6 +122,73 @@ def _lower_constant(expr: ir.Constant, ctx: LowerCtx) -> LoweredVal:
     if not (t.is_floating or t == T.BOOLEAN):
         bound = abs(int(expr.value))
     return LoweredVal(_const_array(ctx, t.np_dtype, expr.value), None, None, bound)
+
+
+def _lower_cast(expr: ir.Cast, ctx: LowerCtx) -> LoweredVal:
+    """The numeric, decimal, typed-NULL and varchar-to-varchar casts of the
+    reference's ``_lower_cast`` (what UPDATE's type-keeping rewrite and
+    INSERT coercions produce). Timestamp, varbinary and to-varchar casts
+    are not ported."""
+    a = lower(expr.value, ctx)
+    ft, tt = expr.value.type, expr.type
+    if ft == tt:
+        return a
+    if ft == T.UNKNOWN and not tt.is_nested:
+        # typed NULL: every row invalid, representation per target type
+        dtype = tt.np_dtype if tt.np_dtype is not None else np.dtype(np.int32)
+        return LoweredVal(
+            _const_array(ctx, dtype, 0),
+            torch.zeros((ctx.num_rows,), dtype=torch.bool, device=ctx.device),
+            Dictionary([]) if tt.is_varchar else None)
+    if isinstance(tt, T.TimestampType) or isinstance(ft, T.TimestampType):
+        raise NotImplementedError(f"cast {ft} -> {tt} is not ported")
+    if tt.is_floating:
+        if a.hi is not None:
+            raise NotImplementedError(f"cast of a two-limb {ft} to {tt} is not ported")
+        v = a.vals.to(torch.float64)
+        if ft.is_decimal:
+            v = v / (10.0 ** _scale_of(ft))
+        return LoweredVal(v.to(torch_dtype(tt.np_dtype)), a.valid, None)
+    if tt.is_decimal:
+        rs = _scale_of(tt)
+        if a.hi is not None:
+            from trino_tpu_torch.ops import int128 as i128
+
+            out128, ov = i128.rescale_checked(as_i128(a), _scale_of(ft), rs)
+            ctx.add_error(DECIMAL_OVERFLOW, ov, a.valid)
+            return _finish128(ctx, out128, a.valid, tt)
+        if ft.is_floating:
+            scaled = a.vals.to(torch.float64) * (10.0**rs)
+            # half away from zero, not round-half-to-even
+            v = (torch.sign(scaled) * torch.floor(torch.abs(scaled) + 0.5)).to(torch.int64)
+            bound = None
+        elif ft.is_decimal:
+            v = _rescale_decimal(a.vals.to(torch.int64), _scale_of(ft), rs)
+            bound = None if a.bound is None else _rescaled_bound(a.bound, _scale_of(ft), rs)
+        else:
+            v = a.vals.to(torch.int64) * (10**rs)
+            bound = None if a.bound is None else a.bound * 10**rs
+        return LoweredVal(v, a.valid, None, bound)
+    if tt.is_integer_kind:
+        if ft.is_decimal:
+            if a.hi is not None:
+                raise NotImplementedError(f"cast of a two-limb {ft} to {tt} is not ported")
+            v = _rescale_decimal(a.vals.to(torch.int64), _scale_of(ft), 0)
+            bound = None if a.bound is None else _rescaled_bound(a.bound, _scale_of(ft), 0)
+        elif ft.is_floating:
+            v = torch.sign(a.vals) * torch.floor(torch.abs(a.vals) + 0.5)
+            bound = None
+        else:
+            v = a.vals
+            bound = a.bound
+        return LoweredVal(v.to(torch_dtype(tt.np_dtype)), a.valid, None, bound)
+    if tt.is_varchar:
+        if ft.is_varchar and not ft.is_varbinary and not tt.is_varbinary:
+            return LoweredVal(a.vals, a.valid, a.dictionary)  # same codes
+        raise NotImplementedError(f"cast {ft} -> {tt} is not ported")
+    if tt == T.DATE and ft.is_varchar:
+        raise NotImplementedError(f"cast {ft} -> {tt} is not ported")
+    return LoweredVal(a.vals.to(torch_dtype(tt.np_dtype)), a.valid, a.dictionary)
 
 
 def _align_varchar(a: LoweredVal, b: LoweredVal, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -394,6 +463,14 @@ def _lower_not(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
     return LoweredVal(~a.vals, a.valid)
 
 
+def _lower_is_null(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    a = lower(expr.args[0], ctx)
+    if a.valid is None:
+        return LoweredVal(torch.zeros((ctx.num_rows,), dtype=torch.bool, device=ctx.device),
+                          None, None)
+    return LoweredVal(~a.valid, None, None)
+
+
 def _lower_between(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
     x, lo, hi = expr.args
     xl = lower(x, ctx)  # once: x may be host vocabulary work (substring)
@@ -603,6 +680,7 @@ FUNCTIONS: Dict[str, Callable[..., LoweredVal]] = {
     "and": _lower_and,
     "or": _lower_or,
     "not": _lower_not,
+    "is_null": _lower_is_null,
     "between": _lower_between,
     "in_list": _lower_in_list,
     "like": _lower_like,
