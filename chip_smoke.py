@@ -47,33 +47,46 @@ Phases, each of which fails the run (non-zero exit, no result line):
    cold runs made it. Prints a line a query (walls, cache lookups, rows
    and bytes staged, the staging phase seconds) and the cache's resident
    bytes beside ``torch.cuda.memory_allocated``.
-5. mainpath: the merge kernel against its plain version, exact, on the
-   very build and probe tensors the cold runs of phases tpch and cache
-   handed to it (one row a launch, with phase kernel's times), and every
-   query whose reference selects merge-pallas must have handed it some in
-   both sessions.
-6. sf10: first the pinned double-buffered host->device copy of the
+5. analytics: a third session, uncached, over the tpcds catalog runs
+   TPC-DS q95 and q64 (tests/tpcds_sql.py), their wide variants and eight
+   queries of window functions, UNION ALL / UNION / INTERSECT / EXCEPT and
+   the statistical and sketch aggregates over TPC-DS and TPC-H tables, all
+   at SF1, each cold then warm. Rows must equal
+   trino_tpu_torch/testdata/analytics_sf1_expected.json (written by the
+   JAX package: tests/test_torch_tpcds.py --write-expected), doubles within
+   a relative 1e-8 and q64's tie groups as multisets, with the reference's
+   join tiers; a query whose reference selects merge-pallas must launch the
+   merge kernel. Prints one line a query, as phase tpch does, with the
+   card's name and power limit.
+6. mainpath: the merge kernel against its plain version, exact, on the
+   very build and probe tensors the cold runs of phases tpch, cache and
+   analytics handed to it (one row a launch, with phase kernel's times),
+   and every TPC-H query whose reference selects merge-pallas must have
+   handed it some in the first two sessions.
+7. sf10: first the pinned double-buffered host->device copy of the
    staging module on its own (int32, int64, float64 and bool columns of
    4M + 3 rows in 1 MiB blocks, and a column of five int64 split parts
    narrowed to int32 in 1 MiB and 32 MiB blocks; bitwise equal, read on the
    consuming stream at once); then TPC-H Q3 at SF10 in a cached session, cold then warm:
    rows equal to the JAX package's, the warm run staging nothing.
-7. spill: Q3 (joins), Q18 (aggregation under a semi join) and Q13 (left
+8. spill: Q3 (joins), Q18 (aggregation under a semi join) and Q13 (left
    join) at SF1 in a cached session under ``query_max_device_memory`` of a
    quarter of the largest working set the reference's unbudgeted run
    handed its spill decision. Each must spill into 4 or more partitions
    and return the reference's rows (a tie group of the ORDER BY compared
    as a multiset).
-8. dml: in a session over shared catalogs, CREATE TABLE AS from
-   tpch.sf1.orders into the memory catalog, then INSERT, UPDATE, DELETE,
+9. dml: in a session over shared catalogs, CREATE TABLE AS from
+   tpch.tiny.orders into the memory catalog, then INSERT, UPDATE, DELETE,
    DROP and CREATE TABLE AS again, each followed by a cached aggregate
    over the table: the read after each statement must miss, a repeated
    read hit, and every read return the rows the JAX package recorded for
    the same sequence; no entry of an older table version may stay.
 
-With ``--profile`` it also runs each query once more (warm) in each session
-under torch.profiler and prints the device time by kernel, the device's busy
-share of the wall, the device launches and the largest device item.
+With ``--profile`` it also runs each query once more (warm) in each of the
+three sessions under torch.profiler and prints the device time by kernel,
+the device's busy share of the wall, the device launches and the largest
+device item; and it times the DML sequence over tpch.sf1.orders (1.5M
+rows), holding each read's cache disposition to the reference's.
 
 The last three lines of standard output are the kernel summary
 ``{"kernels": [...]}``, the card's name and power limit, and
@@ -343,11 +356,26 @@ def timed_execute(session, sql, device):
     return res, time.perf_counter() - t0, counters_delta(c0)
 
 
-def check_rows(what, got, want, sort_keys=None):
+def rows_close(got, want, rel_tol):
+    """Equal rows, except that two floats may differ by ``rel_tol``."""
+    import math
+
+    def close(a, b):
+        if isinstance(a, float) and isinstance(b, float):
+            return math.isclose(a, b, rel_tol=rel_tol, abs_tol=1e-12) or \
+                (math.isnan(a) and math.isnan(b))
+        return a == b
+
+    return len(got) == len(want) and all(
+        len(g) == len(w) and all(close(a, b) for a, b in zip(g, w))
+        for g, w in zip(got, want))
+
+
+def check_rows(what, got, want, sort_keys=None, rel_tol=None):
     """Exact rows in order; with ``sort_keys`` (the ORDER BY's column
     positions) a tie group may differ in order and is compared as a
-    multiset."""
-    if got == want:
+    multiset; with ``rel_tol`` doubles may differ by that much."""
+    if got == want or (rel_tol is not None and rows_close(got, want, rel_tol)):
         return
     same_order = sort_keys is not None and len(got) == len(want) and \
         [[r[k] for k in sort_keys] for r in got] == [[r[k] for k in sort_keys] for r in want]
@@ -390,7 +418,8 @@ class MergeCapture:
         self.now = None
 
 
-def run_checked(session, device, path, q, label, sql, want_rows, want_tiers, cap):
+def run_checked(session, device, path, q, label, sql, want_rows, want_tiers, cap,
+                sort_keys=None, rel_tol=None):
     """One run of query ``q``: rows and join tiers checked, merge launches
     counted from 0 just before it; returns (wall, launches, counters)."""
     from trino_tpu_torch.obs import metrics as M
@@ -404,12 +433,12 @@ def run_checked(session, device, path, q, label, sql, want_rows, want_tiers, cap
     cap.now = None
     tiers = {t: v - t0_tiers[t]
              for t, v in tier_counts(M.FUSED_JOIN_SELECTIONS, want_tiers).items()}
-    check_rows(f"Q{q} ({path}, {label})", jsonable_rows(res.rows), want_rows)
+    what = f"{q if isinstance(q, str) else f'Q{q}'} ({path}, {label})"
+    check_rows(what, jsonable_rows(res.rows), want_rows, sort_keys, rel_tol)
     if tiers != want_tiers:
-        raise AssertionError(
-            f"Q{q} ({path}, {label}) join tiers {tiers} != the reference's {want_tiers}")
+        raise AssertionError(f"{what} join tiers {tiers} != the reference's {want_tiers}")
     if want_tiers.get("merge-pallas", 0) >= 1 and launches < 1:
-        raise AssertionError(f"Q{q} ({path}, {label}) selected merge-pallas but did not "
+        raise AssertionError(f"{what} selected merge-pallas but did not "
                              f"launch the merge kernel: launches={launches}")
     return wall, launches, counters, len(res.rows)
 
@@ -503,6 +532,35 @@ def phase_cache(device, expected, plane, cap):
            for k in ("wall_s", "staged_rows", "h2d_bytes", "scan_s", "decode_s", "transfer_s")},
         **resident}), flush=True)
     return runs, resident, session
+
+
+ANALYTICS_REL_TOL = 1e-8  # doubles at SF1: float sums in another order
+
+
+def phase_analytics(device, analytics, cap, card):
+    """TPC-DS q95, q64 and their wide variants and the eight window, set
+    and aggregate queries at SF1 in an uncached session, cold then warm:
+    rows (doubles within ANALYTICS_REL_TOL, the tie groups of q64's partial
+    ORDER BY as multisets) and join tiers equal the reference's, and a
+    query whose reference selects merge-pallas launches the merge kernel."""
+    from trino_tpu_torch import Session
+
+    session = Session(properties=dict(analytics["properties"]), device=device)
+    out = {}
+    for name, entry in analytics["queries"].items():
+        runs = []
+        for label in ("cold", "warm"):
+            wall, launches, c, nrows = run_checked(
+                session, device, "analytics", name, label, entry["sql"], entry["rows"],
+                entry["tiers"], cap, entry["sort_keys"], ANALYTICS_REL_TOL)
+            runs.append({"run": label, "wall_s": wall, "merge_launches": launches,
+                         "staged_rows": c["staged_rows"], "h2d_bytes": c["h2d_bytes"],
+                         **{k: c[k] for k in ("scan_s", "decode_s", "transfer_s")}})
+        out[name] = runs
+        print("analytics", json.dumps({"query": name, "scale": "sf1", "rows": nrows,
+                                       "tiers": entry["tiers"], "runs": runs, "card": card}),
+              flush=True)
+    return out, session
 
 
 def phase_mainpath(captured, merge_queries):
@@ -640,23 +698,29 @@ def phase_spill(device, plane):
     return lines
 
 
-def phase_dml(device, plane):
-    """The DML sequence over shared catalogs: every statement invalidates,
-    every read equals the reference's, no stale entry survives."""
+def phase_dml(device, plane, scale="tiny"):
+    """The DML sequence over shared catalogs: every statement invalidates
+    and no stale entry survives. At ``tiny`` every read equals the
+    reference's rows; ``sf1`` (``--profile``) runs the same statements over
+    a copy of tpch.sf1.orders to time them."""
     from trino_tpu_torch import Session
     from trino_tpu_torch.connector.registry import default_catalogs
     from trino_tpu_torch.devcache import DEVICE_CACHE
 
     catalogs = default_catalogs()
-    session = Session(properties={"catalog": "tpch", "schema": "sf1",
+    session = Session(properties={"catalog": "tpch", "schema": scale,
                                   "device_cache_enabled": True},
                       device=device, catalogs=catalogs)
     memory_conn = catalogs["memory"]
+    DEVICE_CACHE.invalidate_all()  # no entry of an earlier run's memory.db.orders
+    tag = "dml" if scale == "tiny" else f"dml_{scale}"
     lines = []
     for i, step in enumerate(plane["dml"]["steps"]):
-        res, wall, c = timed_execute(session, step["sql"], device)
-        what = f"dml step {i} ({step['sql'][:40]})"
-        check_rows(what, jsonable_rows(res.rows), step["rows"])
+        sql = step["sql"].replace("tpch.tiny.", f"tpch.{scale}.")
+        res, wall, c = timed_execute(session, sql, device)
+        what = f"{tag} step {i} ({sql[:40]})"
+        if scale == "tiny":
+            check_rows(what, jsonable_rows(res.rows), step["rows"])
         if step["kind"] == "read":
             got = "hit" if (c["hits"], c["misses"]) == (1, 0) else \
                 "miss" if (c["hits"], c["misses"]) == (0, 1) else str(c)
@@ -668,26 +732,27 @@ def phase_dml(device, plane):
             if held != {str(version)}:
                 raise AssertionError(f"{what}: cache holds versions {held} of memory.db.orders, "
                                      f"the table is at {version}")
-        line = {"step": i, "kind": step["kind"], "sql": step["sql"][:60], "wall_s": wall,
+        line = {"step": i, "kind": step["kind"], "sql": sql[:60], "wall_s": wall,
                 "disposition": step["disposition"], "staged_rows": c["staged_rows"],
                 "h2d_bytes": c["h2d_bytes"]}
-        print("dml", json.dumps(line), flush=True)
+        print(tag, json.dumps(line), flush=True)
         lines.append(line)
     return lines
 
 
-def phase_profile(session, expected, label):
-    """``--profile``: one more warm run of each query under torch.profiler:
-    device time by kernel name and the device's busy share of the wall."""
+def phase_profile(session, queries, label):
+    """``--profile``: one more warm run of each (name, sql) under
+    torch.profiler: device time by kernel name and the device's busy share
+    of the wall."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for q in range(1, 23):
+    for name, sql in queries:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            session.execute(expected[str(q)]["sql"])
+            session.execute(sql)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         # device-side events only (kernels and copies): the operator rows
@@ -705,7 +770,7 @@ def phase_profile(session, expected, label):
         by_kernel.sort(reverse=True)
         device_s = sum(us for us, _, _ in by_kernel) / 1e6
         print("profile", json.dumps({
-            "session": label, "query": f"Q{q}", "wall_s": wall, "device_s": device_s,
+            "session": label, "query": name, "wall_s": wall, "device_s": device_s,
             "device_busy_share": device_s / wall if wall else None,
             "device_launches": sum(c for _, c, _ in by_kernel),
             "top": [{"kernel": k[:80], "calls": c, "device_ms": us / 1e3}
@@ -733,38 +798,49 @@ def main() -> int:
     rows, call_1x1 = phase_kernel(device)
     expected = testdata("tpch_sf1_expected.json")["queries"]
     plane = testdata("plane_expected.json")
+    analytics = testdata("analytics_sf1_expected.json")
+    profiling = "--profile" in sys.argv[1:]
     with MergeCapture() as cap:
         tpch, session = phase_tpch(device, expected, cap)
         cache_runs, _resident, cached_session = phase_cache(device, expected, plane, cap)
+        analytics_runs, analytics_session = phase_analytics(device, analytics, cap, card)
     merge_queries = sorted(int(q) for q, e in expected.items()
                            if e["tiers"].get("merge-pallas", 0) >= 1)
     rows += phase_mainpath(cap.captured, merge_queries)
-    if "--profile" in sys.argv[1:]:
-        phase_profile(session, expected, "uncached")
-        phase_profile(cached_session, expected, "cached")
-    del session, cached_session
+    if profiling:
+        tpch_sql = [(f"Q{q}", expected[str(q)]["sql"]) for q in range(1, 23)]
+        phase_profile(session, tpch_sql, "uncached")
+        phase_profile(cached_session, tpch_sql, "cached")
+        phase_profile(analytics_session,
+                      [(n, e["sql"]) for n, e in analytics["queries"].items()], "analytics")
+    del session, cached_session, analytics_session
     phase_transfer(device)
     phase_sf10(device, plane)
     phase_spill(device, plane)
     phase_dml(device, plane)
+    if profiling:
+        phase_dml(device, plane, "sf1")
     main_shape = next(r for r in rows if r["shape"] == "q17_sf1")
     # each path's launches, counted from 0 just before each of its runs
     launches_by_path = {
         "tpch": sum(run["merge_launches"] for runs in tpch.values() for run in runs),
         "cache": sum(run["merge_launches"] for runs in cache_runs.values()
-                     for run in runs.values())}
+                     for run in runs.values()),
+        "analytics": sum(run["merge_launches"] for runs in analytics_runs.values()
+                         for run in runs)}
     for path, n in launches_by_path.items():
-        if n < 1:
+        if n < 1 and path != "analytics":
             raise AssertionError(f"the 22 queries of path {path} launched the merge kernel "
                                  f"no time")
     # as since the first slice: the launches of the uncached session's cold
     # runs (launches_by_path has every run of both sessions)
     launches = sum(run["merge_launches"] for runs in tpch.values() for run in runs
                    if run["run"] == "cold")
-    print("tpch_total", json.dumps({
-        f"{label}_wall_s": sum(run["wall_s"] for runs in tpch.values()
-                               for run in runs if run["run"] == label)
-        for label in ("cold", "warm")}), flush=True)
+    for path, by_query in (("tpch", tpch), ("analytics", analytics_runs)):
+        print(f"{path}_total", json.dumps({
+            f"{label}_wall_s": sum(run["wall_s"] for runs in by_query.values()
+                                   for run in runs if run["run"] == label)
+            for label in ("cold", "warm")}), flush=True)
     summary = {
         "name": "merge_unique_sorted",
         "route": "cuda",

@@ -53,20 +53,22 @@ TIERS = ("dense", "fused", "merge-sorted", "merge-pallas", "legacy")
 SPILL_QUERIES = (3, 18, 13)
 SPILL_BUDGET_FRACTION = 4
 
-# the DML sequence on a memory table copied from tpch.sf1.orders: each
+# the DML sequence on a memory table copied from tpch.tiny.orders: each
 # ("dml", sql) step mutates the table and each ("read", label) step runs
-# DML_READ, which must miss right after a mutation and hit when repeated
+# DML_READ, which must miss right after a mutation and hit when repeated.
+# What it checks does not depend on the row count; chip_smoke.py --profile
+# also times the same statements over tpch.sf1.orders.
 DML_READ = ("select o_orderstatus, count(*), sum(o_totalprice), min(o_orderdate), "
             "max(o_orderkey) from memory.db.orders group by o_orderstatus "
             "order by o_orderstatus")
-DML_CTAS = "create table memory.db.orders as select * from tpch.sf1.orders"
+DML_CTAS = "create table memory.db.orders as select * from tpch.tiny.orders"
 DML_STEPS = (
     ("dml", DML_CTAS),
     ("read", "miss"),
     ("read", "hit"),
     ("dml", "insert into memory.db.orders select o_orderkey + 6000000, o_custkey, "
             "o_orderstatus, o_totalprice, o_orderdate, o_orderpriority, o_clerk, "
-            "o_shippriority, o_comment from tpch.sf1.orders where o_orderkey < 1000"),
+            "o_shippriority, o_comment from tpch.tiny.orders where o_orderkey < 1000"),
     ("read", "miss"),
     ("dml", "update memory.db.orders set o_totalprice = o_totalprice + 1 "
             "where o_orderkey < 1000"),
@@ -519,7 +521,7 @@ def _write_spill(out):
 def _write_dml(out):
     from trino_tpu.connector.registry import default_catalogs
 
-    session = JaxSession(properties={"catalog": "tpch", "schema": "sf1",
+    session = JaxSession(properties={"catalog": "tpch", "schema": "tiny",
                                      "device_cache_enabled": True},
                          catalogs=default_catalogs())
     steps = []

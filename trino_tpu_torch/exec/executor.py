@@ -7,7 +7,11 @@ emit padded outputs with a live-group prefix, sorts move dead rows last.
 Ported nodes: TableScan (adaptive splits staged in parallel through the
 host-RAM tier and double-buffered copies, exec/staging.py, behind the
 opt-in device table cache, devcache/), Values, Filter, Compact, Project,
-Aggregation (single step, count(DISTINCT) included), Join (N:1 lookup and
+Aggregation (single step: count, sum, avg, min, max, the variance family,
+bool_and/bool_or, count_if, arbitrary, geometric_mean, checksum,
+min_by/max_by, corr/covar/regr, approx_distinct and approx_percentile;
+DISTINCT for count and approx_distinct), Window (ops/window.py), UNION ALL
+and INTERSECT/EXCEPT DISTINCT, Join (N:1 lookup and
 semi/anti through the dense / fused / merge tier gate, where a bare
 cached scan's sorted build goes to the merge tier; M:N inner and left
 expansion, semi/anti with a residual filter, the singleton cross join of a
@@ -40,14 +44,23 @@ from trino_tpu_torch.ops import aggregate as agg_ops
 from trino_tpu_torch.ops import expr_lower as L
 from trino_tpu_torch.ops import fused_join as fused_ops
 from trino_tpu_torch.ops import groupby as gb
+from trino_tpu_torch.ops import hll
 from trino_tpu_torch.ops import join as join_ops
 from trino_tpu_torch.ops import ranks as ranks_ops
 from trino_tpu_torch.ops import segments as seg
 from trino_tpu_torch.ops import sort as sort_ops
+from trino_tpu_torch.ops import window as win_ops
 from trino_tpu_torch.sql import ir
 from trino_tpu_torch.sql.planner import plan as P
 
 _SIGN64 = -(2**63)
+_CHECKSUM_NULL = -7046029254386353131  # the hash a NULL adds to checksum()
+# aggregates and window functions whose result is one of the argument's
+# values, so the result keeps the argument's dictionary
+_VALUE_AGGREGATES = ("min", "max", "arbitrary", "any_value", "min_by", "max_by")
+_VALUE_WINDOW_FUNCTIONS = ("min", "max", "lag", "lead", "first_value", "last_value",
+                           "nth_value")
+_BIVARIATE = ("corr", "covar_samp", "covar_pop", "regr_slope", "regr_intercept")
 
 
 class QueryError(RuntimeError):
@@ -287,6 +300,38 @@ class Executor:
                                                       device=self.device))])
         return Page(cols)
 
+    # -------------------------------------------------------------- set ops
+    def _exec_UnionNode(self, node: P.UnionNode) -> Page:
+        """UNION ALL: row-wise concatenation of the branches (dead rows stay
+        dead; differing varchar vocabularies merge)."""
+        pages = [self.execute(s) for s in node.sources_]
+        out = pages[0]
+        for p in pages[1:]:
+            out = Page.concat_pages(out, p)
+        return out
+
+    def _exec_SetOpNode(self, node: P.SetOpNode) -> Page:
+        left = self.execute(node.left)
+        right = self.execute(node.right)
+        return self.set_op_pages(node, left, right)
+
+    def set_op_pages(self, node: P.SetOpNode, left: Page, right: Page) -> Page:
+        """INTERSECT/EXCEPT DISTINCT: both sides concatenated with a side
+        tag, grouped by every column (grouping equality makes NULLs equal,
+        the set-operation semantics), groups kept by per-side counts."""
+        both = Page.concat_pages(left, right)
+        side_right = torch.arange(both.num_rows, device=self.device) >= left.num_rows
+        channels = list(range(len(both.columns)))
+        layout, out_sel, (side_right_l,), sel_l = self.group_structure(
+            channels, both, [side_right])
+        l_cnt = seg.seg_sum(layout, (~side_right_l).to(torch.int64), sel_l, torch.int64)
+        r_cnt = seg.seg_sum(layout, side_right_l.to(torch.int64), sel_l, torch.int64)
+        if node.op == "intersect":
+            keep = (l_cnt > 0) & (r_cnt > 0)
+        else:  # except
+            keep = (l_cnt > 0) & (r_cnt == 0)
+        return Page(self._gathered_key_cols(both, channels, layout), out_sel & keep)
+
     # --------------------------------------------------------------- filter
     def _exec_FilterNode(self, node: P.FilterNode) -> Page:
         page = self.execute(node.source)
@@ -400,16 +445,13 @@ class Executor:
     @staticmethod
     def _agg_payloads(aggregates, columns):
         """(payload_arrays, slots): every non-distinct aggregate argument
-        (values + validity + high limb) flattened into sort payloads."""
+        (values + validity + high limb) flattened into sort payloads; a
+        call's slot is (first argument, second argument or None), or None
+        for count(*) and DISTINCT."""
         payload_arrays: List = []
         slots: List = []
-        for call in aggregates:
-            if call.arg_channel is None or call.distinct:
-                slots.append(None)
-                continue
-            if call.arg2_channel is not None:
-                raise NotImplementedError(f"two-argument aggregate {call.function}")
-            col = columns[call.arg_channel]
+
+        def add(col):
             vi = len(payload_arrays)
             payload_arrays.append(col.values)
             hv = col.nulls is not None
@@ -419,7 +461,14 @@ class Executor:
             if col.hi is not None:
                 hii = len(payload_arrays)
                 payload_arrays.append(col.hi)
-            slots.append((vi, hv, hii))
+            return (vi, hv, hii)
+
+        for call in aggregates:
+            if call.arg_channel is None or call.distinct:
+                slots.append(None)
+                continue
+            s2 = add(columns[call.arg2_channel]) if call.arg2_channel is not None else None
+            slots.append((add(columns[call.arg_channel]), s2))
         return payload_arrays, slots
 
     @staticmethod
@@ -492,13 +541,16 @@ class Executor:
         if node.group_channels:
             out_cols.extend(self._gathered_key_cols(page, node.group_channels, layout))
         for call, slot in zip(node.aggregates, slots):
+            s1, s2 = slot if slot is not None else (None, None)
             res = self._exec_aggregate(
-                call, page, layout, self._slot_arg(payloads_l, slot), sel_l,
-                hi_l=self._slot_hi(payloads_l, slot))
+                call, page, layout, self._slot_arg(payloads_l, s1), sel_l,
+                hi_l=self._slot_hi(payloads_l, s1),
+                arg2_l=self._slot_arg(payloads_l, s2), hi2_l=self._slot_hi(payloads_l, s2))
             vals, valid = res[0], res[1]
             hi_out = res[2] if len(res) > 2 else None
+            # value-carrying aggregates keep the argument's dictionary
             dictionary = None
-            if call.function in ("min", "max") and call.arg_channel is not None:
+            if call.function in _VALUE_AGGREGATES and call.arg_channel is not None:
                 dictionary = page.columns[call.arg_channel].dictionary
             out_cols.append(Column(call.output_type, vals,
                                    (~valid) if valid is not None else None,
@@ -552,25 +604,37 @@ class Executor:
         return out
 
     def _exec_aggregate(self, call: P.AggregateCall, page, layout, arg_l, sel_l,
-                        hi_l=None):
-        """``arg_l``/``sel_l``/``hi_l`` in layout space; count(DISTINCT)
-        re-groups and takes the original-order page column instead. Returns
-        (vals, valid), or (lo, valid, hi) for two-limb sums."""
-        if call.distinct:
-            if call.function != "count":
-                raise NotImplementedError(f"{call.function}(DISTINCT) is not ported")
-            return agg_ops.agg_count_distinct(
-                layout, _col_to_lowered(page.columns[call.arg_channel]), page.sel)
+                        hi_l=None, arg2_l=None, hi2_l=None):
+        """``arg_l``/``sel_l``/``hi_l`` (and the second argument's) in layout
+        space; the DISTINCT calls re-group and take the original-order page
+        column instead. Returns (vals, valid), or (lo, valid, hi) for
+        two-limb sums."""
         if hi_l is not None and call.function not in ("sum", "count"):
             arg_l = self._narrow_lowered_or_flag(arg_l, hi_l, sel_l)
             hi_l = None
+        if hi2_l is not None:
+            arg2_l = self._narrow_lowered_or_flag(arg2_l, hi2_l, sel_l)
+        fn = call.function
+        if fn == "approx_percentile":
+            if call.distinct:
+                raise NotImplementedError("approx_percentile(DISTINCT) is not supported")
+            vals_l, valid_l = arg_l
+            return hll.approx_percentile(layout, vals_l, agg_ops._live(sel_l, valid_l),
+                                         call.param)
+        if call.distinct:
+            arg = _col_to_lowered(page.columns[call.arg_channel])
+            if fn == "approx_distinct":
+                return hll.approx_distinct(layout, arg, page.sel)
+            if fn != "count":
+                raise NotImplementedError(f"{fn}(DISTINCT) is not ported")
+            return agg_ops.agg_count_distinct(layout, arg, page.sel)
         sel = sel_l
-        if call.function == "count" and call.arg_channel is None:
+        if fn == "count" and call.arg_channel is None:
             return agg_ops.agg_count_star(layout, sel)
         arg = arg_l
-        if call.function == "count":
+        if fn == "count":
             return agg_ops.agg_count(layout, arg, sel)
-        if call.function == "sum":
+        if fn == "sum":
             vals_l, valid_l = arg
             out_t = call.output_type
             need128 = hi_l is not None
@@ -589,17 +653,139 @@ class Executor:
                     layout, vals_l, hi_l, valid_l, sel)
                 return s_lo, nonempty, s_hi
             return agg_ops.agg_sum(layout, arg, sel, torch_dtype(out_t.np_dtype))
-        if call.function == "avg":
+        if fn == "avg":
             base = (torch_dtype(call.output_type.np_dtype) if call.output_type.is_decimal
                     else torch.float64)
             s, _ = agg_ops.agg_sum(layout, arg, sel, base)
             cnt, _ = agg_ops.agg_count(layout, arg, sel)
             return agg_ops.finish_avg(s, cnt, call.output_type)
-        if call.function == "min":
+        if fn == "min":
             return agg_ops.agg_min(layout, arg, sel)
-        if call.function == "max":
+        if fn == "max":
             return agg_ops.agg_max(layout, arg, sel)
-        raise NotImplementedError(f"aggregate {call.function} is not ported")
+        src_t = page.columns[call.arg_channel].type
+        scale = src_t.scale if src_t.is_decimal else 0
+        if fn in P._VAR_FAMILY:
+            return agg_ops.agg_var(layout, arg, sel, fn, scale)
+        if fn in ("bool_and", "bool_or"):
+            # boolean min/max
+            red = agg_ops.agg_max if fn == "bool_or" else agg_ops.agg_min
+            v, valid = red(layout, arg, sel)
+            return v.to(torch.bool), valid
+        if fn == "count_if":
+            vals_l, valid_l = arg
+            m = vals_l if valid_l is None else (vals_l & valid_l)
+            return agg_ops.agg_count_star(layout, m if sel is None else m & sel)
+        if fn in ("arbitrary", "any_value"):
+            return agg_ops.agg_first(layout, arg, sel)
+        if fn == "geometric_mean":
+            vals_l, valid_l = arg
+            x = vals_l.to(torch.float64)
+            if scale:
+                x = x / (10.0 ** scale)
+            # non-positive values give NaN, as log does
+            ln = torch.where(x > 0, torch.log(x.clamp(min=1e-300)),
+                             torch.full_like(x, float("nan")))
+            s, nonempty = agg_ops.agg_sum(layout, (ln, valid_l), sel, torch.float64)
+            cnt, _ = agg_ops.agg_count(layout, arg, sel)
+            return torch.exp(s / cnt.clamp(min=1)), nonempty
+        if fn == "checksum":
+            return agg_ops.agg_sum(layout, (self._checksum_hashes(page, call, arg), None),
+                                   sel, torch.int64)[0], None
+        if fn in ("min_by", "max_by"):
+            return agg_ops.agg_minmax_by(layout, arg, arg2_l, sel, fn == "min_by")
+        if fn in _BIVARIATE:
+            ty = page.columns[call.arg2_channel].type
+            return agg_ops.agg_bivariate(layout, arg, arg2_l, sel, fn, scale,
+                                         ty.scale if ty.is_decimal else 0)
+        raise NotImplementedError(f"aggregate {fn} is not ported")
+
+    def _checksum_hashes(self, page: Page, call: P.AggregateCall, arg) -> torch.Tensor:
+        """Per-row content hashes whose sum (mod 2^64) is the reference's
+        order-independent checksum: a varchar hashes its string (blake2b of
+        the UTF-8, one table a vocabulary), a float its bits, anything else
+        its int64 value through splitmix64; NULL has a fixed hash."""
+        import hashlib
+
+        vals_l, valid_l = arg
+        src = page.columns[call.arg_channel]
+        if src.dictionary is not None:
+            lut = np.array([int.from_bytes(hashlib.blake2b(v.encode(), digest_size=8).digest(),
+                                           "little", signed=True)
+                            for v in src.dictionary.values] or [0], dtype=np.int64)
+            h = to_device(lut, self.device)[vals_l.long().clamp(0, len(lut) - 1)]
+        else:
+            x = vals_l
+            if x.dtype.is_floating_point:
+                x = x.to(torch.float64).view(torch.int64)
+            h = hll._mix64(x.to(torch.int64))
+        if valid_l is not None:
+            h = torch.where(valid_l, h, torch.full_like(h, _CHECKSUM_NULL))
+        return h
+
+    # -------------------------------------------------------------- window
+    def _exec_WindowNode(self, node: P.WindowNode) -> Page:
+        return self.window_over_page(node, self.execute(node.source))
+
+    def window_over_page(self, node: P.WindowNode, page: Page) -> Page:
+        """Every window call of the node over one shared sorted layout; the
+        output is the source's channels followed by one per call."""
+        n = page.num_rows
+        pkeys = [kl for c in node.partition_channels
+                 for kl in _key_lowereds(page.columns[c])]
+        okeys = [(kl, asc, nf) for c, asc, nf in node.order_channels
+                 for kl in _key_lowereds(page.columns[c])]
+        layout = win_ops.build_layout(pkeys, okeys, page.sel, n, self.device)
+        out_cols = list(page.columns)
+        for call in node.calls:
+            arg = None
+            if call.arg_channel is not None:
+                col = page.columns[call.arg_channel]
+                arg = self._narrow_lowered_or_flag(_col_to_lowered(col), col.hi, page.sel)
+            fn = call.function
+            flo, fhi = call.frame_lo, call.frame_hi
+            if fn == "row_number":
+                v, valid = win_ops.row_number(layout)
+            elif fn == "rank":
+                v, valid = win_ops.rank(layout)
+            elif fn == "dense_rank":
+                v, valid = win_ops.dense_rank(layout)
+            elif fn == "ntile":
+                v, valid = win_ops.ntile(layout, call.offset)
+            elif fn == "percent_rank":
+                v, valid = win_ops.percent_rank(layout)
+            elif fn == "cume_dist":
+                v, valid = win_ops.cume_dist(layout)
+            elif fn == "sum":
+                v, valid = win_ops.agg_sum(layout, arg, call.frame,
+                                           torch_dtype(call.output_type.np_dtype), flo, fhi)
+            elif fn == "avg":
+                base = (torch_dtype(call.output_type.np_dtype)
+                        if call.output_type.is_decimal else torch.float64)
+                s, s_valid = win_ops.agg_sum(layout, arg, call.frame, base, flo, fhi)
+                cnt, _ = win_ops.agg_count(layout, arg, call.frame, flo, fhi)
+                v, dvalid = agg_ops.finish_avg(s, cnt, call.output_type)
+                valid = dvalid if s_valid is None else (s_valid & dvalid)
+            elif fn in ("count", "count_star"):
+                v, valid = win_ops.agg_count(layout, arg, call.frame, flo, fhi)
+            elif fn in ("min", "max"):
+                v, valid = win_ops.agg_minmax(layout, arg, call.frame, fn == "min")
+            elif fn in ("lag", "lead"):
+                v, valid = win_ops.shifted_value(layout, arg, call.offset, fn == "lead")
+            elif fn == "nth_value":
+                v, valid = win_ops.nth_value(layout, arg, call.offset, call.frame, flo, fhi)
+            elif fn in ("first_value", "last_value"):
+                v, valid = win_ops.edge_value(layout, arg, call.frame,
+                                              fn == "first_value", flo, fhi)
+            else:
+                raise NotImplementedError(f"window function {fn}")
+            # value-carrying functions keep the source column's dictionary
+            dictionary = None
+            if fn in _VALUE_WINDOW_FUNCTIONS:
+                dictionary = page.columns[call.arg_channel].dictionary
+            out_cols.append(Column(call.output_type, v,
+                                   None if valid is None else ~valid, dictionary))
+        return Page(out_cols, page.sel)
 
     # -------------------------------------------------------------- joins
     def _exec_JoinNode(self, node: P.JoinNode) -> Page:

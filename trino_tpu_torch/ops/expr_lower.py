@@ -7,7 +7,10 @@ equality/order on dictionary codes), ``and``/``or``/``not`` with Kleene
 logic, ``between`` and ``in_list``, ``add``/``sub``/``mul``/``div`` over
 decimals (with the reference's rescaling, value-range bounds and the
 int128 path where a bound cannot prove an int64 fit), floats and integers,
-``extract_year`` and ``date_add_months`` on dates, and the
+``extract_year`` and ``date_add_months`` on dates, ``negate``, the
+double functions ``sqrt``, ``ln``, ``log``, ``log10``, ``exp`` and
+``power``, ``sign``, ``round``, ``ceil``/``floor``, ``greatest``/``least``,
+and the
 dictionary-first ``like`` and ``substring``: the string work runs on the
 host once over the vocabulary, and each row is one gather by code on the
 device. Any other expression kind raises NotImplementedError naming
@@ -666,6 +669,126 @@ def _lower_case(expr: ir.Case, ctx: LowerCtx) -> LoweredVal:
     return LoweredVal(vals, valid, dictionary, hi=hi)
 
 
+def _arg_double(ctx: LowerCtx, arg: ir.Expr) -> LoweredVal:
+    a = lower(arg, ctx)
+    v = a.vals.to(torch.float64)
+    if arg.type.is_decimal:
+        v = v / (10.0 ** arg.type.scale)
+    return LoweredVal(v, a.valid, None)
+
+
+def _lower_math1(op):
+    """Unary double math (sqrt, ln, log10, exp): a decimal argument converts
+    through its scale; domain violations give NaN or inf."""
+
+    def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+        a = _arg_double(ctx, expr.args[0])
+        return LoweredVal(op(a.vals), a.valid, None)
+
+    return fn
+
+
+def _lower_log_b(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """log(base, x)."""
+    b = _arg_double(ctx, expr.args[0])
+    x = _arg_double(ctx, expr.args[1])
+    return LoweredVal(torch.log(x.vals) / torch.log(b.vals), and_valid(b.valid, x.valid), None)
+
+
+def _lower_power(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    a = _arg_double(ctx, expr.args[0])
+    b = _arg_double(ctx, expr.args[1])
+    return LoweredVal(torch.pow(a.vals, b.vals), and_valid(a.valid, b.valid), None)
+
+
+def _lower_sign(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    a = lower(expr.args[0], ctx)
+    if expr.args[0].type.is_floating:
+        return LoweredVal(torch.sign(a.vals.to(torch.float64)), a.valid, None)
+    return LoweredVal(torch.sign(a.vals).to(torch.int64), a.valid, None)
+
+
+def _round_int_half_away(v: torch.Tensor, div: int) -> torch.Tensor:
+    """Integers rounded to a multiple of ``div``, half away from zero."""
+    v = v.to(torch.int64)
+    return torch.sign(v) * _floordiv(torch.abs(v) + div // 2, div) * div
+
+
+def _lower_round(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """round(x[, d]), half away from zero; ``d`` must be a literal."""
+    a = lower(expr.args[0], ctx)
+    t = expr.args[0].type
+    d = 0
+    if len(expr.args) > 1:
+        if not isinstance(expr.args[1], ir.Constant):
+            raise NotImplementedError("round() digits must be a literal")
+        d = int(expr.args[1].value)
+    if t.is_floating:
+        factor = 10.0 ** d
+        scaled = a.vals.to(torch.float64) * factor
+        return LoweredVal(torch.sign(scaled) * torch.floor(torch.abs(scaled) + 0.5) / factor,
+                          a.valid, None)
+    if t.is_decimal:
+        if d >= t.scale:
+            return a
+        return LoweredVal(_round_int_half_away(a.vals, 10 ** (t.scale - d)), a.valid, None)
+    if d >= 0:
+        return a  # integers are whole already
+    return LoweredVal(_round_int_half_away(a.vals, 10 ** (-d)).to(a.vals.dtype), a.valid, None)
+
+
+def _lower_ceil_floor(is_ceil: bool):
+    def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+        a = lower(expr.args[0], ctx)
+        t = expr.args[0].type
+        if t.is_floating:
+            op = torch.ceil if is_ceil else torch.floor
+            return LoweredVal(op(a.vals.to(torch.float64)), a.valid, None)
+        if t.is_decimal and t.scale > 0:
+            div = 10 ** t.scale
+            v = a.vals.to(torch.int64)
+            q = -_floordiv(-v, div) if is_ceil else _floordiv(v, div)
+            return LoweredVal(q * div, a.valid, None)
+        return a
+
+    return fn
+
+
+def _lower_extremum(is_greatest: bool):
+    """greatest/least: NULL if any argument is NULL. Varchar operands move
+    onto one merged (order-preserving) dictionary first."""
+
+    def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+        parts = [lower(a, ctx) for a in expr.args]
+        op = torch.maximum if is_greatest else torch.minimum
+        if expr.type.is_varchar:
+            acc = parts[0]
+            for p in parts[1:]:
+                av, bv = _align_varchar(acc, p, ctx.device)
+                merged = (acc.dictionary if acc.dictionary.values == p.dictionary.values
+                          else acc.dictionary.merge(p.dictionary))
+                acc = LoweredVal(op(av, bv), and_valid(acc.valid, p.valid), merged)
+            return acc
+        out, valid = parts[0].vals, parts[0].valid
+        for p in parts[1:]:
+            dt = torch.promote_types(out.dtype, p.vals.dtype)
+            out = op(out.to(dt), p.vals.to(dt))
+            valid = and_valid(valid, p.valid)
+        return LoweredVal(out, valid, None)
+
+    return fn
+
+
+def _lower_negate(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    a = lower(expr.args[0], ctx)
+    if a.hi is not None:
+        from trino_tpu_torch.ops import int128 as i128
+
+        nhi, nlo = i128.neg(as_i128(a))
+        return LoweredVal(nlo, a.valid, None, hi=nhi)
+    return LoweredVal(-a.vals, a.valid, None)
+
+
 FUNCTIONS: Dict[str, Callable[..., LoweredVal]] = {
     "eq": _comparison(operator.eq),
     "ne": _comparison(operator.ne),
@@ -687,4 +810,18 @@ FUNCTIONS: Dict[str, Callable[..., LoweredVal]] = {
     "substring": _lower_substring,
     "extract_year": _lower_extract_year,
     "date_add_months": _lower_date_add_months,
+    "negate": _lower_negate,
+    "sqrt": _lower_math1(torch.sqrt),
+    "ln": _lower_math1(torch.log),
+    "log_b": _lower_log_b,
+    "log10": _lower_math1(torch.log10),
+    "exp": _lower_math1(torch.exp),
+    "power": _lower_power,
+    "sign": _lower_sign,
+    "round": _lower_round,
+    "ceil": _lower_ceil_floor(True),
+    "ceiling": _lower_ceil_floor(True),
+    "floor": _lower_ceil_floor(False),
+    "greatest": _lower_extremum(True),
+    "least": _lower_extremum(False),
 }
