@@ -58,24 +58,43 @@ Phases, each of which fails the run (non-zero exit, no result line):
    join tiers; a query whose reference selects merge-pallas must launch the
    merge kernel. Prints one line a query, as phase tpch does, with the
    card's name and power limit.
-6. mainpath: the merge kernel against its plain version, exact, on the
+6. scalar: a fourth session, uncached, runs eleven queries at SF1 that
+   reach every scalar function family of trino_tpu_torch/ops/expr_lower.py
+   (date and timestamp extracts, differences, truncations, formats and
+   casts; the strings, regexps, pads, JSON scalars and varbinary hashes
+   over part, customer, orders and lineitem; mod, abs, truncate, bitwise,
+   bit_count and the trigonometric family over lineitem; coalesce and
+   nullif over the NULLs of a TPC-DS outer join, one varchar coalesce
+   across two dictionaries), each cold then warm. Rows must equal
+   trino_tpu_torch/testdata/scalar_sf1_expected.json (written by the JAX
+   package: tests/test_torch_scalar_sql.py --write-expected; the varchar
+   coalesce's rows are the reference's for the CASE form), doubles within
+   a relative 1e-8. Prints one line a query: rows, cold and warm wall and
+   the seconds of host passes over vocabularies and tables of days (and
+   their share of the wall). Then a random() query over lineitem (the row
+   count, every draw in [0, 1), the mean within 0.001 of 0.5, drawn from
+   the session's CUDA generator) and the transcendental functions on the
+   card against numpy on the host: log10(10^k) exact for k in -300..300
+   (with how many the raw torch.log10 missed), and a seeded sample of
+   each function within a relative 1e-8.
+7. mainpath: the merge kernel against its plain version, exact, on the
    very build and probe tensors the cold runs of phases tpch, cache and
    analytics handed to it (one row a launch, with phase kernel's times),
    and every TPC-H query whose reference selects merge-pallas must have
    handed it some in the first two sessions.
-7. sf10: first the pinned double-buffered host->device copy of the
+8. sf10: first the pinned double-buffered host->device copy of the
    staging module on its own (int32, int64, float64 and bool columns of
    4M + 3 rows in 1 MiB blocks, and a column of five int64 split parts
    narrowed to int32 in 1 MiB and 32 MiB blocks; bitwise equal, read on the
    consuming stream at once); then TPC-H Q3 at SF10 in a cached session, cold then warm:
    rows equal to the JAX package's, the warm run staging nothing.
-8. spill: Q3 (joins), Q18 (aggregation under a semi join) and Q13 (left
+9. spill: Q3 (joins), Q18 (aggregation under a semi join) and Q13 (left
    join) at SF1 in a cached session under ``query_max_device_memory`` of a
    quarter of the largest working set the reference's unbudgeted run
    handed its spill decision. Each must spill into 4 or more partitions
    and return the reference's rows (a tie group of the ORDER BY compared
    as a multiset).
-9. dml: in a session over shared catalogs, CREATE TABLE AS from
+10. dml: in a session over shared catalogs, CREATE TABLE AS from
    tpch.tiny.orders into the memory catalog, then INSERT, UPDATE, DELETE,
    DROP and CREATE TABLE AS again, each followed by a cached aggregate
    over the table: the read after each statement must miss, a repeated
@@ -83,7 +102,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the same sequence; no entry of an older table version may stay.
 
 With ``--profile`` it also runs each query once more (warm) in each of the
-three sessions under torch.profiler and prints the device time by kernel,
+four sessions under torch.profiler and prints the device time by kernel,
 the device's busy share of the wall, the device launches and the largest
 device item; and it times the DML sequence over tpch.sf1.orders (1.5M
 rows), holding each read's cache disposition to the reference's.
@@ -563,6 +582,116 @@ def phase_analytics(device, analytics, cap, card):
     return out, session
 
 
+SCALAR_REL_TOL = 1e-8  # doubles at SF1, as phase analytics
+
+
+def phase_scalar(device, scalar, card):
+    """The scalar-family queries at SF1 in an uncached session, cold then
+    warm: rows equal the reference's (doubles within SCALAR_REL_TOL); the
+    seconds of host passes over vocabularies and tables of days beside each
+    wall."""
+    from trino_tpu_torch import Session
+    from trino_tpu_torch.obs import metrics as M
+    from trino_tpu_torch.ops import merge
+
+    session = Session(properties=dict(scalar["properties"]), device=device)
+    out = {}
+    for name, entry in scalar["queries"].items():
+        runs = []
+        for label in ("cold", "warm"):
+            merge.launches = 0
+            host0 = M.SCALAR_HOST_SECONDS.value()
+            res, wall, c = timed_execute(session, entry["sql"], device)
+            host_s = M.SCALAR_HOST_SECONDS.value() - host0
+            check_rows(f"{name} (scalar, {label})", jsonable_rows(res.rows), entry["rows"],
+                       rel_tol=SCALAR_REL_TOL)
+            runs.append({"run": label, "wall_s": wall, "vocab_host_s": host_s,
+                         "vocab_host_share": host_s / wall, "merge_launches": merge.launches,
+                         "staged_rows": c["staged_rows"], "h2d_bytes": c["h2d_bytes"],
+                         **{k: c[k] for k in ("scan_s", "decode_s", "transfer_s")}})
+        out[name] = runs
+        print("scalar", json.dumps({"query": name, "scale": "sf1", "rows": len(res.rows),
+                                    "runs": runs, "card": card}), flush=True)
+    return out, session
+
+
+def check_random(session, device):
+    """random() over every lineitem row at SF1, drawn on the card from the
+    session's generator."""
+    gen = session.generator
+    state = gen.get_state().clone()
+    (n,) = session.execute("select count(*) from lineitem").rows[0]
+    t0 = time.perf_counter()
+    (row,) = session.execute(
+        "select count(*), min(r), max(r), avg(r) from (select random() as r from lineitem)").rows
+    wall = time.perf_counter() - t0
+    count, lo, hi, mean = row
+    drew = not bool((gen.get_state() == state).all())
+    line = {"rows": count, "min": lo, "max": hi, "mean": mean, "wall_s": wall,
+            "generator_device": str(gen.device), "generator_advanced": drew}
+    print("scalar_random", json.dumps(line), flush=True)
+    if count != n or not 0.0 <= lo <= hi < 1.0 or abs(mean - 0.5) > 0.001 \
+            or gen.device.type != "cuda" or device.type != "cuda" or not drew:
+        raise AssertionError(f"random() over lineitem: {line} (want {n} rows in [0, 1), the "
+                             f"mean within 0.001 of 0.5, drawn by the session's CUDA generator)")
+    return line
+
+
+def lowered_on(device, name, *arrays):
+    """The port's lowering of ``name`` over float64 columns on ``device``,
+    back on the host."""
+    import torch
+
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.data.page import Column
+    from trino_tpu_torch.ops import expr_lower as L
+    from trino_tpu_torch.sql import ir
+
+    cols = [Column(T.DOUBLE, torch.from_numpy(a).to(device)) for a in arrays]
+    call = ir.Call(T.DOUBLE, name, tuple(ir.ColumnRef(T.DOUBLE, i, f"c{i}")
+                                         for i in range(len(arrays))))
+    return L.lower(call, L.LowerCtx(cols, len(arrays[0]), None, device)).vals.cpu().numpy()
+
+
+def check_transcendentals(device):
+    """log10 of every power of ten from 1e-300 to 1e300 exact, and each
+    transcendental function on a seeded sample within SCALAR_REL_TOL of
+    numpy on the host."""
+    import numpy as np
+    import torch
+
+    ks = np.arange(-300, 301)
+    tens = np.array([float(f"1e{k}") for k in ks])
+    raw = torch.log10(torch.from_numpy(tens).to(device)).cpu().numpy()
+    got = lowered_on(device, "log10", tens)
+    bad = ks[got != ks].tolist()
+    line = {"log10_powers": len(ks), "raw_torch_log10_inexact": int((raw != ks).sum()),
+            "raw_inexact_k": ks[raw != ks].tolist()[:12], "port_inexact_k": bad}
+    rng = np.random.default_rng(2026)
+    n = 1 << 16
+    wide = rng.normal(0.0, 10.0, n)
+    unit = rng.uniform(-1.0, 1.0, n)
+    pos = rng.lognormal(0.0, 20.0, n)
+    cases = {"sin": (np.sin, wide), "cos": (np.cos, wide), "tan": (np.tan, wide),
+             "asin": (np.arcsin, unit), "acos": (np.arccos, unit), "atan": (np.arctan, wide),
+             "sinh": (np.sinh, unit * 20), "cosh": (np.cosh, unit * 20), "tanh": (np.tanh, unit),
+             "cbrt": (np.cbrt, wide * 1e3), "log2": (np.log2, pos), "log10": (np.log10, pos),
+             "ln": (np.log, pos), "exp": (np.exp, unit * 50), "degrees": (np.degrees, wide),
+             "radians": (np.radians, wide), "sqrt": (np.sqrt, pos)}
+    worst = {}
+    for fn, (ref, x) in cases.items():
+        g, w = lowered_on(device, fn, x), ref(x)
+        worst[fn] = float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-300)))
+    for fn, ref, a, b in (("atan2", np.arctan2, wide, unit), ("power", np.power, pos, unit * 3)):
+        g, w = lowered_on(device, fn, a, b), ref(a, b)
+        worst[fn] = float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-300)))
+    line["max_rel_err"] = worst
+    print("scalar_transcendental", json.dumps(line), flush=True)
+    if bad or any(e > SCALAR_REL_TOL for e in worst.values()):
+        raise AssertionError(f"transcendental functions on the card: {line}")
+    return line
+
+
 def phase_mainpath(captured, merge_queries):
     """The merge kernel against its plain version on the very inputs the
     cold runs of both sessions gave it (exact), with the same times as
@@ -799,11 +928,15 @@ def main() -> int:
     expected = testdata("tpch_sf1_expected.json")["queries"]
     plane = testdata("plane_expected.json")
     analytics = testdata("analytics_sf1_expected.json")
+    scalar = testdata("scalar_sf1_expected.json")
     profiling = "--profile" in sys.argv[1:]
     with MergeCapture() as cap:
         tpch, session = phase_tpch(device, expected, cap)
         cache_runs, _resident, cached_session = phase_cache(device, expected, plane, cap)
         analytics_runs, analytics_session = phase_analytics(device, analytics, cap, card)
+        scalar_runs, scalar_session = phase_scalar(device, scalar, card)
+        check_random(scalar_session, device)
+        check_transcendentals(device)
     merge_queries = sorted(int(q) for q, e in expected.items()
                            if e["tiers"].get("merge-pallas", 0) >= 1)
     rows += phase_mainpath(cap.captured, merge_queries)
@@ -813,7 +946,9 @@ def main() -> int:
         phase_profile(cached_session, tpch_sql, "cached")
         phase_profile(analytics_session,
                       [(n, e["sql"]) for n, e in analytics["queries"].items()], "analytics")
-    del session, cached_session, analytics_session
+        phase_profile(scalar_session,
+                      [(n, e["sql"]) for n, e in scalar["queries"].items()], "scalar")
+    del session, cached_session, analytics_session, scalar_session
     phase_transfer(device)
     phase_sf10(device, plane)
     phase_spill(device, plane)
@@ -827,16 +962,18 @@ def main() -> int:
         "cache": sum(run["merge_launches"] for runs in cache_runs.values()
                      for run in runs.values()),
         "analytics": sum(run["merge_launches"] for runs in analytics_runs.values()
-                         for run in runs)}
+                         for run in runs),
+        "scalar": sum(run["merge_launches"] for runs in scalar_runs.values() for run in runs)}
     for path, n in launches_by_path.items():
-        if n < 1 and path != "analytics":
+        if n < 1 and path not in ("analytics", "scalar"):
             raise AssertionError(f"the 22 queries of path {path} launched the merge kernel "
                                  f"no time")
     # as since the first slice: the launches of the uncached session's cold
     # runs (launches_by_path has every run of both sessions)
     launches = sum(run["merge_launches"] for runs in tpch.values() for run in runs
                    if run["run"] == "cold")
-    for path, by_query in (("tpch", tpch), ("analytics", analytics_runs)):
+    for path, by_query in (("tpch", tpch), ("analytics", analytics_runs),
+                           ("scalar", scalar_runs)):
         print(f"{path}_total", json.dumps({
             f"{label}_wall_s": sum(run["wall_s"] for runs in by_query.values()
                                    for run in runs if run["run"] == label)

@@ -4,7 +4,8 @@ The port of trino_tpu/client/session.py for the local path. The session
 owns the torch device every query runs on: CUDA unless the caller names
 another device (the CPU tests pass ``device="cpu"``). A session asked for
 CUDA on a machine without a usable GPU raises instead of running
-elsewhere. ``catalogs`` shares one connector map between sessions (the
+elsewhere. The session owns the generator ``random()`` draws from, on
+its device. ``catalogs`` shares one connector map between sessions (the
 reference's server mode), so tables written through the memory catalog
 persist from statement to statement and session to session.
 """
@@ -28,6 +29,9 @@ class Session:
             raise RuntimeError(
                 "Session: CUDA device requested but torch.cuda.is_available() "
                 "is False (pass device='cpu' to run on the CPU)")
+        # random() draws from this generator, on the session's device
+        self.generator = torch.Generator(device=self.device)
+        self.generator.seed()
         self.catalogs = catalogs if catalogs is not None else default_catalogs()
         self.properties: Dict[str, Any] = defaulted(dict(properties or {}))
         # explicit transactions are not ported; the device cache's bypass

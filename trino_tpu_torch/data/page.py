@@ -76,24 +76,32 @@ class Column:
 
     def to_python(self, idx: Optional[np.ndarray] = None) -> List:
         """Device -> host, decoding reprs back to Python values (rows
-        ``idx`` only, when given)."""
+        ``idx`` only, when given). A NULL row's slot is never decoded: it
+        may hold anything (the identity of an empty group's max)."""
         def host(t):
             a = to_numpy(t)
             return a if idx is None else a[idx]
 
-        nulls = host(self.nulls).tolist() if self.nulls is not None else None
+        nulls = host(self.nulls) if self.nulls is not None else None
         vals = host(self.values)
+        if nulls is not None:
+            vals = np.where(nulls, vals.dtype.type(NULL_CODE if self.type.is_varchar else 0),
+                            vals)
         if self.hi is not None:
-            his = host(self.hi).tolist()
+            his = host(self.hi)
+            if nulls is not None:
+                his = np.where(nulls, 0, his)
             los = vals.astype(np.int64).view(np.uint64).tolist()
             decode = _repr_decoder(self.type)
-            out = [decode((h << 64) | lo) for h, lo in zip(his, los)]
+            out = [decode((h << 64) | lo) for h, lo in zip(his.tolist(), los)]
         elif self.type.is_varchar:
             out = self.dictionary.decode(vals)
+            if self.type.is_varbinary:  # the dictionary holds hex
+                out = [None if v is None else bytes.fromhex(v) for v in out]
         else:
             out = list(map(_repr_decoder(self.type), vals.tolist()))
         if nulls is not None:
-            out = [None if isnull else v for v, isnull in zip(out, nulls)]
+            out = [None if isnull else v for v, isnull in zip(out, nulls.tolist())]
         return out
 
 

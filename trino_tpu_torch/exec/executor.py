@@ -22,9 +22,10 @@ bytes; over the ``query_max_device_memory`` budget, joins and grouped
 aggregations hash-partition their inputs on the host and run in passes.
 The compiled tier is not ported.
 
-Data-dependent runtime errors (division by zero, decimal overflow,
-capacity overflow, a scalar subquery without exactly one row) are
-collected as boolean flags and checked once after execution.
+Data-dependent runtime errors (division by zero, decimal overflow, an
+invalid function argument, capacity overflow, a scalar subquery without
+exactly one row) are collected as boolean flags and checked once after
+execution.
 """
 from __future__ import annotations
 
@@ -242,7 +243,8 @@ class Executor:
         return arg
 
     def _lower(self, e: ir.Expr, page: Page) -> L.LoweredVal:
-        ctx = L.LowerCtx(page.columns, page.num_rows, page.sel, self.device)
+        ctx = L.LowerCtx(page.columns, page.num_rows, page.sel, self.device,
+                         getattr(self.session, "generator", None))
         out = L.lower(e, ctx)
         self.errors.extend(ctx.errors)
         return out

@@ -69,3 +69,8 @@ HOST_CACHE_HITS = Counter("host_cache_hits_total")
 HOST_CACHE_MISSES = Counter("host_cache_misses_total")
 HOST_CACHE_EVICTIONS = Counter("host_cache_evictions_total")
 HOST_CACHE_BYTES = Gauge("host_cache_bytes")
+
+# host seconds of the scalar lowerings' passes over a vocabulary or a table
+# of days (ops/expr_lower.py): string work run once a distinct value on the
+# host, before one gather by code on the device
+SCALAR_HOST_SECONDS = Counter("scalar_host_seconds_total")

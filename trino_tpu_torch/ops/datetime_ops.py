@@ -1,5 +1,5 @@
 """Civil-calendar math on epoch-day tensors: the port of
-trino_tpu/ops/datetime_ops.py for the functions the TPC-H queries reach.
+trino_tpu/ops/datetime_ops.py.
 
 Branch-free integer arithmetic (Howard Hinnant's public-domain days <->
 civil algorithms, the math java.time uses). Every division is a floor
@@ -43,6 +43,58 @@ def days_from_civil(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor) -> torch.
 
 def extract_year(days: torch.Tensor) -> torch.Tensor:
     return civil_from_days(days)[0]
+
+
+def extract_month(days: torch.Tensor) -> torch.Tensor:
+    return civil_from_days(days)[1]
+
+
+def extract_day(days: torch.Tensor) -> torch.Tensor:
+    return civil_from_days(days)[2]
+
+
+def extract_quarter(days: torch.Tensor) -> torch.Tensor:
+    return _fdiv(civil_from_days(days)[1] - 1, 3) + 1
+
+
+def extract_dow(days: torch.Tensor) -> torch.Tensor:
+    """ISO day of week, Monday 1 to Sunday 7 (1970-01-01 was a Thursday)."""
+    return torch.remainder(days.to(torch.int64) + 3, 7) + 1
+
+
+def _jan1(y: torch.Tensor) -> torch.Tensor:
+    one = torch.ones_like(y)
+    return days_from_civil(y, one, one)
+
+
+def extract_doy(days: torch.Tensor) -> torch.Tensor:
+    """Day of the year, from 1."""
+    return days.to(torch.int64) - _jan1(civil_from_days(days)[0]) + 1
+
+
+def extract_week(days: torch.Tensor) -> torch.Tensor:
+    """ISO-8601 week number: week 1 holds the year's first Thursday."""
+    d = days.to(torch.int64)
+    thursday = d - extract_dow(d) + 4  # the Thursday of this ISO week
+    return _fdiv(thursday - _jan1(civil_from_days(thursday)[0]), 7) + 1
+
+
+def trunc_date(days: torch.Tensor, unit: str) -> torch.Tensor:
+    """date_trunc(unit, date) -> epoch days."""
+    d = days.to(torch.int64)
+    if unit == "day":
+        return d
+    if unit == "week":  # the ISO week starts on Monday
+        return d - (extract_dow(d) - 1)
+    y, m, _ = civil_from_days(d)
+    one = torch.ones_like(y)
+    if unit == "month":
+        return days_from_civil(y, m, one)
+    if unit == "quarter":
+        return days_from_civil(y, _fdiv(m - 1, 3) * 3 + 1, one)
+    if unit == "year":
+        return days_from_civil(y, one, one)
+    raise NotImplementedError(f"date_trunc unit: {unit}")
 
 
 def days_in_month(y: torch.Tensor, m: torch.Tensor) -> torch.Tensor:

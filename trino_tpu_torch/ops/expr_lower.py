@@ -1,31 +1,42 @@
-"""Expression IR -> PyTorch lowering: the subset of trino_tpu/ops/expr_lower.py
-that the ported queries reach.
+"""Expression IR -> PyTorch lowering: the port of trino_tpu/ops/expr_lower.py
+for every scalar expression over flat types.
 
-Lowered here: column refs, constants, searched CASE, the six comparisons
-(numeric, date, decimal at a common scale, int128 two-limb, and varchar
-equality/order on dictionary codes), ``and``/``or``/``not`` with Kleene
-logic, ``between`` and ``in_list``, ``add``/``sub``/``mul``/``div`` over
-decimals (with the reference's rescaling, value-range bounds and the
-int128 path where a bound cannot prove an int64 fit), floats and integers,
-``extract_year`` and ``date_add_months`` on dates, ``negate``, the
-double functions ``sqrt``, ``ln``, ``log``, ``log10``, ``exp`` and
-``power``, ``sign``, ``round``, ``ceil``/``floor``, ``greatest``/``least``,
-and the
-dictionary-first ``like`` and ``substring``: the string work runs on the
-host once over the vocabulary, and each row is one gather by code on the
-device. Any other expression kind raises NotImplementedError naming
-itself.
+Lowered here: column refs, constants, searched CASE, casts (numeric,
+decimal, typed NULL, timestamp precision and date <-> timestamp, and
+varchar <-> varbinary re-encoding), the six comparisons (numeric, date and
+timestamp at a common precision, decimal at a common scale, int128
+two-limb, and varchar order on dictionary codes), Kleene
+``and``/``or``/``not``, ``between``, ``in_list``, the arithmetic
+``add``/``sub``/``mul``/``div``/``mod`` over decimals (with the
+reference's rescaling, value-range bounds and the int128 path), floats and
+integers, and the scalar function families: math (``abs``, ``sign``,
+rounding, ``truncate``, the exponential, logarithm and trigonometric
+functions, ``greatest``/``least``, the float classes), bitwise on int64
+patterns, ``coalesce``/``nullif``, date and timestamp (every ``extract``
+field, ``date_trunc``, the differences, ``date_format``/``date_parse``,
+the day and month names), the strings, the JSON scalars, varbinary
+(hex, utf8, md5, sha256) and ``random``/``now``/``current_date``.
+
+String work is dictionary-first: a function runs on the host once for each
+distinct value of the vocabulary (or once a day of a bounded table of
+days), and each row is one gather by code on the device. The nested types
+(arrays, maps, rows, lambdas) are not ported; they and any other unported
+expression raise NotImplementedError naming themselves.
 
 A lowered value is ``LoweredVal(vals, valid, dictionary, bound, hi)``;
 ``valid`` is a bool tensor or None (all valid). Data-dependent errors
-(division by zero, decimal overflow) are collected as flags on the context
-and raised after execution, as in the reference.
+(division by zero, overflow, an invalid function argument) are collected as
+flags on the context and raised after execution, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import hashlib
+import json
 import operator
 import re
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -34,11 +45,14 @@ import torch
 from trino_tpu_torch import types as T
 from trino_tpu_torch.data.dictionary import NULL_CODE, Dictionary
 from trino_tpu_torch.data.page import Column, to_device, torch_dtype
+from trino_tpu_torch.obs import metrics as M
 from trino_tpu_torch.ops import datetime_ops as dt
 from trino_tpu_torch.sql import ir
 
 DIVISION_BY_ZERO = "DIVISION_BY_ZERO"
 DECIMAL_OVERFLOW = "DECIMAL_OVERFLOW"
+NUMERIC_OVERFLOW = "NUMERIC_VALUE_OUT_OF_RANGE"
+INVALID_FUNCTION_ARGUMENT = "INVALID_FUNCTION_ARGUMENT"
 
 
 @dataclasses.dataclass
@@ -54,15 +68,17 @@ class LoweredVal:
 
 
 class LowerCtx:
-    """Input columns, the page's selection mask, the device, and collected
-    error conditions (which fire only for valid, selected rows)."""
+    """Input columns, the page's selection mask, the device, the session's
+    random generator, and collected error conditions (which fire only for
+    valid, selected rows)."""
 
     def __init__(self, columns: List[Column], num_rows: int,
-                 sel: Optional[torch.Tensor], device):
+                 sel: Optional[torch.Tensor], device, generator=None):
         self.columns = columns
         self.num_rows = num_rows
         self.sel = sel
         self.device = device
+        self.generator = generator
         self.errors: List[Tuple[str, torch.Tensor]] = []
 
     def add_error(self, code: str, cond: torch.Tensor, live: Optional[torch.Tensor]):
@@ -110,15 +126,17 @@ def _const_array(ctx: LowerCtx, np_dtype, value) -> torch.Tensor:
                       device=ctx.device)
 
 
+def _all_null(ctx: LowerCtx) -> torch.Tensor:
+    return torch.zeros((ctx.num_rows,), dtype=torch.bool, device=ctx.device)
+
+
 def _lower_constant(expr: ir.Constant, ctx: LowerCtx) -> LoweredVal:
     t = expr.type
     if t.is_nested:
         raise NotImplementedError(f"{t} constant")
     if expr.value is None:
         dtype = t.np_dtype if t.np_dtype is not None else np.dtype(np.int32)
-        return LoweredVal(
-            _const_array(ctx, dtype, 0),
-            torch.zeros((ctx.num_rows,), dtype=torch.bool, device=ctx.device), None)
+        return LoweredVal(_const_array(ctx, dtype, 0), _all_null(ctx), None)
     if t.is_varchar:
         return LoweredVal(_const_array(ctx, np.int32, 0), None, Dictionary([expr.value]))
     bound = None
@@ -128,10 +146,9 @@ def _lower_constant(expr: ir.Constant, ctx: LowerCtx) -> LoweredVal:
 
 
 def _lower_cast(expr: ir.Cast, ctx: LowerCtx) -> LoweredVal:
-    """The numeric, decimal, typed-NULL and varchar-to-varchar casts of the
-    reference's ``_lower_cast`` (what UPDATE's type-keeping rewrite and
-    INSERT coercions produce). Timestamp, varbinary and to-varchar casts
-    are not ported."""
+    """The reference's ``_lower_cast`` for flat types. Casts of a
+    non-varchar value to varchar and of a varchar to a date are refused, as
+    in the reference."""
     a = lower(expr.value, ctx)
     ft, tt = expr.value.type, expr.type
     if ft == tt:
@@ -139,15 +156,25 @@ def _lower_cast(expr: ir.Cast, ctx: LowerCtx) -> LoweredVal:
     if ft == T.UNKNOWN and not tt.is_nested:
         # typed NULL: every row invalid, representation per target type
         dtype = tt.np_dtype if tt.np_dtype is not None else np.dtype(np.int32)
-        return LoweredVal(
-            _const_array(ctx, dtype, 0),
-            torch.zeros((ctx.num_rows,), dtype=torch.bool, device=ctx.device),
-            Dictionary([]) if tt.is_varchar else None)
-    if isinstance(tt, T.TimestampType) or isinstance(ft, T.TimestampType):
+        return LoweredVal(_const_array(ctx, dtype, 0), _all_null(ctx),
+                          Dictionary([]) if tt.is_varchar else None)
+    if isinstance(tt, T.TimestampType):
+        if isinstance(ft, T.TimestampType):
+            # precision rescale, half up as a decimal rescale; the
+            # with-time-zone flip keeps the UTC storage
+            v = _rescale_decimal(a.vals.to(torch.int64), ft.precision, tt.precision)
+            return LoweredVal(v, a.valid, None)
+        if ft == T.DATE:
+            return LoweredVal(a.vals.to(torch.int64) * (86_400 * 10**tt.precision),
+                              a.valid, None)
         raise NotImplementedError(f"cast {ft} -> {tt} is not ported")
+    if tt == T.DATE and isinstance(ft, T.TimestampType):
+        unit = 86_400 * 10**ft.precision
+        return LoweredVal(_floordiv(a.vals.to(torch.int64), unit).to(torch.int32),
+                          a.valid, None)
     if tt.is_floating:
         if a.hi is not None:
-            raise NotImplementedError(f"cast of a two-limb {ft} to {tt} is not ported")
+            return LoweredVal(_to_float128(a, ft).to(torch_dtype(tt.np_dtype)), a.valid, None)
         v = a.vals.to(torch.float64)
         if ft.is_decimal:
             v = v / (10.0 ** _scale_of(ft))
@@ -175,7 +202,12 @@ def _lower_cast(expr: ir.Cast, ctx: LowerCtx) -> LoweredVal:
     if tt.is_integer_kind:
         if ft.is_decimal:
             if a.hi is not None:
-                raise NotImplementedError(f"cast of a two-limb {ft} to {tt} is not ported")
+                from trino_tpu_torch.ops import int128 as i128
+
+                out128 = i128.rescale(as_i128(a), _scale_of(ft), 0)
+                ctx.add_error(NUMERIC_OVERFLOW, ~i128.fits_int64(out128), a.valid)
+                return LoweredVal(i128.to_int64(out128).to(torch_dtype(tt.np_dtype)),
+                                  a.valid, None)
             v = _rescale_decimal(a.vals.to(torch.int64), _scale_of(ft), 0)
             bound = None if a.bound is None else _rescaled_bound(a.bound, _scale_of(ft), 0)
         elif ft.is_floating:
@@ -185,11 +217,17 @@ def _lower_cast(expr: ir.Cast, ctx: LowerCtx) -> LoweredVal:
             v = a.vals
             bound = a.bound
         return LoweredVal(v.to(torch_dtype(tt.np_dtype)), a.valid, None, bound)
-    if tt.is_varchar:
-        if ft.is_varchar and not ft.is_varbinary and not tt.is_varbinary:
-            return LoweredVal(a.vals, a.valid, a.dictionary)  # same codes
-        raise NotImplementedError(f"cast {ft} -> {tt} is not ported")
     if tt == T.DATE and ft.is_varchar:
+        raise NotImplementedError(f"cast {ft} -> {tt} is not ported")
+    if tt.is_varchar:
+        # varbinary rides the dictionary as hex text: a cast re-encodes
+        # through the vocabulary (UTF-8 both ways)
+        if ft.is_varbinary and not tt.is_varbinary:
+            return _vocab_transform(ctx, a, _utf8_of_hex)
+        if ft.is_varchar and not ft.is_varbinary and tt.is_varbinary:
+            return _vocab_transform(ctx, a, lambda s: s.encode().hex())
+        if ft.is_varchar:  # varchar(n) <-> varchar: the same codes
+            return LoweredVal(a.vals, a.valid, a.dictionary)
         raise NotImplementedError(f"cast {ft} -> {tt} is not ported")
     return LoweredVal(a.vals.to(torch_dtype(tt.np_dtype)), a.valid, a.dictionary)
 
@@ -211,6 +249,24 @@ def as_i128(lv: LoweredVal):
     return hi, lo
 
 
+def _to_float128(lv: LoweredVal, t: T.Type) -> torch.Tensor:
+    """A two-limb (or plain) numeric value -> float64 at its decimal scale.
+    The low word converts as unsigned: its two 32-bit halves are exact in
+    float64, so their sum rounds once, as a uint64 conversion does."""
+    if lv.hi is None:
+        v = lv.vals.to(torch.float64)
+    else:
+        from trino_tpu_torch.ops import int128 as i128
+
+        lo = lv.vals.to(torch.int64)
+        ulo = (i128._lsr(lo, 32).to(torch.float64) * float(2**32)
+               + (lo & i128._MASK32).to(torch.float64))
+        v = lv.hi.to(torch.float64) * float(2**64) + ulo
+    if t.is_decimal:
+        v = v / (10.0 ** _scale_of(t))
+    return v
+
+
 def _compare(ctx: LowerCtx, op: Callable, a: LoweredVal, at: T.Type,
              b: LoweredVal, bt: T.Type) -> LoweredVal:
     """``op`` over two lowered operands of SQL types ``at`` and ``bt``."""
@@ -219,7 +275,8 @@ def _compare(ctx: LowerCtx, op: Callable, a: LoweredVal, at: T.Type,
         from trino_tpu_torch.ops import int128 as i128
 
         if at.is_floating or bt.is_floating:
-            raise NotImplementedError("comparing a long decimal with a float")
+            return LoweredVal(op(_to_float128(a, at), _to_float128(b, bt)),
+                              and_valid(a.valid, b.valid))
         s = max(_scale_of(at), _scale_of(bt))
         a128 = i128.rescale(as_i128(a), _scale_of(at), s)
         b128 = i128.rescale(as_i128(b), _scale_of(bt), s)
@@ -243,9 +300,21 @@ def _comparison(op: Callable) -> Callable:
 
 
 def _numeric_align(av, at: T.Type, bv, bt: T.Type):
-    """Bring two numeric/date values to one comparable representation."""
+    """Bring two numeric/date/timestamp values to one comparable
+    representation."""
     if at.is_timestamp or bt.is_timestamp:
-        raise NotImplementedError(f"comparing {at} with {bt}")
+        # timestamps compare at the larger precision; a date is the UTC
+        # midnight of its day
+        p = max(t.precision for t in (at, bt) if isinstance(t, T.TimestampType))
+
+        def up(v, t):
+            if t == T.DATE:
+                return v.to(torch.int64) * (86_400 * 10**p)
+            if not isinstance(t, T.TimestampType):
+                raise NotImplementedError(f"comparing {at} with {bt}")
+            return v.to(torch.int64) * (10 ** (p - t.precision))
+
+        return up(av, at), up(bv, bt)
     if at.is_decimal or bt.is_decimal:
         sa, sb = _scale_of(at), _scale_of(bt)
         if at.is_floating or bt.is_floating:
@@ -262,6 +331,13 @@ def _numeric_align(av, at: T.Type, bv, bt: T.Type):
 
 def _floordiv(a: torch.Tensor, b) -> torch.Tensor:
     return torch.div(a, b, rounding_mode="floor")
+
+
+def _trunc_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """SQL ``%`` on integers as the reference computes it:
+    ``sign(a) * (|a| mod |b|)``, with no truncating division (which
+    traps on INT64_MIN / -1 on the CPU)."""
+    return torch.sign(a) * torch.remainder(torch.abs(a), torch.abs(b))
 
 
 def _rescale_decimal(v: torch.Tensor, from_scale: int, to_scale: int) -> torch.Tensor:
@@ -396,7 +472,32 @@ def _decimal_arith(name: str, ctx: LowerCtx, a: LoweredVal, b: LoweredVal,
         num = av.to(torch.int64) * (10 ** shift)
         q = _floordiv(torch.abs(num) + _floordiv(torch.abs(den64), 2), torch.abs(den64))
         return LoweredVal(torch.sign(num) * torch.sign(den64) * q, valid, None, out_bound)
+    if name == "mod":
+        if two_limb_in:
+            # no limb kernel: the low words, with a deferred overflow flag
+            # where a value does not fit them
+            for opnd in (a, b):
+                if opnd.hi is not None:
+                    lo64 = opnd.vals.to(torch.int64)
+                    ctx.add_error(DECIMAL_OVERFLOW, opnd.hi != (lo64 >> 63), valid)
+        s = max(sa, sb)
+        av = _rescale_decimal(av.to(torch.int64), sa, s)
+        bv = _rescale_decimal(bv.to(torch.int64), sb, s)
+        ctx.add_error(DIVISION_BY_ZERO, bv == 0, valid)
+        out = _rescale_decimal(_trunc_mod(av, torch.where(bv == 0, torch.ones_like(bv), bv)),
+                               s, rs)
+        if have_bounds:
+            bound_s = min(_rescaled_bound(ba, sa, s), _rescaled_bound(bb, sb, s))
+            out_bound = _rescaled_bound(bound_s, s, rs)
+        return LoweredVal(out, valid, None, out_bound)
     raise NotImplementedError(f"decimal {name}")
+
+
+def _float_mod(fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
+    """The reference's float ``%``: ``a - b * trunc(a / b)``, NaN for a
+    zero divisor (not ``fmod``, whose bits can differ)."""
+    return torch.where(fb != 0, fa - fb * torch.trunc(fa / fb),
+                       torch.full_like(fa, float("nan")))
 
 
 def _arith(name: str):
@@ -414,11 +515,11 @@ def _arith(name: str):
             fb = bv.to(torch.float64) / (10.0 ** _scale_of(bt)) if bt.is_decimal else bv
             fa, fb = fa.to(fdt), fb.to(fdt)
             out = {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
-                   "div": torch.div}[name](fa, fb)
+                   "div": torch.div, "mod": _float_mod}[name](fa, fb)
             return LoweredVal(out, valid)
         # integer kinds (and date +/- integer days)
-        dt = torch_dtype(rt.np_dtype)
-        av, bv = av.to(dt), bv.to(dt)
+        dt_ = torch_dtype(rt.np_dtype)
+        av, bv = av.to(dt_), bv.to(dt_)
         have = a.bound is not None and b.bound is not None
         if name in ("add", "sub"):
             out = av + bv if name == "add" else av - bv
@@ -429,8 +530,12 @@ def _arith(name: str):
         else:
             ctx.add_error(DIVISION_BY_ZERO, bv == 0, valid)
             den = torch.where(bv == 0, torch.ones_like(bv), bv)
-            out = torch.sign(av) * torch.sign(den) * _floordiv(torch.abs(av), torch.abs(den))
-            bound = a.bound if have else None
+            if name == "div":
+                out = torch.sign(av) * torch.sign(den) * _floordiv(torch.abs(av), torch.abs(den))
+                bound = a.bound if have else None
+            else:
+                out = _trunc_mod(av, den)
+                bound = min(a.bound, b.bound) if have else None
         return LoweredVal(out, valid, None, bound)
 
     return fn
@@ -469,8 +574,7 @@ def _lower_not(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
 def _lower_is_null(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
     a = lower(expr.args[0], ctx)
     if a.valid is None:
-        return LoweredVal(torch.zeros((ctx.num_rows,), dtype=torch.bool, device=ctx.device),
-                          None, None)
+        return LoweredVal(_all_null(ctx), None, None)
     return LoweredVal(~a.valid, None, None)
 
 
@@ -498,10 +602,28 @@ def _lower_in_list(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
         h = eq.vals if eq.valid is None else eq.vals & eq.valid
         hits = h if hits is None else hits | h
     if hits is None:
-        hits = torch.zeros((ctx.num_rows,), dtype=torch.bool, device=ctx.device)
+        hits = _all_null(ctx)
     x_null = torch.zeros_like(hits) if xl.valid is None else ~xl.valid
     unknown = (~hits) & (x_null | any_null_item)
     return LoweredVal(hits, ~unknown if (any_null_item or xl.valid is not None) else None)
+
+
+# ------------------------------------------------------------------ strings
+# A varchar function is a dictionary transform: the host applies it once to
+# each vocabulary entry, and the device gathers by code. Every gather clamps
+# its index as the reference's does, and a NULL code (-1) reads the
+# reference's fill value.
+
+
+class _HostTimer:
+    """Adds the seconds of a host pass over a vocabulary or a table of days
+    to SCALAR_HOST_SECONDS."""
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        M.SCALAR_HOST_SECONDS.inc(time.perf_counter() - self.t0)
 
 
 def _code_lut(x: LoweredVal, lut: np.ndarray, miss, device) -> torch.Tensor:
@@ -513,6 +635,62 @@ def _code_lut(x: LoweredVal, lut: np.ndarray, miss, device) -> torch.Tensor:
     return torch.where(codes >= 0, got, torch.full_like(got, miss))
 
 
+def _vocab_codes(ctx: LowerCtx, x: LoweredVal, mapped: List[Optional[str]]):
+    """(recoded codes, new dictionary) for the per-entry results
+    ``mapped``: an order-preserving dictionary built from them, and one
+    gather on the device. A None result decodes as NULL."""
+    d_new = Dictionary.build(mapped)
+    lut = np.array([d_new.code_of(m) for m in mapped], dtype=np.int32)
+    return _code_lut(x, lut, NULL_CODE, ctx.device), d_new
+
+
+def _vocab_transform(ctx: LowerCtx, x: LoweredVal, fn) -> LoweredVal:
+    """A host string -> string function applied once over the vocabulary,
+    an order-preserving dictionary rebuilt from the results, and the codes
+    recoded on the device by one gather."""
+    with _HostTimer():
+        mapped = [fn(v) for v in x.dictionary.values]
+        codes, d_new = _vocab_codes(ctx, x, mapped)
+    return LoweredVal(codes, x.valid, d_new)
+
+
+def _vocab_transform_where(ctx: LowerCtx, x: LoweredVal, fn) -> LoweredVal:
+    """As ``_vocab_transform`` for a function that may have no answer:
+    ``fn`` returns (string, present) and a row whose entry is not present
+    is NULL. One host pass gives both tables."""
+    with _HostTimer():
+        res = [fn(v) for v in x.dictionary.values]
+        codes, d_new = _vocab_codes(ctx, x, [s for s, _ in res])
+        has = np.array([h for _, h in res], dtype=np.bool_)
+    present = _code_lut(x, has, False, ctx.device)
+    return LoweredVal(codes, and_valid(x.valid, present), d_new)
+
+
+def _vocab_lut(ctx: LowerCtx, x: LoweredVal, fn, np_dtype) -> LoweredVal:
+    """varchar -> scalar by a table of the host function's result for each
+    vocabulary entry; NULL codes read zero."""
+    with _HostTimer():
+        lut = np.array([fn(v) for v in x.dictionary.values], dtype=np_dtype)
+    return LoweredVal(_code_lut(x, lut, lut.dtype.type(0).item(), ctx.device), x.valid, None)
+
+
+def _const_str_args(expr: ir.Call, start: int, stop: Optional[int] = None) -> List[str]:
+    out = []
+    for a in expr.args[start:stop]:
+        if not (isinstance(a, ir.Constant) and isinstance(a.value, str)):
+            raise NotImplementedError(
+                f"{expr.name}: pattern arguments must be varchar literals")
+        out.append(a.value)
+    return out
+
+
+def _const_int_arg(expr: ir.Call, i: int, what: str) -> int:
+    a = expr.args[i]
+    if not isinstance(a, ir.Constant):
+        raise NotImplementedError(f"{expr.name}: the {what} must be a literal")
+    return int(a.value)
+
+
 def _lower_like(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
     """LIKE on dictionary-coded varchar: the pattern runs on the host once
     over the vocabulary, and the device gathers the boolean table by code."""
@@ -521,8 +699,7 @@ def _lower_like(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
     if not isinstance(pat, ir.Constant) or x.dictionary is None:
         raise NotImplementedError("LIKE with a non-literal pattern")
     rx = re.compile(_like_to_regex(pat.value), re.S)
-    lut = np.array([rx.fullmatch(v) is not None for v in x.dictionary.values], dtype=bool)
-    return LoweredVal(_code_lut(x, lut, False, ctx.device), x.valid)
+    return _vocab_lut(ctx, x, lambda v: rx.fullmatch(v) is not None, np.bool_)
 
 
 def _like_to_regex(pattern: str, escape: Optional[str] = None) -> str:
@@ -542,16 +719,6 @@ def _like_to_regex(pattern: str, escape: Optional[str] = None) -> str:
             out.append(re.escape(c))
         i += 1
     return "".join(out)
-
-
-def _vocab_transform(ctx: LowerCtx, x: LoweredVal, fn) -> LoweredVal:
-    """A host string -> string function applied once over the vocabulary,
-    an order-preserving dictionary rebuilt from the results, and the codes
-    recoded on the device by one gather."""
-    mapped = [fn(v) for v in x.dictionary.values]
-    d_new = Dictionary.build(mapped)
-    lut = np.array([d_new.code_of(m) for m in mapped], dtype=np.int32)
-    return LoweredVal(_code_lut(x, lut, NULL_CODE, ctx.device), x.valid, d_new)
 
 
 def _sql_substring(v: str, start: int, length: Optional[int]) -> str:
@@ -583,28 +750,522 @@ def _lower_substring(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
     return _vocab_transform(ctx, x, lambda v: _sql_substring(v, start, length))
 
 
-def _lower_extract_year(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
-    a = lower(expr.args[0], ctx)
-    t = expr.args[0].type
-    if t != T.DATE:
-        raise NotImplementedError(f"extract(year) over {t}")
-    return LoweredVal(dt.extract_year(a.vals), a.valid)
+def _lower_str_fn(pyfn) -> Callable:
+    def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+        return _vocab_transform(ctx, lower(expr.args[0], ctx), pyfn)
+
+    return fn
+
+
+def _lower_replace(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    x = lower(expr.args[0], ctx)
+    frm, to = (_const_str_args(expr, 1) + [""])[:2]
+    return _vocab_transform(ctx, x, lambda v: v.replace(frm, to))
+
+
+def _lower_reverse(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    return _vocab_transform(ctx, lower(expr.args[0], ctx), lambda v: v[::-1])
+
+
+def _lower_strpos(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    x = lower(expr.args[0], ctx)
+    (sub,) = _const_str_args(expr, 1)
+    return _vocab_lut(ctx, x, lambda v: v.find(sub) + 1, np.int64)
+
+
+def _lower_starts_with(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    x = lower(expr.args[0], ctx)
+    (prefix,) = _const_str_args(expr, 1)
+    return _vocab_lut(ctx, x, lambda v: v.startswith(prefix), np.bool_)
+
+
+def _lower_length(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    x = lower(expr.args[0], ctx)
+    if expr.args[0].type.is_varbinary:
+        # the dictionary holds hex: two digits a byte
+        return _vocab_lut(ctx, x, lambda s: len(s) // 2, np.int64)
+    return _vocab_lut(ctx, x, len, np.int64)
+
+
+def _lower_concat(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """concat where at most one argument is a column (a vocabulary
+    transform); two or more varchar columns are refused, as in the
+    reference (it needs a product of dictionaries)."""
+    if any(isinstance(a, ir.Constant) and a.value is None for a in expr.args):
+        # a NULL argument makes every row NULL
+        return LoweredVal(_const_array(ctx, np.int32, 0), _all_null(ctx), Dictionary([""]))
+    col_args = [a for a in expr.args if not isinstance(a, ir.Constant)]
+    if not col_args:
+        s = "".join(_concat_text(a) for a in expr.args)
+        return LoweredVal(_const_array(ctx, np.int32, 0), None, Dictionary([s]))
+    if len(col_args) > 1:
+        raise NotImplementedError("concat of multiple varchar columns")
+    (col_e,) = col_args
+    i = expr.args.index(col_e)
+    pre = "".join(_concat_text(a) for a in expr.args[:i])
+    post = "".join(_concat_text(a) for a in expr.args[i + 1:])
+    return _vocab_transform(ctx, lower(col_e, ctx), lambda v: pre + v + post)
+
+
+def _concat_text(a: ir.Constant) -> str:
+    """A constant concat argument as its cast-to-varchar text: scaled
+    integers print as decimals, epoch days as ISO dates."""
+    if isinstance(a.value, str):
+        return a.value
+    if isinstance(a.value, bool):
+        return "true" if a.value else "false"
+    t = a.type
+    if t.is_decimal:
+        from decimal import Decimal
+
+        return str(Decimal(int(a.value)).scaleb(-t.scale))
+    if t == T.DATE:
+        return (datetime.date(1970, 1, 1) + datetime.timedelta(days=int(a.value))).isoformat()
+    return str(a.value)
+
+
+def _lower_regexp(kind: str):
+    def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+        x = lower(expr.args[0], ctx)
+        pattern = re.compile(_const_str_args(expr, 1, 2)[0])
+        if kind == "like":
+            return _vocab_lut(ctx, x, lambda v: pattern.search(v) is not None, np.bool_)
+        if kind == "count":
+            return _vocab_lut(ctx, x, lambda v: len(pattern.findall(v)), np.int64)
+        if kind == "extract":
+            group = _const_int_arg(expr, 2, "regexp group") if len(expr.args) == 3 else 0
+
+            def ext(v):
+                m = pattern.search(v)
+                # no match is NULL, not ''
+                return (m.group(group), True) if m else ("", False)
+
+            return _vocab_transform_where(ctx, x, ext)
+        repl = _const_str_args(expr, 2)[0] if len(expr.args) == 3 else ""
+        repl_py = re.sub(r"\$(\d+)", r"\\\1", repl)  # $1 -> \1 (Trino syntax)
+        return _vocab_transform(ctx, x, lambda v: pattern.sub(repl_py, v))
+
+    return fn
+
+
+def _lower_pad(left: bool):
+    def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+        x = lower(expr.args[0], ctx)
+        size = _const_int_arg(expr, 1, "pad size")
+        pad = _const_str_args(expr, 2)[0] if len(expr.args) == 3 else " "
+
+        def dopad(v):
+            if len(v) >= size:
+                return v[:size]
+            fill = (pad * size)[: size - len(v)]
+            return fill + v if left else v + fill
+
+        return _vocab_transform(ctx, x, dopad)
+
+    return fn
+
+
+def _lower_split_part(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    x = lower(expr.args[0], ctx)
+    (delim,) = _const_str_args(expr, 1, 2)
+    idx = _const_int_arg(expr, 2, "split_part index")
+
+    def part(v):
+        parts = v.split(delim)
+        if 1 <= idx <= len(parts):
+            return parts[idx - 1], True
+        return "", False  # an index out of range is NULL
+
+    return _vocab_transform_where(ctx, x, part)
+
+
+def _lower_translate(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    x = lower(expr.args[0], ctx)
+    frm, to = _const_str_args(expr, 1)
+    table = {ord(f): (to[i] if i < len(to) else None) for i, f in enumerate(frm)}
+    return _vocab_transform(ctx, x, lambda v: v.translate(table))
+
+
+def _lower_repeat_str(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    x = lower(expr.args[0], ctx)
+    k = _const_int_arg(expr, 1, "repeat count")
+    return _vocab_transform(ctx, x, lambda v: v * k)
+
+
+def _lower_chr(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    a = expr.args[0]
+    if isinstance(a, ir.Constant):
+        return LoweredVal(_const_array(ctx, np.int32, 0), None,
+                          Dictionary([chr(int(a.value))]))
+    raise NotImplementedError("chr() over a column (value-dependent vocabulary)")
+
+
+def _lower_codepoint(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    return _vocab_lut(ctx, lower(expr.args[0], ctx), lambda v: ord(v[0]) if v else 0, np.int64)
+
+
+def _levenshtein(v: str, other: str) -> int:
+    if not v:
+        return len(other)
+    prev = list(range(len(other) + 1))
+    for i, cv in enumerate(v, 1):
+        cur = [i]
+        for j, co in enumerate(other, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (cv != co)))
+        prev = cur
+    return prev[-1]
+
+
+def _lower_str_distance(kind: str):
+    def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+        x = lower(expr.args[0], ctx)
+        other = _const_str_args(expr, 1)[0]
+        if kind == "hamming":
+            def dist(v):
+                if len(v) != len(other):
+                    return -1  # strings of different lengths: an error
+                return sum(a != b for a, b in zip(v, other))
+        else:
+            def dist(v):
+                return _levenshtein(v, other)
+
+        out = _vocab_lut(ctx, x, dist, np.int64)
+        if kind == "hamming":
+            ctx.add_error(INVALID_FUNCTION_ARGUMENT, out.vals < 0, out.valid)
+        return out
+
+    return fn
+
+
+def _json_scalar(v: str, steps) -> Optional[str]:
+    try:
+        cur = json.loads(v)
+    except (ValueError, TypeError):
+        return None
+    for s in steps:
+        if isinstance(s, int):
+            if not isinstance(cur, list) or not -len(cur) <= s < len(cur):
+                return None
+        elif not isinstance(cur, dict) or s not in cur:
+            return None
+        cur = cur[s]
+    if cur is None or isinstance(cur, (dict, list)):
+        return None  # json_extract_scalar: scalars only
+    if isinstance(cur, bool):
+        return "true" if cur else "false"
+    return str(cur)
+
+
+def _lower_json_extract_scalar(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    x = lower(expr.args[0], ctx)
+    steps = _parse_json_path(_const_str_args(expr, 1)[0])
+
+    def ext(v):
+        got = _json_scalar(v, steps)
+        return (got or "", got is not None)
+
+    return _vocab_transform_where(ctx, x, ext)
+
+
+def _parse_json_path(path: str):
+    """The JSON path subset $.a.b[0]['c']: the lax mode's field and
+    subscript steps."""
+    steps = []
+    s = path.strip()
+    if not s.startswith("$"):
+        raise NotImplementedError(f"json path must start with $: {path!r}")
+    s = s[1:]
+    token = re.compile(r"\.(\w+)|\[(\d+)\]|\['([^']*)'\]|\[\"([^\"]*)\"\]")
+    pos = 0
+    while pos < len(s):
+        m = token.match(s, pos)
+        if not m:
+            raise NotImplementedError(f"unsupported json path step at {s[pos:]!r}")
+        if m.group(1) is not None:
+            steps.append(m.group(1))
+        elif m.group(2) is not None:
+            steps.append(int(m.group(2)))
+        else:
+            steps.append(m.group(3) if m.group(3) is not None else m.group(4))
+        pos = m.end()
+    return steps
+
+
+def _lower_json_array_length(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    x = lower(expr.args[0], ctx)
+
+    def ln(v):
+        try:
+            arr = json.loads(v)
+        except (ValueError, TypeError):
+            return -1
+        return len(arr) if isinstance(arr, list) else -1
+
+    out = _vocab_lut(ctx, x, ln, np.int64)
+    return LoweredVal(out.vals, and_valid(out.valid, out.vals >= 0), None)
+
+
+# ---------------------------------------------------------------- varbinary
+
+
+def _utf8_of_hex(h: str) -> str:
+    return bytes.fromhex(h).decode(errors="replace")
+
+
+def _lower_binary_fn(kind: str):
+    """The varbinary family over the hex dictionary: each function is a
+    vocabulary transform."""
+
+    def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+        x = lower(expr.args[0], ctx)
+        if kind == "to_hex":
+            return _vocab_transform(ctx, x, str.upper)
+        if kind == "from_hex":
+            return _lower_from_hex(ctx, x)
+        if kind == "to_utf8":
+            return _vocab_transform(ctx, x, lambda s: s.encode().hex())
+        if kind == "from_utf8":
+            return _vocab_transform(ctx, x, _utf8_of_hex)
+        digest = {"md5": hashlib.md5, "sha256": hashlib.sha256}[kind]
+        return _vocab_transform(ctx, x, lambda h: digest(bytes.fromhex(h)).hexdigest())
+
+    return fn
+
+
+def _lower_from_hex(ctx: LowerCtx, x: LoweredVal) -> LoweredVal:
+    """from_hex over the whole vocabulary, which may hold entries no live
+    row reaches: a bad entry becomes a NULL slot, and a deferred
+    INVALID_FUNCTION_ARGUMENT fires only where a live row references it."""
+    bad_codes = []
+
+    def conv(i_s):
+        i, s = i_s
+        try:
+            return bytes.fromhex(s).hex()
+        except ValueError:
+            bad_codes.append(i)
+            return ""
+
+    with _HostTimer():
+        mapped = [conv(i_s) for i_s in enumerate(x.dictionary.values)]
+        codes, d_new = _vocab_codes(ctx, x, mapped)
+    if not bad_codes:
+        return LoweredVal(codes, x.valid, d_new)
+    bad = torch.isin(x.vals, to_device(np.array(bad_codes, np.int32), ctx.device))
+    ctx.add_error(INVALID_FUNCTION_ARGUMENT, bad, x.valid)
+    valid = (x.valid if x.valid is not None else torch.ones_like(bad)) & ~bad
+    return LoweredVal(codes, valid, d_new)
+
+
+# ------------------------------------------------------------ date and time
+
+
+def _lower_coalesce(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """The first non-NULL argument. Varchar arguments go onto one merged
+    dictionary first, as CASE's branches do: the reference keeps the first
+    argument's dictionary and decodes the others' codes against it."""
+    parts = [lower(expr.args[0], ctx)]
+    if parts[0].valid is None:
+        return parts[0]
+    parts += [lower(e, ctx) for e in expr.args[1:]]
+    dictionary = None
+    if expr.type.is_varchar:
+        parts, dictionary = _unify_branch_dicts(parts, ctx.device)
+    acc = parts[0]
+    for nxt in parts[1:]:
+        hi = None
+        if acc.hi is not None or nxt.hi is not None:
+            ah, al = as_i128(acc)
+            bh, bl = as_i128(nxt)
+            vals = torch.where(acc.valid, al, bl)
+            hi = torch.where(acc.valid, ah, bh)
+        else:
+            dt_ = torch.promote_types(acc.vals.dtype, nxt.vals.dtype)
+            vals = torch.where(acc.valid, acc.vals.to(dt_), nxt.vals.to(dt_))
+        nxt_valid = nxt.valid if nxt.valid is not None else torch.ones_like(acc.valid)
+        acc = LoweredVal(vals, acc.valid | nxt_valid,
+                         dictionary or acc.dictionary or nxt.dictionary, hi=hi)
+    return acc
+
+
+def _ts_split(vals: torch.Tensor, t: T.Type):
+    """Timestamp storage -> (epoch days, the in-day remainder in units,
+    units a second). Floor division keeps instants before 1970 on their
+    day."""
+    unit = 10 ** t.precision
+    day = 86_400 * unit
+    v = vals.to(torch.int64)
+    days = _floordiv(v, day)
+    return days.to(torch.int32), v - days * day, unit
+
+
+def _lower_extract(field: str):
+    def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+        a = lower(expr.args[0], ctx)
+        t = expr.args[0].type
+        days = a.vals
+        if isinstance(t, T.TimestampType):
+            days, rem, unit = _ts_split(a.vals, t)
+            secs = _floordiv(rem, unit)
+            if field == "hour":
+                return LoweredVal(_floordiv(secs, 3600), a.valid, None)
+            if field == "minute":
+                return LoweredVal(torch.remainder(_floordiv(secs, 60), 60), a.valid, None)
+            if field == "second":
+                return LoweredVal(torch.remainder(secs, 60), a.valid, None)
+        elif field in ("hour", "minute", "second"):
+            raise NotImplementedError(f"extract({field}) over {t}")
+        return LoweredVal(getattr(dt, f"extract_{field}")(days), a.valid, None)
+
+    return fn
 
 
 def _lower_date_add_months(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
     a = lower(expr.args[0], ctx)
     n = lower(expr.args[1], ctx)
     t = expr.args[0].type
-    if t != T.DATE:
-        raise NotImplementedError(f"date_add_months over {t}")
-    out = dt.add_months(a.vals, n.vals).to(torch.int32)
-    return LoweredVal(out, and_valid(a.valid, n.valid))
+    valid = and_valid(a.valid, n.valid)
+    if isinstance(t, T.TimestampType):
+        # the day moves through the calendar; the time of day stays
+        days, rem, unit = _ts_split(a.vals, t)
+        out = dt.add_months(days, n.vals) * (86_400 * unit) + rem
+        return LoweredVal(out, valid, None)
+    return LoweredVal(dt.add_months(a.vals, n.vals).to(torch.int32), valid, None)
+
+
+def _lower_diff_units(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """date_diff in whole units of ``per`` storage steps (days of a date,
+    units of a timestamp), truncated toward zero."""
+    a = lower(expr.args[0], ctx)
+    b = lower(expr.args[1], ctx)
+    per = int(expr.args[2].value)
+    d = b.vals.to(torch.int64) - a.vals.to(torch.int64)
+    q = torch.sign(d) * _floordiv(torch.abs(d), per)
+    return LoweredVal(q, and_valid(a.valid, b.valid), None)
+
+
+def _lower_months_between(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """Whole calendar months from a to b, a partial last month not
+    counted, divided by the unit (12 for years). The day-of-month compare
+    clamps to each end's month length, so Jan 31 -> Feb 29 is one month."""
+    a = lower(expr.args[0], ctx)
+    b = lower(expr.args[1], ctx)
+    mul = int(expr.args[2].value)
+    ya, ma, da = dt.civil_from_days(a.vals)
+    yb, mb, db = dt.civil_from_days(b.vals)
+    months = (yb - ya) * 12 + (mb - ma)
+    da_in_b = torch.minimum(da, dt.days_in_month(yb, mb))
+    db_in_a = torch.minimum(db, dt.days_in_month(ya, ma))
+    months = months - ((months > 0) & (db < da_in_b)).to(torch.int64)
+    months = months + ((months < 0) & (db_in_a > da)).to(torch.int64)
+    q = torch.sign(months) * _floordiv(torch.abs(months), mul)
+    return LoweredVal(q, and_valid(a.valid, b.valid), None)
+
+
+def _lower_seconds_to_ts3(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    a = lower(expr.args[0], ctx)
+    ms = a.vals.to(torch.float64) * 1000.0
+    v = (torch.sign(ms) * torch.floor(torch.abs(ms) + 0.5)).to(torch.int64)
+    return LoweredVal(v, a.valid, None)
+
+
+def _lower_date_trunc(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    (unit,) = _const_str_args(expr, 0, 1)
+    a = lower(expr.args[1], ctx)
+    return LoweredVal(dt.trunc_date(a.vals, unit.lower()).to(torch.int32), a.valid, None)
+
+
+_MYSQL_FMT = {  # date_format's MySQL specifiers -> strftime's
+    "%Y": "%Y", "%y": "%y", "%m": "%m", "%d": "%d", "%e": "%-d",
+    "%H": "%H", "%i": "%M", "%s": "%S", "%f": "%f", "%W": "%A",
+    "%a": "%a", "%b": "%b", "%M": "%B", "%j": "%j", "%%": "%%",
+}
+
+
+def _mysql_to_py_fmt(fmt: str) -> str:
+    out = []
+    i = 0
+    while i < len(fmt):
+        if fmt[i] == "%" and i + 1 < len(fmt):
+            spec = fmt[i: i + 2]
+            out.append(_MYSQL_FMT.get(spec, spec))
+            i += 2
+        else:
+            out.append(fmt[i])
+            i += 1
+    return "".join(out)
+
+
+_DAY_TABLE_RANGE = (-25567, 47847)  # 1900-01-01 .. 2100-12-31
+
+
+def _date_lut(ctx: LowerCtx, x: LoweredVal, pyfn) -> LoweredVal:
+    """date (epoch days) -> string through a table of days, bounded by the
+    column's static value range or 1900..2100: the value is the code. A
+    live date outside the table raises INVALID_FUNCTION_ARGUMENT (the
+    table is an implementation bound, not a semantic one)."""
+    lo, hi = _DAY_TABLE_RANGE
+    if x.bound is not None:
+        lo, hi = max(-x.bound, lo), min(x.bound, hi)
+    epoch = datetime.date(1970, 1, 1)
+    with _HostTimer():
+        strings = [pyfn(epoch + datetime.timedelta(days=d)) for d in range(lo, hi + 1)]
+        d_new = Dictionary.build(strings)
+        lut = to_device(np.array([d_new.code_of(s) for s in strings], dtype=np.int32),
+                        ctx.device)
+    idx = (x.vals.to(torch.int64) - lo).clamp(0, lut.shape[0] - 1)
+    in_range = (x.vals >= lo) & (x.vals <= hi)
+    ctx.add_error(INVALID_FUNCTION_ARGUMENT, ~in_range, x.valid)
+    return LoweredVal(lut[idx], and_valid(x.valid, in_range), d_new)
+
+
+def _lower_date_format(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    x = lower(expr.args[0], ctx)
+    fmt = _mysql_to_py_fmt(_const_str_args(expr, 1)[0])
+    if expr.args[0].type == T.TIMESTAMP:
+        raise NotImplementedError("date_format over timestamps (use a date)")
+    return _date_lut(ctx, x, lambda d: d.strftime(fmt))
+
+
+_BAD_DATE = -(10**9)
+
+
+def _lower_date_parse(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    x = lower(expr.args[0], ctx)
+    fmt = _mysql_to_py_fmt(_const_str_args(expr, 1)[0])
+    epoch = datetime.date(1970, 1, 1)
+
+    def parse(v):
+        try:
+            return (datetime.datetime.strptime(v, fmt).date() - epoch).days
+        except ValueError:
+            return _BAD_DATE
+
+    out = _vocab_lut(ctx, x, parse, np.int32)
+    ctx.add_error(INVALID_FUNCTION_ARGUMENT, out.vals == _BAD_DATE, out.valid)
+    return out
+
+
+def _lower_day_name(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    return _date_lut(ctx, lower(expr.args[0], ctx), lambda d: d.strftime("%A"))
+
+
+def _lower_month_name(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    return _date_lut(ctx, lower(expr.args[0], ctx), lambda d: d.strftime("%B"))
+
+
+def _lower_last_day_of_month(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    x = lower(expr.args[0], ctx)
+    y, m, d = dt.civil_from_days(x.vals)
+    days = x.vals.to(torch.int32)
+    last = days - d.to(torch.int32) + dt.days_in_month(y, m).to(torch.int32)
+    return LoweredVal(last, x.valid, None)
 
 
 def _unify_branch_dicts(branches, device):
-    """Branch values recoded onto one merged vocabulary (CASE results must
-    agree on codes; literal and column dictionaries differ). Returns
-    (recoded branches, merged dictionary)."""
+    """Branch values recoded onto one merged vocabulary (CASE and coalesce
+    results must agree on codes; literal and column dictionaries differ).
+    Returns (recoded branches, merged dictionary)."""
     merged = None
     for v in branches:
         if v is None or v.dictionary is None:
@@ -669,6 +1330,9 @@ def _lower_case(expr: ir.Case, ctx: LowerCtx) -> LoweredVal:
     return LoweredVal(vals, valid, dictionary, hi=hi)
 
 
+# --------------------------------------------------------------------- math
+
+
 def _arg_double(ctx: LowerCtx, arg: ir.Expr) -> LoweredVal:
     a = lower(arg, ctx)
     v = a.vals.to(torch.float64)
@@ -678,14 +1342,42 @@ def _arg_double(ctx: LowerCtx, arg: ir.Expr) -> LoweredVal:
 
 
 def _lower_math1(op):
-    """Unary double math (sqrt, ln, log10, exp): a decimal argument converts
-    through its scale; domain violations give NaN or inf."""
+    """Unary double math: a decimal argument converts through its scale;
+    domain violations give NaN or inf."""
 
     def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
         a = _arg_double(ctx, expr.args[0])
         return LoweredVal(op(a.vals), a.valid, None)
 
     return fn
+
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    """Real cube root (torch has no cbrt op): |x|^(1/3) with x's sign, then
+    one Newton step y - (y - x/y^2)/3, which brings exact cubes to their
+    root (27 -> 3). Zeros, infinities and NaN keep the first estimate."""
+    y = torch.copysign(torch.pow(torch.abs(x), 1.0 / 3.0), x)
+    ok = torch.isfinite(y) & (y != 0)
+    ys = torch.where(ok, y, torch.ones_like(y))
+    return torch.where(ok, ys - (ys - x / (ys * ys)) / 3.0, y)
+
+
+_POW10_RANGE = (-307, 308)  # 10^k as a normal double
+_POW10 = np.array([float(f"1e{k}") for k in range(_POW10_RANGE[0], _POW10_RANGE[1] + 1)])
+
+
+def _log10(x: torch.Tensor) -> torch.Tensor:
+    """log10 with exact powers of ten: the device's log10 need not be
+    correctly rounded there (the reference's host numpy is: log10(1000) is
+    3), so where the rounded result k has 10^k equal to the input, the
+    result is k. The nearest double to 10^k has k as its correctly rounded
+    log10 for every normal k, so this changes only results that drifted.
+    All on the device: one table of 616 doubles, a gather and a select."""
+    r = torch.log10(x)
+    k = torch.round(torch.nan_to_num(r, nan=0.0, posinf=0.0, neginf=0.0))
+    k = k.clamp(*_POW10_RANGE)
+    hit = to_device(_POW10, x.device)[k.to(torch.int64) - _POW10_RANGE[0]] == x
+    return torch.where(hit, k, r)
 
 
 def _lower_log_b(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
@@ -701,11 +1393,40 @@ def _lower_power(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
     return LoweredVal(torch.pow(a.vals, b.vals), and_valid(a.valid, b.valid), None)
 
 
+def _lower_atan2(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    a = _arg_double(ctx, expr.args[0])
+    b = _arg_double(ctx, expr.args[1])
+    return LoweredVal(torch.atan2(a.vals, b.vals), and_valid(a.valid, b.valid), None)
+
+
 def _lower_sign(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
     a = lower(expr.args[0], ctx)
     if expr.args[0].type.is_floating:
-        return LoweredVal(torch.sign(a.vals.to(torch.float64)), a.valid, None)
+        v = a.vals.to(torch.float64)
+        # torch.sign gives 0 for NaN and +0 for -0; SQL's sign (and the
+        # reference's) gives the argument back for both
+        return LoweredVal(torch.where(torch.isnan(v) | (v == 0), v, torch.sign(v)),
+                          a.valid, None)
     return LoweredVal(torch.sign(a.vals).to(torch.int64), a.valid, None)
+
+
+def _lower_abs(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    a = lower(expr.args[0], ctx)
+    if a.hi is not None:
+        from trino_tpu_torch.ops import int128 as i128
+
+        (ahi, alo), _ = i128.abs128(as_i128(a))
+        return LoweredVal(alo, a.valid, None, hi=ahi)
+    return LoweredVal(torch.abs(a.vals), a.valid, None)
+
+
+def _lower_nullif(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    x, y = expr.args
+    a = lower(x, ctx)
+    eq = _compare(ctx, operator.eq, a, x.type, lower(y, ctx), y.type)
+    hit = eq.vals if eq.valid is None else eq.vals & eq.valid
+    return LoweredVal(a.vals, ~hit if a.valid is None else a.valid & ~hit,
+                      a.dictionary, hi=a.hi)
 
 
 def _round_int_half_away(v: torch.Tensor, div: int) -> torch.Tensor:
@@ -735,6 +1456,23 @@ def _lower_round(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
     if d >= 0:
         return a  # integers are whole already
     return LoweredVal(_round_int_half_away(a.vals, 10 ** (-d)).to(a.vals.dtype), a.valid, None)
+
+
+def _lower_truncate(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """truncate(x[, d]): the digits past d decimal places dropped, toward
+    zero."""
+    a = lower(expr.args[0], ctx)
+    t = expr.args[0].type
+    d = _const_int_arg(expr, 1, "digits") if len(expr.args) == 2 else 0
+    if t.is_floating:
+        p = 10.0 ** d
+        return LoweredVal(torch.trunc(a.vals * p) / p, a.valid, None)
+    if t.is_decimal:
+        p = 10 ** max(t.scale - d, 0)
+        v = a.vals
+        q = torch.where(v >= 0, _floordiv(v, p), -_floordiv(-v, p))
+        return LoweredVal(q * p, a.valid, None)
+    return LoweredVal(a.vals, a.valid, None)
 
 
 def _lower_ceil_floor(is_ceil: bool):
@@ -771,8 +1509,8 @@ def _lower_extremum(is_greatest: bool):
             return acc
         out, valid = parts[0].vals, parts[0].valid
         for p in parts[1:]:
-            dt = torch.promote_types(out.dtype, p.vals.dtype)
-            out = op(out.to(dt), p.vals.to(dt))
+            dt_ = torch.promote_types(out.dtype, p.vals.dtype)
+            out = op(out.to(dt_), p.vals.to(dt_))
             valid = and_valid(valid, p.valid)
         return LoweredVal(out, valid, None)
 
@@ -789,7 +1527,85 @@ def _lower_negate(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
     return LoweredVal(-a.vals, a.valid, None)
 
 
+def _lower_bitwise(op: str):
+    """Bitwise functions on int64 patterns. A right shift is logical (the
+    sign-extended bits masked off); a shift of 64 or more gives 0 and a
+    negative one is an invalid argument."""
+
+    def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+        a = lower(expr.args[0], ctx)
+        av = a.vals.to(torch.int64)
+        if op == "not":
+            return LoweredVal(~av, a.valid, None)
+        b = lower(expr.args[1], ctx)
+        bv = b.vals.to(torch.int64)
+        valid = and_valid(a.valid, b.valid)
+        if op in ("and", "or", "xor"):
+            return LoweredVal({"and": operator.and_, "or": operator.or_,
+                               "xor": operator.xor}[op](av, bv), valid, None)
+        ctx.add_error(INVALID_FUNCTION_ARGUMENT, bv < 0, valid)
+        in_range = (bv >= 0) & (bv < 64)
+        sh = bv.clamp(0, 63)
+        if op == "lshift":
+            out = av << sh
+        else:
+            # keep the low 64 - sh bits of the arithmetic shift
+            out = (av >> sh) & ~((torch.full_like(sh, -1) << (63 - sh)) << 1)
+        return LoweredVal(torch.where(in_range, out, torch.zeros_like(out)), valid, None)
+
+    return fn
+
+
+_POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.int64)
+
+
+def _lower_bit_count(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """Set bits of the int64 pattern: a byte table over its eight bytes."""
+    a = lower(expr.args[0], ctx)
+    v = a.vals.to(torch.int64)
+    lut = to_device(_POPCOUNT8, v.device)
+    cnt = torch.zeros_like(v)
+    for shift in range(0, 64, 8):
+        cnt = cnt + lut[(v >> shift) & 0xFF]
+    return LoweredVal(cnt, a.valid, None)
+
+
+def _lower_float_class(kind: str):
+    op = {"nan": torch.isnan, "finite": torch.isfinite, "inf": torch.isinf}[kind]
+
+    def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+        a = lower(expr.args[0], ctx)
+        return LoweredVal(op(a.vals.to(torch.float64)), a.valid, None)
+
+    return fn
+
+
+# ----------------------------------------------------- nondeterministic
+
+
+def _lower_random(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """random() -> double in [0, 1), one draw a row on the context's device
+    from the session's generator."""
+    vals = torch.rand((ctx.num_rows,), dtype=torch.float64, device=ctx.device,
+                      generator=ctx.generator)
+    return LoweredVal(vals, None, None)
+
+
+def _lower_now(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """now() -> timestamp(3): one instant an evaluation."""
+    v = int(time.time() * 1000)
+    return LoweredVal(_const_array(ctx, np.int64, v), None, None, abs(v))
+
+
+def _lower_current_date(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    days = int(time.time() // 86_400)
+    return LoweredVal(_const_array(ctx, np.int32, days), None, None, days)
+
+
 FUNCTIONS: Dict[str, Callable[..., LoweredVal]] = {
+    "random": _lower_random,
+    "now": _lower_now,
+    "current_date": _lower_current_date,
     "eq": _comparison(operator.eq),
     "ne": _comparison(operator.ne),
     "lt": _comparison(operator.lt),
@@ -800,6 +1616,9 @@ FUNCTIONS: Dict[str, Callable[..., LoweredVal]] = {
     "sub": _arith("sub"),
     "mul": _arith("mul"),
     "div": _arith("div"),
+    "mod": _arith("mod"),
+    "negate": _lower_negate,
+    "abs": _lower_abs,
     "and": _lower_and,
     "or": _lower_or,
     "not": _lower_not,
@@ -807,14 +1626,28 @@ FUNCTIONS: Dict[str, Callable[..., LoweredVal]] = {
     "between": _lower_between,
     "in_list": _lower_in_list,
     "like": _lower_like,
+    "coalesce": _lower_coalesce,
+    "nullif": _lower_nullif,
     "substring": _lower_substring,
-    "extract_year": _lower_extract_year,
-    "date_add_months": _lower_date_add_months,
-    "negate": _lower_negate,
+    "lower": _lower_str_fn(str.lower),
+    "upper": _lower_str_fn(str.upper),
+    "trim": _lower_str_fn(str.strip),
+    "ltrim": _lower_str_fn(str.lstrip),
+    "rtrim": _lower_str_fn(str.rstrip),
+    "length": _lower_length,
+    "to_hex": _lower_binary_fn("to_hex"),
+    "from_hex": _lower_binary_fn("from_hex"),
+    "to_utf8": _lower_binary_fn("to_utf8"),
+    "from_utf8": _lower_binary_fn("from_utf8"),
+    "md5": _lower_binary_fn("md5"),
+    "sha256": _lower_binary_fn("sha256"),
+    "concat": _lower_concat,
     "sqrt": _lower_math1(torch.sqrt),
+    "cbrt": _lower_math1(_cbrt),
     "ln": _lower_math1(torch.log),
     "log_b": _lower_log_b,
-    "log10": _lower_math1(torch.log10),
+    "log2": _lower_math1(torch.log2),
+    "log10": _lower_math1(_log10),
     "exp": _lower_math1(torch.exp),
     "power": _lower_power,
     "sign": _lower_sign,
@@ -824,4 +1657,67 @@ FUNCTIONS: Dict[str, Callable[..., LoweredVal]] = {
     "floor": _lower_ceil_floor(False),
     "greatest": _lower_extremum(True),
     "least": _lower_extremum(False),
+    "extract_year": _lower_extract("year"),
+    "extract_month": _lower_extract("month"),
+    "extract_hour": _lower_extract("hour"),
+    "extract_minute": _lower_extract("minute"),
+    "extract_second": _lower_extract("second"),
+    "extract_day": _lower_extract("day"),
+    "extract_quarter": _lower_extract("quarter"),
+    "extract_dow": _lower_extract("dow"),
+    "extract_doy": _lower_extract("doy"),
+    "extract_week": _lower_extract("week"),
+    "date_add_months": _lower_date_add_months,
+    "date_diff_days": _lower_diff_units,
+    "ts_diff_units": _lower_diff_units,
+    "months_between": _lower_months_between,
+    "seconds_to_ts3": _lower_seconds_to_ts3,
+    "date_trunc": _lower_date_trunc,
+    "replace": _lower_replace,
+    "reverse": _lower_reverse,
+    "strpos": _lower_strpos,
+    "starts_with": _lower_starts_with,
+    "sin": _lower_math1(torch.sin),
+    "cos": _lower_math1(torch.cos),
+    "tan": _lower_math1(torch.tan),
+    "asin": _lower_math1(torch.asin),
+    "acos": _lower_math1(torch.acos),
+    "atan": _lower_math1(torch.atan),
+    "sinh": _lower_math1(torch.sinh),
+    "cosh": _lower_math1(torch.cosh),
+    "tanh": _lower_math1(torch.tanh),
+    "degrees": _lower_math1(torch.rad2deg),
+    "radians": _lower_math1(torch.deg2rad),
+    "atan2": _lower_atan2,
+    "truncate": _lower_truncate,
+    "regexp_like": _lower_regexp("like"),
+    "regexp_extract": _lower_regexp("extract"),
+    "regexp_replace": _lower_regexp("replace"),
+    "regexp_count": _lower_regexp("count"),
+    "lpad": _lower_pad(True),
+    "rpad": _lower_pad(False),
+    "split_part": _lower_split_part,
+    "translate": _lower_translate,
+    "repeat_str": _lower_repeat_str,
+    "chr": _lower_chr,
+    "codepoint": _lower_codepoint,
+    "hamming_distance": _lower_str_distance("hamming"),
+    "levenshtein_distance": _lower_str_distance("levenshtein"),
+    "json_extract_scalar": _lower_json_extract_scalar,
+    "json_array_length": _lower_json_array_length,
+    "date_format": _lower_date_format,
+    "date_parse": _lower_date_parse,
+    "day_name": _lower_day_name,
+    "month_name": _lower_month_name,
+    "last_day_of_month": _lower_last_day_of_month,
+    "bitwise_and": _lower_bitwise("and"),
+    "bitwise_or": _lower_bitwise("or"),
+    "bitwise_xor": _lower_bitwise("xor"),
+    "bitwise_not": _lower_bitwise("not"),
+    "bitwise_left_shift": _lower_bitwise("lshift"),
+    "bitwise_right_shift": _lower_bitwise("rshift"),
+    "bit_count": _lower_bit_count,
+    "is_nan": _lower_float_class("nan"),
+    "is_finite": _lower_float_class("finite"),
+    "is_infinite": _lower_float_class("inf"),
 }

@@ -40,6 +40,11 @@ def _lsr(x: torch.Tensor, k: int) -> torch.Tensor:
     return (x >> k) & ((1 << (64 - k)) - 1)
 
 
+def from_int64(x: torch.Tensor) -> I128:
+    x = x.to(torch.int64)
+    return x >> 63, x
+
+
 def is_negative(a: I128) -> torch.Tensor:
     return a[0] < 0
 
@@ -95,6 +100,13 @@ def mul_int64(x: torch.Tensor, y: torch.Tensor) -> I128:
     nres = neg(res)
     flip = sx ^ sy
     return torch.where(flip, nres[0], res[0]), torch.where(flip, nres[1], res[1])
+
+
+def mul_small(a: I128, m: int) -> I128:
+    """a * m for a small non-negative Python int m < 2^63; the caller
+    bounds the magnitude (``mul_small_checked`` flags overflow)."""
+    out, _ = mul_small_checked(a, m)
+    return out
 
 
 def mul_small_checked(a: I128, m: int) -> Tuple[I128, torch.Tensor]:
@@ -199,6 +211,12 @@ def compare(a: I128, b: I128) -> torch.Tensor:
     gt = (hi1 > hi2) | ((hi1 == hi2) & _ult(lo2, lo1))
     one = torch.ones_like(hi1, dtype=torch.int8)
     return torch.where(lt, -one, torch.where(gt, one, torch.zeros_like(one)))
+
+
+def fits_int64(a: I128) -> torch.Tensor:
+    """True where the value is exactly representable as int64."""
+    hi, lo = a
+    return hi == (lo >> 63)
 
 
 def to_int64(a: I128) -> torch.Tensor:
