@@ -100,6 +100,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    over the table: the read after each statement must miss, a repeated
    read hit, and every read return the rows the JAX package recorded for
    the same sequence; no entry of an older table version may stay.
+11. statements (run after phase mainpath, in the sessions of phases tpch
+   and cache, before phase sf10): EXPLAIN of the 22 TPC-H queries, whose
+   text must equal the reference's; EXPLAIN ANALYZE of Q17 and Q18 cold and
+   warm, whose plan lines and every node's ``rows=`` must equal the
+   reference's and whose header's planning + execution must equal its
+   total within 0.1 ms, then five pairs of the query with and without
+   ANALYZE (the cost of the stats, recorded), and EXPLAIN ANALYZE VERBOSE
+   of Q18 with ``device_profiling`` (printed); PREPARE / EXECUTE of Q17
+   and Q18 with ``?`` for their constants (rows equal the expected, the
+   reference's arity message, EXECUTE after DEALLOCATE refused); Q6 with a
+   routine (CREATE FUNCTION), whose rows are Q6's and whose plan is its
+   hand-written form's, then DROP FUNCTION. Every Q17 and Q18 run must
+   launch the merge kernel, counted from 0 before it. Then, in the cached
+   session, a transaction over a memory copy of SF1 orders cut by
+   ``o_orderdate < date '1992-07-01'``: the read inside it bypasses the
+   device cache, a second session over the same catalogs reads the
+   committed count, ROLLBACK restores it, a COMMIT publishes, the next read
+   misses and the one after hits. Last, at tiny, table(sequence(...)), the
+   blackhole catalog, a sqlite database written from tpch.tiny into a
+   temporary directory (its join with lineitem and the pushed-down
+   constraint in EXPLAIN) and the SHOW and SET/RESET SESSION statements.
+   Every answer equals trino_tpu_torch/testdata/statements_sf1_expected.json
+   (written by the JAX package: tests/test_torch_statements.py
+   --write-expected).
 
 With ``--profile`` it also runs each query once more (warm) in each of the
 four sessions under torch.profiler and prints the device time by kernel,
@@ -869,6 +893,218 @@ def phase_dml(device, plane, scale="tiny"):
     return lines
 
 
+def explain_plan_lines(text):
+    """EXPLAIN ANALYZE text -> (the header's total, planning and execution
+    milliseconds, the plan lines without the bracketed stats, each node's
+    ``rows=``)."""
+    import re
+
+    m = re.match(r"Query wall time: ([\d.]+)ms \(planning ([\d.]+)ms, "
+                 r"execution ([\d.]+)ms\)", text.split("\n")[0])
+    if m is None:
+        raise AssertionError(f"EXPLAIN ANALYZE header: {text.splitlines()[0]!r}")
+    lines = [ln for ln in text.split("\n") if ln.lstrip().startswith("- ")]
+    rows = [int(re.search(r"rows=(\d+)\]", ln).group(1)) for ln in lines]
+    return tuple(map(float, m.groups())), [ln.split("  [")[0] for ln in lines], rows
+
+
+STATS_PAIRS = 5  # plain / EXPLAIN ANALYZE pairs a query and session
+
+
+def statement_rows(session, sql):
+    return jsonable_rows(session.execute(sql).rows)
+
+
+def phase_statements(sessions, device, stmts, expected, card):
+    """The statement surface at SF1 in the uncached and the cached session:
+    EXPLAIN of the 22 TPC-H queries, EXPLAIN ANALYZE of Q17 and Q18 cold
+    and warm (and VERBOSE with device_profiling), PREPARE/EXECUTE of Q17
+    and Q18, a routine in Q6; then transactions in the cached session over
+    a memory copy of a cut of orders, and the connectors at tiny. Returns
+    the merge kernel's launches in the EXPLAIN ANALYZE and EXECUTE runs."""
+    from trino_tpu_torch.ops import merge
+
+    launches = 0
+
+    def counted(what, fn):
+        nonlocal launches
+        merge.launches = 0
+        sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        wall = time.perf_counter() - t0
+        n = merge.launches
+        if n < 1:
+            raise AssertionError(f"{what} selected merge-pallas but launched the merge "
+                                 f"kernel no time")
+        launches += n
+        return out, wall, n
+
+    for label, session in sessions:
+        bad = [q for q, e in stmts["explain"].items()
+               if session.explain(e["sql"]) != e["text"]]
+        if bad:
+            raise AssertionError(f"EXPLAIN ({label}) differs from the reference's for "
+                                 f"queries {bad}")
+        print("statements", json.dumps({"session": label, "check": "explain",
+                                        "queries": len(stmts["explain"])}), flush=True)
+        for q in ("17", "18"):
+            want = stmts["explain_analyze"][q]
+            line = {"session": label, "check": f"explain_analyze Q{q}", "card": card}
+            for run in ("cold", "warm"):
+                text, wall, n = counted(
+                    f"EXPLAIN ANALYZE Q{q} ({label}, {run})",
+                    lambda: "\n".join(r[0] for r in session.execute(
+                        "explain analyze " + want["sql"]).rows))
+                (total, plan_ms, exec_ms), lines, rows = explain_plan_lines(text)
+                if lines != want["plan"] or rows != want["rows"]:
+                    raise AssertionError(f"EXPLAIN ANALYZE Q{q} ({label}, {run}): plan "
+                                         f"{lines == want['plan']}, rows {rows} vs the "
+                                         f"reference's {want['rows']}")
+                if abs(plan_ms + exec_ms - total) > 0.1 + 1e-9:
+                    raise AssertionError(f"EXPLAIN ANALYZE Q{q} header: {total} != "
+                                         f"{plan_ms} + {exec_ms}")
+                line.update({f"{run}_wall_s": wall, f"{run}_merge_launches": n,
+                             f"{run}_header_ms": [total, plan_ms, exec_ms]})
+            # the cost of the stats: the query's wall with and without
+            # ANALYZE, in STATS_PAIRS pairs that alternate which runs first
+            walls = {"plain": [], "analyze": []}
+            runs = {"plain": lambda: session.execute(want["sql"]).rows,
+                    "analyze": lambda: session.execute("explain analyze " + want["sql"]).rows}
+            for i in range(STATS_PAIRS):
+                for kind in (("plain", "analyze") if i % 2 == 0 else ("analyze", "plain")):
+                    walls[kind].append(counted(f"Q{q} ({label}, {kind})", runs[kind])[1])
+            for kind, ws in walls.items():
+                line[f"{kind}_wall_s"] = ws
+                line[f"{kind}_median_s"] = sorted(ws)[len(ws) // 2]
+            line["analyze_overhead_s"] = line["analyze_median_s"] - line["plain_median_s"]
+            print("statements", json.dumps(line), flush=True)
+        session.set_property("device_profiling", True)
+        text, wall, _n = counted(f"EXPLAIN ANALYZE VERBOSE Q18 ({label})", lambda: "\n".join(
+            r[0] for r in session.execute(
+                "explain analyze verbose " + stmts["explain_analyze"]["18"]["sql"]).rows))
+        session.set_property("device_profiling", False)
+        print(f"statements: EXPLAIN ANALYZE VERBOSE Q18 ({label}, device_profiling=true, "
+              f"{wall:.3f} s)\n{text}", flush=True)
+        for q in ("17", "18"):
+            prep = stmts["prepared"][q]
+            session.execute(f"prepare stmt_q{q} from {prep['sql']}")
+            got, wall, n = counted(f"EXECUTE Q{q} ({label})", lambda: statement_rows(
+                session, f"execute stmt_q{q} using {prep['using']}"))
+            check_rows(f"EXECUTE Q{q} ({label})", got, expected[q]["rows"])
+            errors = []
+            for sql in (f"execute stmt_q{q} using {prep['using']}, 1",
+                        f"deallocate prepare stmt_q{q}", f"execute stmt_q{q} using 1"):
+                try:
+                    session.execute(sql)
+                except ValueError as e:
+                    errors.append(str(e))
+            nparams = len(prep["using"].split(","))
+            want_errors = [f"prepared statement expects {nparams} parameters, got "
+                           f"{nparams + 1}", f"prepared statement not found: stmt_q{q}"]
+            if errors != want_errors:
+                raise AssertionError(f"EXECUTE Q{q} ({label}) errors {errors}, want "
+                                     f"{want_errors}")
+            print("statements", json.dumps({"session": label, "check": f"execute Q{q}",
+                                            "wall_s": wall, "merge_launches": n,
+                                            "errors": errors, "card": card}), flush=True)
+        udf = stmts["udf"]
+        session.execute(udf["create"])
+        got = statement_rows(session, udf["sql"])
+        check_rows(f"Q6 with a routine ({label})", got, expected["6"]["rows"])
+        if session.explain(udf["sql"]) != session.explain(udf["handwritten_sql"]):
+            raise AssertionError("Q6 with a routine is not its hand-written form")
+        session.execute(udf["drop"])
+        try:
+            session.execute(udf["sql"])
+        except Exception:  # noqa: BLE001 — any refusal: the routine is gone
+            pass
+        else:
+            raise AssertionError("the routine ran after DROP FUNCTION")
+        print("statements", json.dumps({"session": label, "check": "udf q6"}), flush=True)
+    return launches
+
+
+def phase_transactions(session, device, stmts):
+    """START TRANSACTION / INSERT / ROLLBACK / COMMIT in the cached session
+    over a memory copy of a cut of SF1 orders: the reads inside the
+    transaction bypass the device cache; a second session over the same
+    catalogs reads the committed count; after COMMIT a read misses and the
+    next one hits. Every read equals the reference's."""
+    from trino_tpu_torch import Session
+
+    other = Session(properties=dict(session.properties), device=device,
+                    catalogs=session.catalogs)
+    lines = []
+    for step in stmts["transactions"]:
+        res, wall, c = timed_execute(session, step["sql"], device)
+        label = step["label"]
+        check_rows(f"transactions: {label}", jsonable_rows(res.rows), step["rows"])
+        line = {"step": label, "wall_s": wall, "hits": c["hits"], "misses": c["misses"],
+                "staged_rows": c["staged_rows"]}
+        if label == "read_in_txn":
+            if (c["hits"], c["misses"]) != (0, 0) or not c["staged_rows"]:
+                raise AssertionError(f"the read inside the transaction did not bypass the "
+                                     f"device cache: {c}")
+            committed = next(s["rows"] for s in stmts["transactions"]
+                             if s["label"] == "read_committed")
+            res_o, _w, _c = timed_execute(other, step["sql"], device)
+            check_rows("a second session during the transaction", jsonable_rows(res_o.rows),
+                       committed)
+            line["other_session_rows"] = jsonable_rows(res_o.rows)
+        if label in ("read_after_commit", "read_again"):
+            want = (0, 1) if label == "read_after_commit" else (1, 0)
+            if (c["hits"], c["misses"]) != want:
+                raise AssertionError(f"{label}: cache hits/misses {(c['hits'], c['misses'])}, "
+                                     f"want {want}")
+        print("statements_txn", json.dumps(line), flush=True)
+        lines.append(line)
+    session.execute("drop table memory.stmt.orders")
+    return lines
+
+
+def phase_connectors(device, stmts):
+    """The connectors and the metadata statements at tiny: a sqlite
+    database written from tpch.tiny into a temporary directory (stdlib
+    sqlite3, through the sqlite connector's write path) and registered by
+    TRINO_TPU_SQLITE_DB; every answer equals the reference's."""
+    import tempfile
+
+    from trino_tpu_torch import Session
+    from trino_tpu_torch.connector.sqlite import SqliteConnector
+
+    props = {"catalog": "tpch", "schema": "tiny"}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tpch_tiny.db")
+        source = Session(properties=dict(props), device=device)
+        conn = SqliteConnector(path)
+        for table in stmts["sqlite_tables"]:
+            meta = source.catalogs["tpch"].get_table("tiny", table)
+            conn.create_table("main", table, [(c.name, c.type) for c in meta.columns],
+                              source.execute(f"select * from tpch.tiny.{table}").rows)
+        os.environ["TRINO_TPU_SQLITE_DB"] = path
+        try:
+            session = Session(properties=dict(props), device=device)
+            for step in stmts["connectors"]:
+                res, wall, _c = timed_execute(session, step["sql"], device)
+                check_rows(f"connectors: {step['name']}", jsonable_rows(res.rows),
+                           step["rows"])
+                print("statements_connectors", json.dumps(
+                    {"step": step["name"], "rows": len(res.rows), "wall_s": wall}), flush=True)
+            join = next(s["sql"] for s in stmts["connectors"] if s["name"] == "sqlite_join")
+            scan = next(ln for ln in session.explain(join).split("\n")
+                        if "sqlite.main.orders" in ln).strip()
+            if scan != stmts["sqlite_scan_line"]:
+                raise AssertionError(f"the sqlite scan {scan!r} != the reference's "
+                                     f"{stmts['sqlite_scan_line']!r}")
+            swallowed = session.catalogs["blackhole"].rows_swallowed
+            print("statements_connectors", json.dumps(
+                {"sqlite_scan": scan, "blackhole_rows_swallowed": swallowed}), flush=True)
+        finally:
+            del os.environ["TRINO_TPU_SQLITE_DB"]
+
+
 def phase_profile(session, queries, label):
     """``--profile``: one more warm run of each (name, sql) under
     torch.profiler: device time by kernel name and the device's busy share
@@ -948,6 +1184,11 @@ def main() -> int:
                       [(n, e["sql"]) for n, e in analytics["queries"].items()], "analytics")
         phase_profile(scalar_session,
                       [(n, e["sql"]) for n, e in scalar["queries"].items()], "scalar")
+    statements = testdata("statements_sf1_expected.json")
+    statement_launches = phase_statements(
+        (("uncached", session), ("cached", cached_session)), device, statements, expected, card)
+    phase_transactions(cached_session, device, statements)
+    phase_connectors(device, statements)
     del session, cached_session, analytics_session, scalar_session
     phase_transfer(device)
     phase_sf10(device, plane)
@@ -963,7 +1204,8 @@ def main() -> int:
                      for run in runs.values()),
         "analytics": sum(run["merge_launches"] for runs in analytics_runs.values()
                          for run in runs),
-        "scalar": sum(run["merge_launches"] for runs in scalar_runs.values() for run in runs)}
+        "scalar": sum(run["merge_launches"] for runs in scalar_runs.values() for run in runs),
+        "statements": statement_launches}
     for path, n in launches_by_path.items():
         if n < 1 and path not in ("analytics", "scalar"):
             raise AssertionError(f"the 22 queries of path {path} launched the merge kernel "

@@ -117,6 +117,15 @@ def test_values_match(got, want, ok):
     assert values_match(got, want) is ok
 
 
+STATEMENT_MODULES = (
+    "trino_tpu_torch.server.security", "trino_tpu_torch.server.prepared",
+    "trino_tpu_torch.sql.routines", "trino_tpu_torch.exec.table_functions",
+    "trino_tpu_torch.exec.transaction", "trino_tpu_torch.exec.operator_stats",
+    "trino_tpu_torch.connector.blackhole.connector",
+    "trino_tpu_torch.connector.sqlite.connector",
+    "trino_tpu_torch.connector.filesystem.connector")
+
+
 def test_port_loads_neither_jax_nor_the_jax_package():
     """Every module of trino_tpu_torch imported in a fresh interpreter:
     neither ``jax`` nor ``trino_tpu`` (or a submodule) is in sys.modules."""
@@ -130,7 +139,7 @@ for info in pkgutil.walk_packages(trino_tpu_torch.__path__, "trino_tpu_torch."):
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "trino_tpu" or m.startswith("trino_tpu."))
-print(json.dumps({"modules": len(names), "loaded": bad}))
+print(json.dumps({"modules": names, "loaded": bad}))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -138,5 +147,7 @@ print(json.dumps({"modules": len(names), "loaded": bad}))
                          cwd=REPO, env=env, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     seen = json.loads(out.stdout.strip().splitlines()[-1])
-    assert seen["modules"] > 50  # the whole package, not an empty walk
+    assert len(seen["modules"]) > 50  # the whole package, not an empty walk
+    # the statement surface and its connectors are in the walk
+    assert set(STATEMENT_MODULES) <= set(seen["modules"])
     assert seen["loaded"] == [], f"the port loaded {seen['loaded']}"

@@ -19,6 +19,7 @@ from trino_tpu_torch.data.page import column_data_from_python
 class MemoryConnector(spi.Connector):
     name = "memory"
     coordinator_only = True  # tables live in this process only
+    supports_transactions = True  # overlay protocol (exec/transaction.py)
 
     def __init__(self):
         self._tables: Dict[Tuple[str, str], Tuple[spi.TableMetadata, Dict[str, spi.ColumnData]]] = {}

@@ -40,6 +40,7 @@ from trino_tpu_torch import types as T
 from trino_tpu_torch.data.page import (Column, Page, column_data_from_python, to_device,
                                       to_numpy, torch_dtype)
 from trino_tpu_torch.exec import memory as _mem
+from trino_tpu_torch.exec.operator_stats import OperatorStats
 from trino_tpu_torch.obs import metrics as M
 from trino_tpu_torch.ops import aggregate as agg_ops
 from trino_tpu_torch.ops import expr_lower as L
@@ -185,12 +186,20 @@ def apply_dynamic_domains(node, dyn_domains, datas):
 
 class Executor:
     """Eager plan interpreter on ``session.device``; ``execute_checked``
-    runs the plan and raises deferred errors."""
+    runs the plan and raises deferred errors.
+
+    ``collect_stats`` turns on the per-operator stats EXPLAIN ANALYZE
+    prints (``node_stats``, ``kernel_stats``). It is off for every other
+    query: the reference always collects them, and its per-node live count
+    is a device-to-host read and sync per plan node. Here each node's live
+    count stays a device scalar, and ``execute_checked`` reads them all in
+    one batch when the plan has run."""
 
     DYNAMIC_FILTER_MAX_SET = 1024  # in-set domain cap
 
-    def __init__(self, session):
+    def __init__(self, session, collect_stats: bool = False):
         self.session = session
+        self.collect_stats = collect_stats
         self.device = session.device
         self.errors: List[Tuple[str, torch.Tensor]] = []
         # static output capacities by hint key ("cmp:<id>" for Compact)
@@ -208,11 +217,36 @@ class Executor:
         # device-memory budget, peak and spill decisions (exec/memory.py)
         self.memory = _mem.MemoryContext(self.props.get("query_max_device_memory"))
         self.spill_enabled = bool(self.props.get("spill_enabled", True))
+        # host seconds spent applying dynamic domains at scans
+        self.df_apply_s = 0.0
+        # per-operator stats by plan-node id (collect_stats), accumulated
+        # across repeated executions of a node
+        self.node_stats: Dict[int, OperatorStats] = {}
+        # per-(node, operator) dispatch ledger: launches, wall and device
+        # seconds (EXPLAIN ANALYZE VERBOSE's launches= and
+        # dispatch_overhead=, in the reference's kernel-ledger row shape)
+        self.kernel_stats: Dict[Tuple[int, str], dict] = {}
+        # live rows a node produced on its latest execution (an int, or a
+        # device scalar until read): parents charge them as their input
+        self._last_output_rows: Dict[int, object] = {}
+        # (stats, field, live rows) still to add once the device scalars
+        # are read, in one batch (resolve_stats)
+        self._row_terms: List[Tuple[OperatorStats, str, object]] = []
+        # stack of accumulated child wall time: a node's wall is exclusive
+        # of the subtree it executes inside its method
+        self._child_wall: List[float] = [0.0]
+        # (splits, scanned rows) of the scan that just ran, for its stats
+        self._pending_scan: Dict[int, Tuple[int, int]] = {}
+        # device_profiling: a torch.cuda.synchronize() after each node, so
+        # its device seconds are measured and not estimated from its wall
+        self.profile_sync = bool(self.props.get("device_profiling", False))
 
     # ------------------------------------------------------------------ api
     def execute_checked(self, node: P.PlanNode) -> Page:
         page = self.execute(node)
         self.raise_errors()
+        if self.collect_stats:
+            self.resolve_stats()
         return page
 
     def raise_errors(self):
@@ -222,10 +256,68 @@ class Executor:
         method = getattr(self, f"_exec_{type(node).__name__}", None)
         if method is None:
             raise NotImplementedError(f"executor: {type(node).__name__} is not ported")
-        page = method(node)
-        # each operator's output rolls into the query's peak (exact bytes)
-        self.memory.observe(_mem.page_bytes(page))
+        if not self.collect_stats:
+            page = method(node)
+            # each operator's output rolls into the query's peak (exact bytes)
+            self.memory.observe(_mem.page_bytes(page))
+            return page
+        self._child_wall.append(0.0)
+        t0 = time.perf_counter()
+        try:
+            page = method(node)
+        finally:
+            # keep the stack balanced on error paths: the parent is still
+            # charged the subtree's time
+            wall = time.perf_counter() - t0
+            child_wall = self._child_wall.pop()
+            self._child_wall[-1] += wall
+        excl_wall = max(0.0, wall - child_wall)
+        # device_profiling on: the synchronize's wait is this node's device
+        # time (the ops above only enqueued); off: no sync is added and the
+        # device time is estimated as the exclusive wall
+        device_s, estimated = excl_wall, True
+        if self.profile_sync:
+            t_sync = time.perf_counter()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            device_s, estimated = time.perf_counter() - t_sync, False
+            # the wait is elapsed inside this node's subtree: the parent's
+            # exclusive wall stays exclusive of it
+            self._child_wall[-1] += device_s
+        live = page.num_rows if page.sel is None else page.sel.sum()
+        nbytes = _mem.page_bytes(page)
+        st = self.node_stats.get(node.id)
+        if st is None:
+            st = self.node_stats[node.id] = OperatorStats(
+                node.id, type(node).__name__.replace("Node", ""))
+        st.wall_s += excl_wall
+        st.output_bytes += nbytes
+        st.invocations += 1
+        st.peak_bytes = max(st.peak_bytes, nbytes)
+        self._row_terms.append((st, "output_rows", live))
+        for s in node.sources:
+            self._row_terms.append((st, "input_rows", self._last_output_rows.get(s.id, 0)))
+        splits, scanned = self._pending_scan.pop(node.id, (0, 0))
+        st.splits += splits
+        st.input_rows += scanned  # a scan's input is the connector's rows
+        ks = self.kernel_stats.setdefault((node.id, st.operator), {
+            "planNodeId": str(node.id), "launches": 0, "wallS": 0.0, "deviceS": 0.0})
+        ks["launches"] += 1
+        ks["wallS"] += excl_wall + (0.0 if estimated else device_s)
+        ks["deviceS"] += device_s
+        self._last_output_rows[node.id] = live
+        self.memory.observe(nbytes)
         return page
+
+    def resolve_stats(self) -> None:
+        """Add the live row counts still held as device scalars into
+        ``node_stats``: one device-to-host read for the whole plan."""
+        terms, self._row_terms = self._row_terms, []
+        scalars = [v for _, _, v in terms if isinstance(v, torch.Tensor)]
+        read = iter(torch.stack(scalars).tolist() if scalars else ())
+        for st, field, v in terms:
+            n = next(read) if isinstance(v, torch.Tensor) else v
+            setattr(st, field, getattr(st, field) + int(n))
 
     def _narrow_lowered_or_flag(self, arg, hi_l, sel_l=None):
         """Degrade a two-limb argument to its low word for consumers without
@@ -275,9 +367,10 @@ class Executor:
             def prune(datas):
                 return apply_dynamic_domains(node, self.dyn_domains, datas)
 
-            page, scanned, _prof = staging.staged_scan_page(
+            page, scanned, prof = staging.staged_scan_page(
                 self.session, node, conn, splits, constraint,
                 prune=prune, applied_domains=applied)
+            self.df_apply_s += prof.prune_s
             M.STAGING_SECONDS.inc(time.perf_counter() - t0)
             return page, scanned, _mem.page_bytes(page), len(splits)
 
@@ -285,6 +378,8 @@ class Executor:
             self.session, node, constraint, applied, "table", load)
         self.scan_cache[node.id] = disposition
         self.scan_stats[node.id] = ent.rows
+        if self.collect_stats:
+            self._pending_scan[node.id] = (ent.splits, ent.rows)
         return ent.value
 
     def _exec_ValuesNode(self, node: P.ValuesNode) -> Page:

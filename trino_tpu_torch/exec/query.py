@@ -1,27 +1,55 @@
 """Statement lifecycle: parse -> analyze/plan -> optimize -> execute (the port
 of trino_tpu/exec/query.py for the local path).
 
-Ported statements: ``Query``, CREATE TABLE, CREATE TABLE AS, INSERT,
-DELETE, UPDATE and DROP TABLE (the DML runs its rewrite SELECT on the
-session's device and writes the rows through the connector, which bumps
-the table's data_version). Every other statement raises
-NotImplementedError.
+Ported statements: ``Query``; EXPLAIN (logical) and EXPLAIN ANALYZE
+[VERBOSE]; CREATE TABLE, CREATE TABLE AS, INSERT, DELETE, UPDATE and DROP
+TABLE (the DML runs its rewrite SELECT on the session's device and writes
+the rows through the connector, which bumps the table's data_version);
+CREATE and DROP FUNCTION; PREPARE, EXECUTE and DEALLOCATE; CALL; START
+TRANSACTION, COMMIT and ROLLBACK; SET, RESET and SHOW SESSION; SHOW
+TABLES, SCHEMAS and COLUMNS. ``EXPLAIN (TYPE DISTRIBUTED)`` and the
+materialized-view statements raise NotImplementedError: they wait for
+plan fragments and ``matview/`` (ROADMAP queue 1, items 5 and 8).
 """
 from __future__ import annotations
+
+import dataclasses
+import time
 
 from trino_tpu_torch.exec.executor import Executor, QueryResult
 from trino_tpu_torch.sql.parser import ast
 from trino_tpu_torch.sql.parser.parser import parse_statement
 from trino_tpu_torch.sql.planner.optimizer import optimize
+from trino_tpu_torch.sql.planner.plan import format_plan
 from trino_tpu_torch.sql.planner.planner import Planner
+
+_MATVIEW_STATEMENTS = (ast.CreateMaterializedView, ast.RefreshMaterializedView,
+                       ast.DropMaterializedView)
+
+
+def _expand_udfs(session, stmt):
+    udfs = getattr(session, "udfs", None)
+    if not udfs:
+        return stmt
+    from trino_tpu_torch.sql.routines import expand_udfs
+
+    return expand_udfs(stmt, udfs)
+
+
+def _plan(session, query):
+    """The optimized plan of a ``Query`` AST, its routines inlined."""
+    return optimize(Planner(session).plan(_expand_udfs(session, query)), session)
 
 
 def plan_sql(session, sql: str):
-    """The optimized plan of a ``Query`` statement."""
+    """The optimized plan of a ``Query`` statement; any other statement
+    comes back parsed (``run_query`` dispatches it)."""
     stmt = parse_statement(sql)
+    if isinstance(stmt, ast.Explain):
+        raise ValueError("use explain_query")
     if not isinstance(stmt, ast.Query):
-        raise NotImplementedError(f"statement not ported: {type(stmt).__name__}")
-    return optimize(Planner(session).plan(stmt), session)
+        return stmt
+    return _plan(session, stmt)
 
 
 def run_query(session, sql: str) -> QueryResult:
@@ -30,12 +58,52 @@ def run_query(session, sql: str) -> QueryResult:
 
 def _execute_rows(session, query):
     """(plan root, live rows as Python tuples) of a query AST."""
-    root = optimize(Planner(session).plan(query), session)
+    root = _plan(session, query)
     page = Executor(session).execute_checked(root)
     return root, page.to_pylist()
 
 
+def bind_parameters(stmt, params):
+    """Substitute ``?`` placeholders with the EXECUTE ... USING expressions
+    (reference: planner/ParameterRewriter): a generic rewrite over the
+    frozen AST. Arity must match exactly."""
+    from trino_tpu_torch.server.prepared import count_parameters
+
+    need = count_parameters(stmt)
+    if len(params) != need:
+        raise ValueError(
+            f"prepared statement expects {need} parameters, "
+            f"got {len(params)}")
+
+    def rewrite(node):
+        if isinstance(node, ast.Parameter):
+            return params[node.index]
+        if isinstance(node, tuple):
+            return tuple(rewrite(x) for x in node)
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            changes = {}
+            for f in dataclasses.fields(node):
+                v = getattr(node, f.name)
+                nv = rewrite(v)
+                if nv is not v:
+                    changes[f.name] = nv
+            return dataclasses.replace(node, **changes) if changes else node
+        return node
+
+    return rewrite(stmt)
+
+
+def _result(word):
+    return QueryResult(["result"], [], [(word,)])
+
+
 def _dispatch_statement(session, stmt) -> QueryResult:
+    if isinstance(stmt, ast.Explain):
+        if stmt.analyze:
+            text = explain_analyze(session, stmt.statement, verbose=stmt.verbose)
+        else:
+            text = explain_query(session, None, stmt.mode, stmt=stmt.statement)
+        return QueryResult(["Query Plan"], [], [(line,) for line in text.split("\n")])
     if isinstance(stmt, ast.CreateTable):
         return _create_table(session, stmt)
     if isinstance(stmt, ast.CreateTableAs):
@@ -44,37 +112,236 @@ def _dispatch_statement(session, stmt) -> QueryResult:
         return _insert(session, stmt)
     if isinstance(stmt, ast.DropTable):
         return _drop_table(session, stmt)
+    if isinstance(stmt, _MATVIEW_STATEMENTS):
+        raise NotImplementedError(
+            f"{type(stmt).__name__} is not ported: materialized views wait for "
+            "matview/ (ROADMAP queue 1, item 8)")
     if isinstance(stmt, ast.Delete):
         return _delete(session, stmt)
     if isinstance(stmt, ast.Update):
         return _update(session, stmt)
+    if isinstance(stmt, ast.CreateFunction):
+        from trino_tpu_torch.sql.routines import RoutineError, UdfDef, expand_udfs, validate
+
+        name = stmt.name[-1].lower()
+        if name in session.udfs and not stmt.or_replace:
+            raise RoutineError(f"function already exists: {name}")
+        # early binding: routine calls inside the body expand at creation
+        body = expand_udfs(stmt.body, session.udfs)
+        udf = UdfDef(name, tuple(stmt.params), stmt.returns, body)
+        validate(udf)
+        session.udfs[name] = udf
+        return _result("CREATE FUNCTION")
+    if isinstance(stmt, ast.DropFunction):
+        name = stmt.name[-1].lower()
+        if name not in session.udfs:
+            if stmt.if_exists:
+                return _result("DROP FUNCTION")
+            raise ValueError(f"function not found: {name}")
+        del session.udfs[name]
+        return _result("DROP FUNCTION")
+    if isinstance(stmt, ast.Prepare):
+        # stored parsed; parameters bind at EXECUTE time
+        session.prepared_statements[stmt.name] = stmt.statement
+        return _result("PREPARE")
+    if isinstance(stmt, ast.ExecutePrepared):
+        prepared = session.prepared_statements.get(stmt.name)
+        if prepared is None:
+            raise ValueError(f"prepared statement not found: {stmt.name}")
+        return _dispatch_statement(session, bind_parameters(prepared, stmt.params))
+    if isinstance(stmt, ast.Deallocate):
+        if stmt.name not in session.prepared_statements:
+            raise ValueError(f"prepared statement not found: {stmt.name}")
+        del session.prepared_statements[stmt.name]
+        return _result("DEALLOCATE")
+    if isinstance(stmt, ast.Call):
+        return _call_procedure(session, stmt)
+    if isinstance(stmt, ast.StartTransaction):
+        from trino_tpu_torch.exec import transaction as txn_mod
+
+        txn_mod.begin(session)
+        return _result("START TRANSACTION")
+    if isinstance(stmt, (ast.Commit, ast.Rollback)):
+        txn = session.transaction
+        if txn is None:
+            raise ValueError("no transaction in progress")
+        if isinstance(stmt, ast.Commit):
+            txn.commit()
+            return _result("COMMIT")
+        txn.rollback()
+        return _result("ROLLBACK")
+    if isinstance(stmt, ast.SetSession):
+        session.set_property(stmt.name, stmt.value)
+        return _result("SET SESSION")
+    if isinstance(stmt, ast.ResetSession):
+        from trino_tpu_torch.client.properties import SYSTEM_SESSION_PROPERTIES
+
+        meta = SYSTEM_SESSION_PROPERTIES.get(stmt.name)
+        if meta is None:
+            raise ValueError(f"session property '{stmt.name}' does not exist")
+        if meta.default is None:
+            session.properties.pop(stmt.name, None)
+        else:
+            session.properties[stmt.name] = meta.default
+        return _result("RESET SESSION")
+    if isinstance(stmt, ast.ShowSession):
+        from trino_tpu_torch.client.properties import SYSTEM_SESSION_PROPERTIES
+
+        rows = [
+            (name, str(session.properties.get(name, meta.default)),
+             str(meta.default), meta.py_type.__name__, meta.description)
+            for name, meta in sorted(SYSTEM_SESSION_PROPERTIES.items())
+        ]
+        return QueryResult(["Name", "Value", "Default", "Type", "Description"], [], rows)
+    if isinstance(stmt, ast.ShowTables):
+        return _show_tables(session, stmt)
+    if isinstance(stmt, ast.ShowSchemas):
+        return _show_schemas(session, stmt)
+    if isinstance(stmt, ast.ShowColumns):
+        return _show_columns(session, stmt)
     if not isinstance(stmt, ast.Query):
-        raise NotImplementedError(f"statement not ported: {type(stmt).__name__}")
-    root = optimize(Planner(session).plan(stmt), session)
+        raise ValueError(f"unsupported statement {type(stmt).__name__}")
+    root = _plan(session, stmt)
     page = Executor(session).execute_checked(root)
     return QueryResult(root.column_names, page.columns, page.to_pylist())
 
 
-def _resolve_table_name(session, parts):
+def explain_query(session, sql, mode: str = "logical", stmt=None) -> str:
+    """EXPLAIN: the optimized plan's text (sql/planner/plan.py
+    ``format_plan``)."""
+    if stmt is None:
+        stmt = parse_statement(sql)
+        if isinstance(stmt, ast.Explain):
+            mode = stmt.mode
+            stmt = stmt.statement
+    if mode == "distributed":
+        raise NotImplementedError(
+            "EXPLAIN (TYPE DISTRIBUTED) is not ported: it waits for plan "
+            "fragments, sql/planner/fragmenter.py (ROADMAP queue 1, item 5)")
+    return format_plan(_plan(session, stmt))
+
+
+def explain_analyze(session, stmt, verbose: bool = False) -> str:
+    """EXPLAIN ANALYZE: execute with per-operator stats on, then print the
+    plan annotated with them (reference: ExplainAnalyzeOperator +
+    PlanPrinter stats injection). The header's wall time covers planning
+    and execution. ``verbose`` adds per-node bytes, peaks and dispatch
+    ledger, and a device line: rows staged, the compiled tier's
+    compile-cache hits and misses over the run, and the host seconds of
+    dynamic filtering. The port has no compiled tier yet (ROADMAP queue 1,
+    item 4), so its compile-cache hits and misses always read 0/0."""
+    from trino_tpu_torch.exec.operator_stats import wall_time_header
+
+    t_plan = time.perf_counter()
+    root = _plan(session, stmt)
+    plan_s = time.perf_counter() - t_plan
+    ex = Executor(session, collect_stats=True)
+    t0 = time.perf_counter()
+    ex.execute_checked(root)
+    exec_s = time.perf_counter() - t0
+    header = [wall_time_header(plan_s, exec_s)]
+    if ex.memory.budget is not None:
+        header.append(
+            f"Device memory budget: {ex.memory.budget // 1024}KiB,"
+            f" peak working set: {ex.memory.peak // 1024}KiB,"
+            f" spills: {len(ex.memory.spills)}")
+    else:
+        header.append(f"Peak working set: {ex.memory.peak // 1024}KiB (no budget)")
+    if verbose:
+        staged = sum(ex.scan_stats.values())
+        header.append(
+            f"Device detail: staged rows={staged},"
+            f" compile cache hits/misses (process-wide during run)=0/0,"
+            f" dynamic-filter host seconds={ex.df_apply_s * 1e3:.1f}ms")
+    return "\n".join(header) + "\n" + format_plan(root, executor=ex, verbose=verbose)
+
+
+def _default_parts(session, parts):
+    """(catalog, schema, name) of a one- to three-part name, the missing
+    parts from the session's catalog and schema."""
     parts = [p.lower() for p in parts]
     catalog = session.properties.get("catalog", "tpch")
     schema = session.properties.get("schema", "tiny")
     if len(parts) == 3:
-        catalog, schema, table = parts
+        catalog, schema, name = parts
     elif len(parts) == 2:
-        schema, table = parts
+        schema, name = parts
     else:
-        (table,) = parts
+        (name,) = parts
+    return catalog, schema, name
+
+
+def _resolve_table_name(session, parts, write: bool = False):
+    catalog, schema, table = _default_parts(session, parts)
     if catalog not in session.catalogs:
         raise ValueError(f"catalog not found: {catalog}")
+    if write:
+        session.access_control.check_can_write(session.identity, catalog, schema, table)
+        if session.transaction is not None:
+            # writes inside an explicit transaction go to its overlay
+            session.transaction.enlist(catalog)
     return session.catalogs[catalog], catalog, schema, table
+
+
+def _call_procedure(session, stmt):
+    """CALL catalog.schema.procedure(args...) (reference:
+    execution/CallTask): the procedure resolves through the connector, its
+    arguments analyze against an empty scope and must fold to constants."""
+    from trino_tpu_torch.sql.analyzer.expr_analyzer import ExprAnalyzer
+    from trino_tpu_torch.sql.analyzer.scope import Scope
+    from trino_tpu_torch.sql.planner.planner import _fold_constant
+
+    catalog, schema, proc = _default_parts(session, stmt.name)
+    conn = session.catalogs.get(catalog)
+    if conn is None:
+        raise ValueError(f"catalog not found: {catalog}")
+    fn = conn.procedure(schema, proc)
+    if fn is None:
+        raise ValueError(f"procedure not registered: {catalog}.{schema}.{proc}")
+    analyzer = ExprAnalyzer(Scope([], None))
+    values = []
+    for e in stmt.args:
+        c = _fold_constant(analyzer.analyze(e))
+        if c is None:
+            raise ValueError(f"CALL {catalog}.{schema}.{proc}: arguments must be constants")
+        v = c.value
+        if v is not None and c.type.is_decimal:
+            v = float(v) / (10 ** c.type.scale)
+        values.append(v)
+    message = fn(session, *values)
+    return QueryResult(["result"], [], [(message or "CALL",)])
+
+
+def _show_tables(session, stmt):
+    catalog = session.properties.get("catalog", "tpch")
+    schema = session.properties.get("schema", "tiny")
+    if stmt.schema:
+        parts = stmt.schema
+        catalog = parts[0] if len(parts) == 2 else catalog
+        schema = parts[-1]
+    rows = [(t,) for t in session.catalogs[catalog].list_tables(schema)]
+    return QueryResult(["Table"], [], rows)
+
+
+def _show_schemas(session, stmt):
+    catalog = stmt.catalog or session.properties.get("catalog", "tpch")
+    conn = session.catalogs[catalog]
+    return QueryResult(["Schema"], [], [(s,) for s in conn.list_schemas()])
+
+
+def _show_columns(session, stmt):
+    catalog, schema, table = _default_parts(session, stmt.table)
+    meta = session.catalogs[catalog].get_table(schema, table)
+    if meta is None:
+        raise ValueError(f"table not found: {table}")
+    return QueryResult(["Column", "Type"], [], [(c.name, str(c.type)) for c in meta.columns])
 
 
 def _create_table(session, stmt):
     """CREATE TABLE (reference: execution/CreateTableTask.java)."""
     from trino_tpu_torch import types as T
 
-    conn, _catalog, schema, table = _resolve_table_name(session, stmt.name)
+    conn, _catalog, schema, table = _resolve_table_name(session, stmt.name, write=True)
     if conn.get_table(schema, table) is not None:
         if stmt.not_exists:
             return QueryResult(["result"], [], [("CREATE TABLE",)])
@@ -87,7 +354,7 @@ def _create_table(session, stmt):
 def _create_table_as(session, stmt):
     """CTAS: the source query runs on the device and its rows sink through
     the connector's write SPI."""
-    conn, _catalog, schema, table = _resolve_table_name(session, stmt.name)
+    conn, _catalog, schema, table = _resolve_table_name(session, stmt.name, write=True)
     if conn.get_table(schema, table) is not None:
         if stmt.not_exists:
             return QueryResult(["rows"], [], [(0,)])
@@ -100,7 +367,7 @@ def _create_table_as(session, stmt):
 
 def _insert(session, stmt):
     """INSERT INTO (reference: execution/InsertTask and the page sink)."""
-    conn, _catalog, schema, table = _resolve_table_name(session, stmt.name)
+    conn, _catalog, schema, table = _resolve_table_name(session, stmt.name, write=True)
     meta = conn.get_table(schema, table)
     if meta is None:
         raise ValueError(f"table not found: {schema}.{table}")
@@ -154,7 +421,7 @@ def _check_insert_types(meta, named_columns, src_types):
 def _delete(session, stmt):
     """DELETE FROM t [WHERE p]: rows where p IS TRUE go; the engine computes
     the kept set (NOT p OR p IS NULL) and the table is overwritten."""
-    conn, catalog, schema, table = _resolve_table_name(session, stmt.name)
+    conn, catalog, schema, table = _resolve_table_name(session, stmt.name, write=True)
     meta = conn.get_table(schema, table)
     if meta is None:
         raise ValueError(f"table not found: {schema}.{table}")
@@ -178,7 +445,7 @@ def _update(session, stmt):
     from trino_tpu_torch.sql.analyzer.expr_analyzer import ExprAnalyzer
     from trino_tpu_torch.sql.analyzer.scope import Field, Scope
 
-    conn, catalog, schema, table = _resolve_table_name(session, stmt.name)
+    conn, catalog, schema, table = _resolve_table_name(session, stmt.name, write=True)
     meta = conn.get_table(schema, table)
     if meta is None:
         raise ValueError(f"table not found: {schema}.{table}")
@@ -243,7 +510,7 @@ def _dml_select_rows(session, catalog, schema, table, meta, where=None,
 
 
 def _drop_table(session, stmt):
-    conn, _catalog, schema, table = _resolve_table_name(session, stmt.name)
+    conn, _catalog, schema, table = _resolve_table_name(session, stmt.name, write=True)
     if conn.get_table(schema, table) is None:
         if stmt.if_exists:
             return QueryResult(["result"], [], [("DROP TABLE",)])

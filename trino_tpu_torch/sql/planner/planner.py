@@ -32,10 +32,6 @@ from trino_tpu_torch.sql.parser import ast
 from trino_tpu_torch.sql.planner import plan as P
 
 
-class AccessDeniedError(PermissionError):
-    """Raised by an access control (the port ships none)."""
-
-
 class PlanningError(ValueError):
     pass
 
@@ -305,7 +301,24 @@ class Planner:
         """TABLE(fn(...)) -> constant relation (reference:
         sql/tree/TableFunctionInvocation; the processor runs at plan time —
         arguments must be constants)."""
-        raise NotImplementedError("table functions are not ported")
+        from trino_tpu_torch.exec.table_functions import resolve
+
+        analyzer = ExprAnalyzer(Scope([], outer_scope))
+
+        def const(e):
+            c = _fold_constant(analyzer.analyze(e))
+            if c is None:
+                raise PlanningError(
+                    f"table function {rel.name} arguments must be constants")
+            return c.value
+
+        args = [const(e) for e in rel.args]
+        named = {k: const(v) for k, v in (rel.named_args or {}).items()}
+        names, types, rows = resolve(self.session, rel.name, args, named)
+        node = P.ValuesNode(list(types), list(names), rows)
+        return RelationPlan(
+            node, Scope([Field(n, t, rel.name) for n, t in zip(names, types)],
+                        outer_scope))
 
     def plan_unnest(
         self, rel: ast.Unnest, left: RelationPlan, alias, col_aliases, outer_scope
@@ -375,7 +388,9 @@ class Planner:
         stmt = mv.definition
         udfs = getattr(self.session, "udfs", None)
         if udfs:
-            raise NotImplementedError("SQL routines are not ported")
+            from trino_tpu_torch.sql.routines import expand_udfs
+
+            stmt = expand_udfs(stmt, udfs)
         expanding.add(key)
         # the definition's unqualified names keep resolving against the
         # CREATOR's defaults, whatever session expands the view
@@ -444,6 +459,8 @@ class Planner:
         (reference: ``connector/informationschema/`` — schemata, tables,
         columns per catalog). Materialized at plan time as a constant
         relation (metadata scale)."""
+        from trino_tpu_torch.server.security import AccessDeniedError
+
         ac = getattr(self.session, "access_control", None)
         identity = getattr(self.session, "identity", None)
 
