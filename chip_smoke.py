@@ -76,7 +76,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the session's CUDA generator) and the transcendental functions on the
    card against numpy on the host: log10(10^k) exact for k in -300..300
    (with how many the raw torch.log10 missed), and a seeded sample of
-   each function within a relative 1e-8.
+   each function within a relative 1e-8. Then phase nested, in a fifth
+   session, uncached: ten queries at SF1 over arrays, maps and rows
+   (array_agg per customer and the array functions over it, UNNEST of it
+   plain and WITH ORDINALITY, histogram, map_agg per order over lineitem
+   and UNNEST of the maps, the lambdas, ROW fields and array equality, and
+   MATCH_RECOGNIZE's V-shape over daily revenue per ship mode), each cold
+   then warm, against trino_tpu_torch/testdata/nested_sf1_expected.json
+   (written by the JAX package: tests/test_torch_nested_sql.py
+   --write-expected), doubles within a relative 1e-8, with the seconds of
+   the host passes beside each wall; and CREATE TABLE AS of per-customer
+   arrays into the memory catalog, read twice in a cached session: a miss,
+   then a hit staging nothing, both with the reference's rows.
 7. mainpath: the merge kernel against its plain version, exact, on the
    very build and probe tensors the cold runs of phases tpch, cache and
    analytics handed to it (one row a launch, with phase kernel's times),
@@ -126,9 +137,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    --write-expected).
 
 With ``--profile`` it also runs each query once more (warm) in each of the
-four sessions under torch.profiler and prints the device time by kernel,
-the device's busy share of the wall, the device launches and the largest
-device item; and it times the DML sequence over tpch.sf1.orders (1.5M
+five sessions (tpch, cache, analytics, scalar, nested) under
+torch.profiler and prints the device time by kernel, the device's busy
+share of the wall, the device launches and the largest device item; and it times the DML sequence over tpch.sf1.orders (1.5M
 rows), holding each read's cache disposition to the reference's.
 
 The last three lines of standard output are the kernel summary
@@ -351,9 +362,22 @@ def phase_kernel(device):
     return rows, call_1x1
 
 
+def jsonable(v):
+    """A result value in the expected files' form: decimals and dates as
+    strings, arrays and rows as lists, maps as {"map": [[key, value], ...]}
+    in the order of the keys' text."""
+    if v is None or isinstance(v, (int, float, str)):
+        return v
+    if isinstance(v, (list, tuple)):
+        return [jsonable(x) for x in v]
+    if isinstance(v, dict):
+        return {"map": [[jsonable(k), jsonable(x)]
+                        for k, x in sorted(v.items(), key=lambda kv: str(kv[0]))]}
+    return str(v)
+
+
 def jsonable_rows(rows):
-    return [[v if v is None or isinstance(v, (int, float, str)) else str(v) for v in r]
-            for r in rows]
+    return [[jsonable(v) for v in r] for r in rows]
 
 
 def tier_counts(metric, tiers):
@@ -636,6 +660,62 @@ def phase_scalar(device, scalar, card):
         out[name] = runs
         print("scalar", json.dumps({"query": name, "scale": "sf1", "rows": len(res.rows),
                                     "runs": runs, "card": card}), flush=True)
+    return out, session
+
+
+NESTED_REL_TOL = 1e-8  # doubles at SF1, as phase analytics
+
+
+def phase_nested(device, nested, card):
+    """The nested-type queries at SF1 in an uncached session, cold then
+    warm: rows equal the reference's (doubles within NESTED_REL_TOL), the
+    seconds of the host passes (the MATCH_RECOGNIZE matcher, the ORDER BY
+    of pages with arrays) beside each wall. Then n_ctas_cached: CREATE
+    TABLE AS of per-customer arrays into the memory catalog, and one
+    aggregate over it read twice in a cached session: a miss, then a hit
+    that stages nothing, both with the reference's rows."""
+    from trino_tpu_torch import Session
+    from trino_tpu_torch.obs import metrics as M
+    from trino_tpu_torch.ops import merge
+
+    session = Session(properties=dict(nested["properties"]), device=device)
+    out = {}
+    for name, entry in nested["queries"].items():
+        runs = []
+        for label in ("cold", "warm"):
+            merge.launches = 0
+            host0 = M.NESTED_HOST_SECONDS.value()
+            res, wall, c = timed_execute(session, entry["sql"], device)
+            host_s = M.NESTED_HOST_SECONDS.value() - host0
+            check_rows(f"{name} (nested, {label})", jsonable_rows(res.rows), entry["rows"],
+                       rel_tol=NESTED_REL_TOL)
+            runs.append({"run": label, "wall_s": wall, "host_s": host_s,
+                         "host_share": host_s / wall, "merge_launches": merge.launches,
+                         "staged_rows": c["staged_rows"], "h2d_bytes": c["h2d_bytes"],
+                         **{k: c[k] for k in ("scan_s", "decode_s", "transfer_s")}})
+        out[name] = runs
+        print("nested", json.dumps({"query": name, "scale": "sf1", "rows": len(res.rows),
+                                    "runs": runs, "card": card}), flush=True)
+    ctas = nested["ctas"]
+    cached = Session(properties={**nested["properties"], "device_cache_enabled": True},
+                     device=device)
+    merge.launches = 0
+    _res, ctas_wall, _c = timed_execute(cached, ctas["sql"], device)
+    runs = [{"run": "ctas", "wall_s": ctas_wall, "merge_launches": merge.launches}]
+    for label in ("miss", "hit"):
+        merge.launches = 0
+        res, wall, c = timed_execute(cached, ctas["read_sql"], device)
+        check_rows(f"n_ctas_cached ({label})", jsonable_rows(res.rows), ctas["rows"])
+        runs.append({"run": label, "wall_s": wall, "merge_launches": merge.launches,
+                     **{k: c[k] for k in ("hits", "misses", "staged_rows", "h2d_bytes")}})
+    miss, hit = runs[1], runs[2]
+    if miss["misses"] < 1 or hit["misses"] or hit["hits"] < 1 or hit["staged_rows"] \
+            or hit["h2d_bytes"]:
+        raise AssertionError(f"n_ctas_cached: the first read must miss and the second hit "
+                             f"staging nothing: {runs[1:]}")
+    out["n_ctas_cached"] = runs
+    print("nested", json.dumps({"query": "n_ctas_cached", "scale": "sf1", "rows": len(res.rows),
+                                "runs": runs, "card": card}), flush=True)
     return out, session
 
 
@@ -1165,6 +1245,7 @@ def main() -> int:
     plane = testdata("plane_expected.json")
     analytics = testdata("analytics_sf1_expected.json")
     scalar = testdata("scalar_sf1_expected.json")
+    nested = testdata("nested_sf1_expected.json")
     profiling = "--profile" in sys.argv[1:]
     with MergeCapture() as cap:
         tpch, session = phase_tpch(device, expected, cap)
@@ -1173,6 +1254,7 @@ def main() -> int:
         scalar_runs, scalar_session = phase_scalar(device, scalar, card)
         check_random(scalar_session, device)
         check_transcendentals(device)
+        nested_runs, nested_session = phase_nested(device, nested, card)
     merge_queries = sorted(int(q) for q, e in expected.items()
                            if e["tiers"].get("merge-pallas", 0) >= 1)
     rows += phase_mainpath(cap.captured, merge_queries)
@@ -1184,12 +1266,14 @@ def main() -> int:
                       [(n, e["sql"]) for n, e in analytics["queries"].items()], "analytics")
         phase_profile(scalar_session,
                       [(n, e["sql"]) for n, e in scalar["queries"].items()], "scalar")
+        phase_profile(nested_session,
+                      [(n, e["sql"]) for n, e in nested["queries"].items()], "nested")
     statements = testdata("statements_sf1_expected.json")
     statement_launches = phase_statements(
         (("uncached", session), ("cached", cached_session)), device, statements, expected, card)
     phase_transactions(cached_session, device, statements)
     phase_connectors(device, statements)
-    del session, cached_session, analytics_session, scalar_session
+    del session, cached_session, analytics_session, scalar_session, nested_session
     phase_transfer(device)
     phase_sf10(device, plane)
     phase_spill(device, plane)
@@ -1205,9 +1289,10 @@ def main() -> int:
         "analytics": sum(run["merge_launches"] for runs in analytics_runs.values()
                          for run in runs),
         "scalar": sum(run["merge_launches"] for runs in scalar_runs.values() for run in runs),
-        "statements": statement_launches}
+        "statements": statement_launches,
+        "nested": sum(run["merge_launches"] for runs in nested_runs.values() for run in runs)}
     for path, n in launches_by_path.items():
-        if n < 1 and path not in ("analytics", "scalar"):
+        if n < 1 and path not in ("analytics", "scalar", "nested"):
             raise AssertionError(f"the 22 queries of path {path} launched the merge kernel "
                                  f"no time")
     # as since the first slice: the launches of the uncached session's cold
@@ -1215,7 +1300,7 @@ def main() -> int:
     launches = sum(run["merge_launches"] for runs in tpch.values() for run in runs
                    if run["run"] == "cold")
     for path, by_query in (("tpch", tpch), ("analytics", analytics_runs),
-                           ("scalar", scalar_runs)):
+                           ("scalar", scalar_runs), ("nested", nested_runs)):
         print(f"{path}_total", json.dumps({
             f"{label}_wall_s": sum(run["wall_s"] for runs in by_query.values()
                                    for run in runs if run["run"] == label)

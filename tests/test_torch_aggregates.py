@@ -4,9 +4,10 @@ same numpy inputs (made from a seed), and the SQL of
 tests/test_aggregate_breadth.py, test_functions.py and
 test_sketch_aggregates.py through both Sessions on the CPU.
 
-Left out of the SQL, each for a nested type or the distributed runner:
-``test_histogram`` and ``test_map_agg`` (map results),
-``test_two_arg_aggs_distributed_gather``, ``test_variance_distributed``,
+Left out of the SQL: ``test_histogram`` and ``test_map_agg`` (map
+results), which run in tests/test_torch_nested_sql.py, and for the
+distributed runner ``test_two_arg_aggs_distributed_gather``,
+``test_variance_distributed``,
 the distributed half of ``test_variance_large_offset`` and
 ``test_distributed_approx_percentile_within_1pct``.
 """

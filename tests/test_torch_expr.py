@@ -250,6 +250,14 @@ def test_in_list_lowers_its_operand_once(monkeypatch):
 
 
 def test_unported_expression_raises_naming_itself():
-    """A nested-type function (ROADMAP.md queue 1 item 3) is still unported."""
-    with pytest.raises(NotImplementedError, match="cardinality"):
-        _both(lambda ir, T, c: ir.Call(T.BIGINT, "cardinality", (c("s"),)))
+    """A function that neither package lowers raises NotImplementedError
+    naming itself in both. (Every function of the reference's
+    table is ported, the nested ones included, so the case is a name
+    outside the table.)"""
+    jp, tp = _pages(None)
+    for ir, types, ctx in ((j_ir, JT, j_L.LowerCtx(jp.columns, NULLABLE_ROWS, None)),
+                           (t_ir, TT, t_L.LowerCtx(tp.columns, NULLABLE_ROWS, None, "cpu"))):
+        e = ir.Call(types.BIGINT, "no_such_function",
+                    (ir.ColumnRef(types.varchar(), ORDER.index("s"), "s"),))
+        with pytest.raises(NotImplementedError, match="no_such_function"):
+            (j_L if ir is j_ir else t_L).lower(e, ctx)

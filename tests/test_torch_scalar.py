@@ -518,19 +518,114 @@ def test_every_ported_function_is_exercised():
     assert new - names == set()
 
 
-def test_port_lacks_exactly_the_nested_functions():
-    """Queue 1 item 3 of ROADMAP.md: the functions over arrays, maps, rows
-    and lambdas; every other function of the reference is ported."""
-    assert set(j_L.FUNCTIONS) - set(t_L.FUNCTIONS) == NESTED
-    assert set(t_L.FUNCTIONS) <= set(j_L.FUNCTIONS)
+def test_port_has_every_reference_function():
+    """Every function of the reference's table is ported, the nested ones
+    (NESTED) included."""
+    assert set(j_L.FUNCTIONS) == set(t_L.FUNCTIONS)
+    assert NESTED <= set(t_L.FUNCTIONS)
+
+
+# ----------------------------------------------------- the nested functions
+def _nested_data():
+    """One seeded page of nested columns: NULL rows, NULL elements, empty
+    arrays and maps, a NULL row value, subscripts in and out of range."""
+    rng = np.random.default_rng(20261018)
+    n = 60
+    words = ["ab", "cd", "ef", "gh", "ij"]
+
+    def maybe(v, p=0.1):
+        return None if rng.random() < p else v
+
+    xs = [maybe([maybe(int(v)) for v in rng.integers(-9, 10, rng.integers(0, 6))], 0.12)
+          for _ in range(n)]
+    ys = [maybe([maybe(words[int(v)]) for v in rng.integers(0, 5, rng.integers(0, 4))])
+          for _ in range(n)]
+    m = [maybe({words[int(k)]: maybe(int(v)) for k, v in zip(rng.integers(0, 5, 3),
+                                                           rng.integers(-50, 50, 3))})
+         for _ in range(n)]
+    r = [maybe((maybe(int(a)), words[int(b)])) for a, b in zip(rng.integers(-5, 5, n),
+                                                            rng.integers(0, 5, n))]
+    i = [maybe(int(v), 0.05) for v in rng.integers(-7, 8, n)]
+    s = [maybe(words[int(v)] if v < 5 else "zz", 0.05) for v in rng.integers(0, 6, n)]
+    return {"xs": ("array(bigint)", xs), "ys": ("array(varchar)", ys),
+            "m": ("map(varchar, bigint)", m), "r": ("row(a bigint, b varchar)", r),
+            "i": ("bigint", i), "s": ("varchar", s)}
+
+
+NESTED_DATA = _nested_data()
+NESTED_ORDER = list(NESTED_DATA)
+N_NESTED = len(NESTED_DATA["i"][1])
+
+
+def _nested_builds(types, ir):
+    """The IR of each nested function over the page, for one package."""
+    def col(name):
+        return ir.ColumnRef(_parse(types, NESTED_DATA[name][0]), NESTED_ORDER.index(name), name)
+
+    def call(tname, name, *args):
+        return ir.Call(_parse(types, tname), name, tuple(args))
+
+    def lam(tname, body):
+        return ir.Lambda(_parse(types, tname), body, 1)
+
+    elem = ir.ColumnRef(types.BIGINT, 0, "x")
+    seven = ir.Constant(types.BIGINT, 7)
+    return {
+        "array_ctor": call("array(bigint)", "array_ctor", col("i"), seven, col("i")),
+        "cardinality": call("bigint", "cardinality", col("xs")),
+        "subscript": call("bigint", "subscript", col("xs"), col("i")),
+        "element_at": call("bigint", "element_at", col("xs"), col("i")),
+        "map_subscript": call("bigint", "map_subscript", col("m"), col("s")),
+        "map_element_at": call("bigint", "map_element_at", col("m"), col("s")),
+        "contains": call("boolean", "contains", col("xs"), col("i")),
+        "array_position": call("bigint", "array_position", col("xs"), col("i")),
+        "array_min": call("bigint", "array_min", col("xs")),
+        "array_max": call("bigint", "array_max", col("xs")),
+        "array_sum": call("bigint", "array_sum", col("xs")),
+        "map_keys": call("array(varchar)", "map_keys", col("m")),
+        "map_values": call("array(bigint)", "map_values", col("m")),
+        "map_ctor": call("map(varchar, bigint)", "map_ctor", col("ys"), col("xs")),
+        "transform": call("array(bigint)", "transform", col("xs"),
+                          lam("bigint", call("bigint", "mul", elem, seven))),
+        "any_match": call("boolean", "any_match", col("xs"),
+                          lam("boolean", call("boolean", "gt", elem, ir.Constant(types.BIGINT, 2)))),
+        "all_match": call("boolean", "all_match", col("xs"),
+                          lam("boolean", call("boolean", "gt", elem, ir.Constant(types.BIGINT, -5)))),
+        "none_match": call("boolean", "none_match", col("xs"),
+                           lam("boolean", call("boolean", "lt", elem, seven))),
+        "row_ctor": call("row(a bigint, b varchar)", "row_ctor", col("i"), col("s")),
+        "row_field": call("varchar", "row_field", col("r"), ir.Constant(types.BIGINT, 2)),
+    }
 
 
 @pytest.mark.parametrize("name", sorted(NESTED))
-def test_nested_function_raises_naming_itself(name):
-    e = t_ir.Call(TT.BIGINT, name, (t_ir.ColumnRef(TT.BIGINT, 0, "i"),))
-    _, tp = _pages()
-    with pytest.raises(NotImplementedError, match=name):
-        t_L.lower(e, t_L.LowerCtx(tp.columns, N, None, "cpu"))
+def test_nested_function_matches_reference(name):
+    """Each nested function lowered over the same seeded nested page in
+    both packages, with a selection mask: the same error flags, validity
+    and dtype, and the same Python values once made a column (children
+    recursively)."""
+    from trino_tpu.exec.executor import _col_from_lowered as j_col
+
+    from trino_tpu_torch.exec.executor import _col_from_lowered as t_col
+
+    jp = JaxPage.from_pydict({c: _parse(JT, t) for c, (t, _) in NESTED_DATA.items()},
+                             {c: v for c, (_, v) in NESTED_DATA.items()})
+    tp = page_from_numpy(jp.columns, device="cpu")
+    sel = np.random.default_rng(3).random(N_NESTED) < 0.85
+    ej, et = _nested_builds(JT, j_ir)[name], _nested_builds(TT, t_ir)[name]
+    jctx = j_L.LowerCtx(jp.columns, N_NESTED, jnp.asarray(sel))
+    tctx = t_L.LowerCtx(tp.columns, N_NESTED, torch.from_numpy(sel), "cpu")
+    lj, lt = j_L.lower(ej, jctx), t_L.lower(et, tctx)
+    errs = lambda ctx: [(c, bool(np.asarray(f.cpu() if hasattr(f, "cpu") else f)))  # noqa: E731
+                        for c, f in ctx.errors]
+    assert errs(tctx) == errs(jctx)
+    assert lt.vals.numpy().dtype == np.asarray(lj.vals).dtype
+    assert (lt.valid is None) == (lj.valid is None)
+    if lt.valid is not None:
+        np.testing.assert_array_equal(lt.valid.numpy(), np.asarray(lj.valid))
+    assert (lt.children is None) == (lj.children is None)
+    got, want = t_col(et.type, lt).to_python(), j_col(ej.type, lj).to_python()
+    assert [g for g, keep in zip(got, sel) if keep] == [w for w, keep in zip(want, sel) if keep]
 
 
 # ------------------------------------------------------- nondeterministic

@@ -1,8 +1,10 @@
 """The scalar function families through both Sessions on the CPU: the SQL of
 the reference's tests/test_scalar_breadth.py, test_scalar_more.py and
-test_type_breadth.py (all but its row, array and serde cases, which are
-nested types or not SQL), the faults the port repairs, the refusals both
-packages share, and the queries of chip_smoke.py's phase scalar at tiny.
+test_type_breadth.py (all but its row, array and serde cases: the nested
+types run in tests/test_torch_nested_sql.py, and serde is not SQL), four
+nested functions over nation, the faults the port repairs, the refusals
+both packages share, and the queries of chip_smoke.py's phase scalar at
+tiny.
 The SQL of tests/test_functions.py runs in tests/test_torch_aggregates.py.
 
 Rows must match under ``values_match`` (doubles within the tolerance of
@@ -274,9 +276,8 @@ def test_refusals_are_kept(both, name):
     "select row(n_nationkey, n_name)[1] from nation",
     "select transform(array[1, 2], x -> x + 1) from nation",
 ])
-def test_nested_functions_stay_unported(both, sql):
-    with pytest.raises(NotImplementedError):
-        both.torch.execute(sql)
+def test_nested_functions_match_reference(both, sql):
+    assert both.check(sql)
 
 
 # ------------------------------------------------------ the repaired faults

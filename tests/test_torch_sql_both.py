@@ -117,13 +117,15 @@ def test_values_match(got, want, ok):
     assert values_match(got, want) is ok
 
 
-STATEMENT_MODULES = (
+NAMED_MODULES = (
     "trino_tpu_torch.server.security", "trino_tpu_torch.server.prepared",
     "trino_tpu_torch.sql.routines", "trino_tpu_torch.exec.table_functions",
     "trino_tpu_torch.exec.transaction", "trino_tpu_torch.exec.operator_stats",
     "trino_tpu_torch.connector.blackhole.connector",
     "trino_tpu_torch.connector.sqlite.connector",
-    "trino_tpu_torch.connector.filesystem.connector")
+    "trino_tpu_torch.connector.filesystem.connector",
+    # the nested-type slice
+    "trino_tpu_torch.ops.array_ops", "trino_tpu_torch.exec.match_recognize")
 
 
 def test_port_loads_neither_jax_nor_the_jax_package():
@@ -148,6 +150,7 @@ print(json.dumps({"modules": names, "loaded": bad}))
     assert out.returncode == 0, out.stderr[-2000:]
     seen = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(seen["modules"]) > 50  # the whole package, not an empty walk
-    # the statement surface and its connectors are in the walk
-    assert set(STATEMENT_MODULES) <= set(seen["modules"])
+    # the statement surface, its connectors and the nested-type modules
+    # are in the walk
+    assert set(NAMED_MODULES) <= set(seen["modules"])
     assert seen["loaded"] == [], f"the port loaded {seen['loaded']}"

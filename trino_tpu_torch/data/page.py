@@ -9,7 +9,10 @@ carry a selection mask ``sel`` instead of being compacted.
 The physical dtypes are the reference's: integer, date and decimal columns
 whose table-wide ``vrange`` fits int32 ride int32 (``fits_int32``), so the
 dense-join gate, the merge kernel's int32 contract and ``vrange`` agree
-with the JAX package. Nested (array/map/row) columns are not ported.
+with the JAX package. A nested (array, map or row) column holds per-row
+int32 element counts in ``values`` (int8 zeros for a row) and its
+flattened child columns in ``children``: ``[elements]`` for an array,
+``[keys, values]`` for a map, the fields for a row.
 
 Python rows enter as host ``ColumnData`` (``column_data_from_python``,
 used by the memory connector and VALUES) and reach the device only
@@ -64,20 +67,33 @@ class Column:
     vrange: Optional[tuple] = None  # static (min, max) of values
     ascending: bool = False  # values non-decreasing in row order
     hi: Optional[torch.Tensor] = None  # long-decimal high limb (int64)
+    # nested columns: the flattened child columns (see the module docstring)
+    children: Optional[List["Column"]] = None
 
     def __post_init__(self):
         if self.type.is_varchar and self.dictionary is None:
             raise ValueError("varchar column requires a dictionary")
-        if self.type.is_nested:
-            raise NotImplementedError(f"nested column {self.type} is not ported")
+        if self.type.is_nested and self.children is None:
+            raise ValueError(f"nested column {self.type} requires children")
 
     def __len__(self) -> int:
         return int(self.values.shape[0])
+
+    def offsets(self) -> np.ndarray:
+        """Host int64 offsets[n+1] of an array or map column's rows in its
+        flat children. The lengths describe the flat layout even under a
+        NULL row, which may own elements that are never read."""
+        lens = to_numpy(self.values).astype(np.int64)
+        return np.concatenate([np.zeros(1, np.int64), np.cumsum(lens)])
 
     def to_python(self, idx: Optional[np.ndarray] = None) -> List:
         """Device -> host, decoding reprs back to Python values (rows
         ``idx`` only, when given). A NULL row's slot is never decoded: it
         may hold anything (the identity of an empty group's max)."""
+        if self.type.is_nested:
+            col = self if idx is None else host_take(self, idx, torch.device("cpu"))
+            return col._nested_to_python()
+
         def host(t):
             a = to_numpy(t)
             return a if idx is None else a[idx]
@@ -102,6 +118,24 @@ class Column:
             out = list(map(_repr_decoder(self.type), vals.tolist()))
         if nulls is not None:
             out = [None if isnull else v for v, isnull in zip(out, nulls.tolist())]
+        return out
+
+    def _nested_to_python(self) -> List:
+        kids = [c.to_python() for c in self.children]
+        if isinstance(self.type, T.RowType):
+            out = [tuple(f[i] for f in kids) for i in range(len(self))]
+        else:
+            off = self.offsets().tolist()
+            if isinstance(self.type, T.MapType):
+                keys, vals = kids
+                out = [dict(zip(keys[off[i]:off[i + 1]], vals[off[i]:off[i + 1]]))
+                       for i in range(len(self))]
+            else:
+                (flat,) = kids
+                out = [flat[off[i]:off[i + 1]] for i in range(len(self))]
+        if self.nulls is not None:
+            out = [None if isnull else v
+                   for v, isnull in zip(out, to_numpy(self.nulls).tolist())]
         return out
 
 
@@ -197,7 +231,7 @@ def column_data_from_python(typ: T.Type, data: Sequence):
         d = Dictionary.build(data)
         return ColumnData(typ, d.encode(list(data)), nulls, d)
     if typ.is_nested:
-        raise NotImplementedError(f"nested column {typ} is not ported")
+        return _nested_data_from_python(typ, data, nulls)
     np_dtype = typ.np_dtype
     encode = _repr_encoder(typ)
     reprs = [0 if v is None else encode(v) for v in data]
@@ -210,10 +244,83 @@ def column_data_from_python(typ: T.Type, data: Sequence):
     return ColumnData(typ, arr, nulls)
 
 
-def host_take(c: Column, idx: np.ndarray) -> Column:
-    """Row gather through the host (numpy), back onto the column's device.
-    The sorted flag survives only order-preserving gathers."""
-    device = c.values.device
+def _nested_data_from_python(typ: T.Type, data: Sequence, nulls):
+    """The reference's ``Column._nested_from_python`` as host ColumnData: a
+    map's entries in the order of their keys' text."""
+    from trino_tpu_torch.connector.spi import ColumnData
+
+    n = len(data)
+    if isinstance(typ, T.RowType):
+        kids = [column_data_from_python(ft, [None if r is None else r[i] for r in data])
+                for i, ft in enumerate(typ.field_types)]
+        return ColumnData(typ, np.zeros(n, np.int8), nulls, children=kids)
+    if isinstance(typ, T.MapType):
+        rows = [[] if m is None else sorted(m.items(), key=lambda kv: str(kv[0]))
+                for m in data]
+        kids = [column_data_from_python(typ.key, [k for r in rows for k, _ in r]),
+                column_data_from_python(typ.value, [v for r in rows for _, v in r])]
+    else:
+        rows = [[] if a is None else list(a) for a in data]
+        kids = [column_data_from_python(typ.element, [v for r in rows for v in r])]
+    lens = np.array([len(r) for r in rows], dtype=np.int32)
+    return ColumnData(typ, lens, nulls, children=kids)
+
+
+def column_to_device(c, device) -> Column:
+    """A port Column on ``device`` from host arrays plus metadata: a
+    ``ColumnData``, or a column of another package read through
+    ``np.asarray`` (its type and dictionary rebuilt as this package's, by
+    type name and vocabulary). Dtypes are kept exactly; children recurse."""
+    typ = c.type
+    if not isinstance(typ, T.Type):
+        typ = T.parse_type(str(typ))
+    d = getattr(c, "dictionary", None)
+    if d is not None and not isinstance(d, Dictionary):
+        d = Dictionary(list(d.values))
+    nulls, hi = getattr(c, "nulls", None), getattr(c, "hi", None)
+    vr = getattr(c, "vrange", None)
+    kids = getattr(c, "children", None)
+    return Column(
+        typ,
+        to_device(np.asarray(c.values), device),
+        to_device(np.asarray(nulls), device) if nulls is not None else None,
+        d,
+        tuple(vr) if vr is not None else None,
+        ascending=bool(getattr(c, "ascending", getattr(c, "sorted", False))),
+        hi=to_device(np.asarray(hi), device) if hi is not None else None,
+        children=[column_to_device(k, device) for k in kids] if kids is not None else None,
+    )
+
+
+def _flat_take_index(off: np.ndarray, lens: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """Flat child positions of rows ``idx`` in order: each row's
+    [off, off + len) range, concatenated."""
+    take = lens[idx]
+    total = int(take.sum())
+    if total == 0:
+        return np.zeros(0, np.int64)
+    shift = np.repeat(off[idx] - (np.cumsum(take) - take), take)
+    return shift + np.arange(total, dtype=np.int64)
+
+
+def host_take(c: Column, idx: np.ndarray, device=None) -> Column:
+    """Row gather through the host (numpy), onto ``device`` (the column's
+    own by default). The one gather that re-flattens a nested column's
+    children. The sorted flag survives only order-preserving gathers."""
+    device = c.values.device if device is None else device
+    if c.type.is_nested:
+        nulls = to_numpy(c.nulls)[idx] if c.nulls is not None else None
+        if isinstance(c.type, T.RowType):
+            kids = [host_take(k, idx, device) for k in c.children]
+            vals = to_numpy(c.values)[idx]
+        else:
+            lens = to_numpy(c.values).astype(np.int64)
+            child_idx = _flat_take_index(c.offsets(), lens, np.asarray(idx, np.int64))
+            kids = [host_take(k, child_idx, device) for k in c.children]
+            vals = lens[idx].astype(np.int32)
+        return Column(c.type, to_device(vals, device),
+                      to_device(nulls, device) if nulls is not None else None,
+                      children=kids)
     monotone = bool(c.ascending) and (len(idx) < 2 or bool(np.all(np.diff(idx) >= 0)))
     return Column(
         c.type,
@@ -226,8 +333,40 @@ def host_take(c: Column, idx: np.ndarray) -> Column:
     )
 
 
+def _align_flat(kids: List[Column], lens_a: torch.Tensor, na: int, nb: int) -> List[Column]:
+    """The concatenated flat children of an array or map column with the
+    second part's entries moved to where the combined lengths put them. A
+    map aggregate's flat child holds dead entries past its rows' ranges,
+    so the second part starts at sum(lens_a), not at ``na``; the dead
+    entries move to the end. One gather on the device, no host read (the
+    identity when the first part has no dead entries). The reference
+    concatenates as is, and a UNION ALL of two map aggregates reads the
+    second branch's maps shifted."""
+    if any(k.type.is_nested for k in kids):
+        return kids
+    device = lens_a.device
+    live_a = lens_a.to(torch.int64).sum()
+    p = torch.arange(na + nb, dtype=torch.int64, device=device)
+    idx = torch.where(p < live_a, p,
+                      torch.where(p < live_a + nb, p - live_a + na, p - nb))
+    return [Column(k.type, k.values[idx], k.nulls[idx] if k.nulls is not None else None,
+                   k.dictionary, k.vrange, hi=k.hi[idx] if k.hi is not None else None)
+            for k in kids]
+
+
 def _concat_col(ca: Column, cb: Column) -> Column:
     va, vb = ca.values, cb.values
+    if ca.type.is_nested:
+        # lengths concatenate, and so do the flat children
+        nulls = None
+        if ca.nulls is not None or cb.nulls is not None:
+            na = ca.nulls if ca.nulls is not None else torch.zeros_like(va, dtype=torch.bool)
+            nb = cb.nulls if cb.nulls is not None else torch.zeros_like(vb, dtype=torch.bool)
+            nulls = torch.cat([na, nb])
+        kids = [_concat_col(ka, kb) for ka, kb in zip(ca.children, cb.children)]
+        if not ca.type.is_row:
+            kids = _align_flat(kids, va, len(ca.children[0]), len(cb.children[0]))
+        return Column(ca.type, torch.cat([va, vb]), nulls, children=kids)
     if va.dtype != vb.dtype:  # mixed physical widths: promote
         dt = torch.promote_types(va.dtype, vb.dtype)
         va, vb = va.to(dt), vb.to(dt)
@@ -322,14 +461,17 @@ class Page:
     @staticmethod
     def all_dead(types: Sequence[T.Type], device) -> "Page":
         """One all-dead row of the given types — the canonical empty page
-        (zero-length arrays break downstream gathers)."""
-        cols = [
-            Column(t, torch.zeros((1,), dtype=torch_dtype(t.np_dtype or np.int64),
-                                  device=device),
-                   None, Dictionary([""]) if t.is_varchar else None)
-            for t in types
-        ]
-        return Page(cols, torch.zeros((1,), dtype=torch.bool, device=device))
+        (zero-length arrays break downstream gathers). A row's fields have
+        its rows; an array's or map's children are empty."""
+        def col_of(t: T.Type, nrows: int) -> Column:
+            kids = ([col_of(ct, nrows if t.is_row else 0) for ct in T.type_children(t)]
+                    if t.is_nested else None)
+            return Column(t, torch.zeros((nrows,), dtype=torch_dtype(t.np_dtype or np.int64),
+                                         device=device),
+                          None, Dictionary([""]) if t.is_varchar else None, children=kids)
+
+        return Page([col_of(t, 1) for t in types],
+                    torch.zeros((1,), dtype=torch.bool, device=device))
 
     @staticmethod
     def concat_pages(a: "Page", b: "Page") -> "Page":
@@ -349,6 +491,33 @@ class Page:
         idx = np.nonzero(to_numpy(self.sel))[0]
         return Page([host_take(c, idx) for c in self.columns], None)
 
+    def slice_rows(self, lo: int, hi: int) -> "Page":
+        """Row range [lo, hi) of a compacted page (sel must be None)."""
+        assert self.sel is None, "slice_rows requires a compacted page"
+        cols = [
+            host_take(c, np.arange(lo, min(hi, len(c)), dtype=np.int64))
+            if c.type.is_nested
+            else Column(c.type, c.values[lo:hi],
+                        c.nulls[lo:hi] if c.nulls is not None else None,
+                        c.dictionary, c.vrange, ascending=c.ascending,
+                        hi=c.hi[lo:hi] if c.hi is not None else None)
+            for c in self.columns
+        ]
+        return Page(cols, None)
+
+    def row_byte_estimate(self) -> int:
+        """Rough serialized bytes a row (dtype widths; a nested column's
+        children amortized over the parent rows)."""
+        total = 0
+        for c in self.columns:
+            total += c.values.element_size()
+            if c.nulls is not None:
+                total += 1
+            if c.children is not None and self.num_rows:
+                for k in c.children:
+                    total += max(1, (len(k) * k.values.element_size()) // self.num_rows)
+        return max(total, 1)
+
     def to_pylist(self) -> List[tuple]:
         """Materialize live rows as Python tuples (host side)."""
         idx = None
@@ -363,29 +532,7 @@ class Page:
 def page_from_numpy(columns: Iterable, sel=None, *, live_prefix: bool = False,
                     device) -> Page:
     """A port Page from host arrays plus column metadata — what a
-    reference Page gives through ``np.asarray`` on each array. Each entry
-    of ``columns`` is an object with ``type``, ``values`` and,
-    optionally, ``nulls``, ``dictionary``, ``vrange``, ``ascending`` and
-    ``hi``. Types and dictionaries of another package are rebuilt as this
-    package's (by type name and vocabulary); dtypes are kept exactly."""
-    cols = []
-    for c in columns:
-        typ = c.type
-        if not isinstance(typ, T.Type):
-            typ = T.parse_type(str(typ))
-        d = getattr(c, "dictionary", None)
-        if d is not None and not isinstance(d, Dictionary):
-            d = Dictionary(list(d.values))
-        nulls, hi = getattr(c, "nulls", None), getattr(c, "hi", None)
-        vr = getattr(c, "vrange", None)
-        cols.append(Column(
-            typ,
-            to_device(np.asarray(c.values), device),
-            to_device(np.asarray(nulls), device) if nulls is not None else None,
-            d,
-            tuple(vr) if vr is not None else None,
-            ascending=bool(getattr(c, "ascending", False)),
-            hi=to_device(np.asarray(hi), device) if hi is not None else None,
-        ))
+    reference Page gives through ``np.asarray`` on each array
+    (``column_to_device`` per column)."""
     s = to_device(np.asarray(sel), device) if sel is not None else None
-    return Page(cols, s, live_prefix=live_prefix)
+    return Page([column_to_device(c, device) for c in columns], s, live_prefix=live_prefix)

@@ -10,12 +10,17 @@ opt-in device table cache, devcache/), Values, Filter, Compact, Project,
 Aggregation (single step: count, sum, avg, min, max, the variance family,
 bool_and/bool_or, count_if, arbitrary, geometric_mean, checksum,
 min_by/max_by, corr/covar/regr, approx_distinct and approx_percentile;
-DISTINCT for count and approx_distinct), Window (ops/window.py), UNION ALL
-and INTERSECT/EXCEPT DISTINCT, Join (N:1 lookup and
+DISTINCT for count and approx_distinct; array_agg, histogram and map_agg),
+Window (ops/window.py), UNION ALL and INTERSECT/EXCEPT DISTINCT, Unnest
+(single, zipped, WITH ORDINALITY, maps), MatchRecognize (the host matcher
+of exec/match_recognize.py), Join (N:1 lookup and
 semi/anti through the dense / fused / merge tier gate, where a bare
 cached scan's sorted build goes to the merge tier; M:N inner and left
 expansion, semi/anti with a residual filter, the singleton cross join of a
 scalar subquery and the true cross join), Sort, TopN, Limit and Output.
+Nested (array, map, row) columns pass through every operator but as join
+payloads, where both packages refuse them; a page holding one is sorted on
+the host and keeps its selection mask where others compact.
 An expansion's output is sized by one host read of its exact total. A
 per-query MemoryContext (exec/memory.py) observes every node's output
 bytes; over the ``query_max_device_memory`` budget, joins and grouped
@@ -37,8 +42,8 @@ import numpy as np
 import torch
 
 from trino_tpu_torch import types as T
-from trino_tpu_torch.data.page import (Column, Page, column_data_from_python, to_device,
-                                      to_numpy, torch_dtype)
+from trino_tpu_torch.data.page import (Column, Page, column_data_from_python, column_to_device,
+                                      host_take, to_device, to_numpy, torch_dtype)
 from trino_tpu_torch.exec import memory as _mem
 from trino_tpu_torch.exec.operator_stats import OperatorStats
 from trino_tpu_torch.obs import metrics as M
@@ -63,6 +68,7 @@ _VALUE_AGGREGATES = ("min", "max", "arbitrary", "any_value", "min_by", "max_by")
 _VALUE_WINDOW_FUNCTIONS = ("min", "max", "lag", "lead", "first_value", "last_value",
                            "nth_value")
 _BIVARIATE = ("corr", "covar_samp", "covar_pop", "regr_slope", "regr_intercept")
+_NESTED_AGGREGATES = ("array_agg", "histogram", "map_agg")
 
 
 class QueryError(RuntimeError):
@@ -80,6 +86,9 @@ def raise_query_errors(codes, flags):
 
 def _col_from_lowered(t: T.Type, lv: L.LoweredVal) -> Column:
     nulls = None if lv.valid is None else ~lv.valid
+    if lv.children is not None:
+        return Column(t, lv.vals, nulls, children=[
+            _col_from_lowered(ct, k) for ct, k in zip(T.type_children(t), lv.children)])
     # a static |value| bound proven by the lowering becomes the vrange
     vrange = (-lv.bound, lv.bound) if lv.bound is not None and lv.hi is None else None
     return Column(t, lv.vals, nulls, lv.dictionary, vrange, hi=lv.hi)
@@ -319,6 +328,15 @@ class Executor:
             n = next(read) if isinstance(v, torch.Tensor) else v
             setattr(st, field, getattr(st, field) + int(n))
 
+    def _narrowed_or_flag(self, col: Column, sel=None) -> Column:
+        """A two-limb column degraded to its low word for consumers without
+        limb kernels (the map-building aggregates' keys); live rows that do
+        not fit int64 raise the deferred DECIMAL_OVERFLOW error."""
+        if col.hi is None:
+            return col
+        self._narrow_lowered_or_flag(_col_to_lowered(col), col.hi, sel)
+        return Column(col.type, col.values, col.nulls, col.dictionary)
+
     def _narrow_lowered_or_flag(self, arg, hi_l, sel_l=None):
         """Degrade a two-limb argument to its low word for consumers without
         limb kernels; live rows that do not fit int64 raise the deferred
@@ -383,14 +401,9 @@ class Executor:
         return ent.value
 
     def _exec_ValuesNode(self, node: P.ValuesNode) -> Page:
-        cols = []
-        for i, t in enumerate(node.types):
-            cd = column_data_from_python(t, [r[i] for r in node.rows])
-            cols.append(Column(
-                t, to_device(cd.values, self.device),
-                to_device(cd.nulls, self.device) if cd.nulls is not None else None,
-                cd.dictionary,
-                hi=to_device(cd.hi, self.device) if cd.hi is not None else None))
+        cols = [column_to_device(column_data_from_python(t, [r[i] for r in node.rows]),
+                                 self.device)
+                for i, t in enumerate(node.types)]
         if not cols:
             # zero-column rows (SELECT without FROM)
             return Page([Column(T.BIGINT, torch.zeros((len(node.rows),), dtype=torch.int64,
@@ -464,6 +477,10 @@ class Executor:
         n = page.num_rows
         if page.sel is None or capacity >= n:
             return page
+        if any(c.type.is_nested for c in page.columns):
+            # a row gather cannot re-flatten variable-length children on the
+            # device: the page keeps its selection mask instead
+            return page
         live = page.sel
         total = live.to(torch.int32).sum()
         self.errors.append((f"CAPACITY_EXCEEDED:{key}", total > capacity))
@@ -490,17 +507,80 @@ class Executor:
             cols.append(_col_from_lowered(e.type, self._lower(e, page)))
         return Page(cols, page.sel, live_prefix=page.live_prefix)
 
+    # --------------------------------------------------------------- unnest
+    def _exec_UnnestNode(self, node: P.UnnestNode) -> Page:
+        return self.unnest_page(node, self.execute(node.source))
+
+    def unnest_page(self, node: P.UnnestNode, page: Page) -> Page:
+        """UNNEST as one expansion of exact host shape: the output capacity
+        is the sum of the unnested values' flat child sizes (the exact row
+        count for one array, a bound when several zip). Each output slot's
+        parent row is one searchsorted over the output offsets; a
+        replicated channel is a gather at the parent row, an unnested one a
+        clamped gather of the flat child at ``offset[parent] + position``
+        (NULL past the end of a shorter zipped array)."""
+        from trino_tpu_torch.ops import array_ops as A
+
+        n = page.num_rows
+        lows = [self._lower(e, page) for e in node.unnest_exprs]
+        if any(lv.children is None for lv in lows):
+            raise NotImplementedError("UNNEST argument must be array/map-typed")
+        if any(page.columns[c].type.is_nested for c in node.replicate_channels):
+            raise NotImplementedError(
+                "replicating an array/map column through UNNEST "
+                "(project it before/after instead)")
+        raw_lens = [lv.vals.to(torch.int32) for lv in lows]
+        out_len = None
+        for lv, ln in zip(lows, raw_lens):
+            eff = ln if lv.valid is None else torch.where(lv.valid, ln, torch.zeros_like(ln))
+            out_len = eff if out_len is None else torch.maximum(out_len, eff)
+        if page.sel is not None:
+            out_len = torch.where(page.sel, out_len, torch.zeros_like(out_len))
+        out_offsets = A.offsets_from_lengths(out_len)
+        # a host shape, not a device read
+        capacity = max(1, sum(int(lv.children[0].vals.shape[0]) for lv in lows))
+        slot = torch.arange(capacity, dtype=torch.int32, device=self.device)
+        rowid = (torch.searchsorted(out_offsets, slot, right=True).to(torch.int32) - 1) \
+            .clamp(0, n - 1).long()
+        pos = slot - out_offsets[rowid]  # 0-based position in the parent row
+        sel = slot < out_offsets[-1]
+        cols: List[Column] = []
+        for ci in node.replicate_channels:
+            c = page.columns[ci]
+            hi = c.hi[rowid] if c.hi is not None else None
+            cols.append(Column(c.type, c.values[rowid],
+                               c.nulls[rowid] if c.nulls is not None else None,
+                               c.dictionary, c.vrange if hi is None else None, hi=hi))
+        child_types = iter(node.output_types[len(node.replicate_channels):])
+        for lv, raw_ln in zip(lows, raw_lens):
+            child_off = A.offsets_from_lengths(raw_ln)
+            in_range = pos < raw_ln[rowid]
+            if lv.valid is not None:
+                in_range = in_range & lv.valid[rowid]
+            for child in lv.children:
+                flat_n = int(child.vals.shape[0])
+                idx = (child_off[rowid] + pos).clamp(0, max(flat_n - 1, 0)).long()
+                valid = in_range
+                if child.valid is not None:
+                    valid = valid & A.nonempty(child.valid)[idx]
+                cols.append(Column(next(child_types), A.nonempty(child.vals)[idx], ~valid,
+                                   child.dictionary))
+        if node.ordinality:
+            cols.append(Column(T.BIGINT, (pos + 1).to(torch.int64)))
+        return Page(cols, sel)
+
     # ---------------------------------------------------------- aggregation
     def _exec_AggregationNode(self, node: P.AggregationNode) -> Page:
         if node.step != "single":
             raise NotImplementedError(f"{node.step} aggregation is not ported")
         return self.aggregate_page(node, self.execute(node.source))
 
-    def group_structure(self, group_channels: List[int], page: Page, payloads=()):
+    def group_structure(self, group_channels: List[int], page: Page, payloads=(),
+                        force_sort: bool = False):
         """(GroupLayout, out_sel, payloads_l, sel_l): direct-mapped for
-        small dictionary/boolean key products, a boundary compare for a
-        presorted single key, else the sort-based grouping. ``payloads``
-        and ``sel_l`` come back in layout space."""
+        small dictionary/boolean key products (unless ``force_sort``), a
+        boundary compare for a presorted single key, else the sort-based
+        grouping. ``payloads`` and ``sel_l`` come back in layout space."""
         n = page.num_rows
         keys = [kl for c in group_channels for kl in _key_lowereds(page.columns[c])]
         sel = page.sel
@@ -509,7 +589,7 @@ class Executor:
             layout = seg.direct_layout(gids, 1, sel)
             return layout, torch.ones((1,), dtype=torch.bool, device=self.device), \
                 list(payloads), sel
-        direct = self._direct_strides(group_channels, page)
+        direct = None if force_sort else self._direct_strides(group_channels, page)
         if direct is not None:
             strides, capacity = direct
             gids = torch.zeros((n,), dtype=torch.int32, device=self.device)
@@ -632,13 +712,24 @@ class Executor:
                         None, c.dictionary) for c in page.columns],
                 torch.zeros((1,), dtype=torch.bool, device=self.device))
         payload_arrays, slots = self._agg_payloads(node.aggregates, page.columns)
+        # the nested aggregates' outputs are the per-group row runs of the
+        # layout, and the direct layout never permutes: force the sort
+        force_sort = any(c.function in _NESTED_AGGREGATES for c in node.aggregates)
         layout, out_sel, payloads_l, sel_l = self.group_structure(
-            node.group_channels, page, payload_arrays)
+            node.group_channels, page, payload_arrays, force_sort=force_sort)
         out_cols: List[Column] = []
         if node.group_channels:
             out_cols.extend(self._gathered_key_cols(page, node.group_channels, layout))
         for call, slot in zip(node.aggregates, slots):
             s1, s2 = slot if slot is not None else (None, None)
+            if call.function in _NESTED_AGGREGATES:
+                if call.distinct:
+                    raise NotImplementedError(
+                        f"{call.function}(DISTINCT): not yet supported")
+                out_cols.append(self._nested_agg_column(
+                    call, page, layout, self._slot_arg(payloads_l, s1), sel_l,
+                    hi_l=self._slot_hi(payloads_l, s1)))
+                continue
             res = self._exec_aggregate(
                 call, page, layout, self._slot_arg(payloads_l, s1), sel_l,
                 hi_l=self._slot_hi(payloads_l, s1),
@@ -699,6 +790,62 @@ class Executor:
                 out.append(Column(src.type, v, None if valid is None else ~valid,
                                   src.dictionary, src.vrange))
         return out
+
+    def _nested_agg_column(self, call, page, layout, arg_l, sel_l, hi_l=None) -> Column:
+        """The aggregates with nested outputs. array_agg's array column is
+        the layout's group-contiguous row runs: its lengths are the group
+        ranges and its flat child the layout-space argument itself (NULL
+        inputs stay NULL elements). A sorted layout puts live rows first
+        from position 0, so the lengths' prefix sums are the group starts.
+        The global case (the direct single-slot layout) moves the live rows
+        to a prefix with one stable flag sort. histogram and map_agg go to
+        ``_map_agg_column``."""
+        if call.function in ("histogram", "map_agg"):
+            return self._map_agg_column(call, page, layout)
+        vals_l, valid_l = arg_l
+        src = page.columns[call.arg_channel]
+        if layout.is_direct:
+            assert layout.capacity == 1, "grouped array_agg must use a sorted layout"
+            flat, flat_valid, flat_hi = vals_l, valid_l, hi_l
+            if sel_l is None:
+                count = torch.full((1,), layout.n, dtype=torch.int32, device=self.device)
+            else:
+                order = ranks_ops.argsort32(~sel_l).long()
+                flat = vals_l[order]
+                flat_valid = valid_l[order] if valid_l is not None else None
+                flat_hi = hi_l[order] if hi_l is not None else None
+                count = sel_l.sum(dtype=torch.int32).reshape(1)
+            lengths = count
+        else:
+            lengths = (layout.ends - layout.starts).to(torch.int32)
+            flat, flat_valid, flat_hi = vals_l, valid_l, hi_l
+        child = Column(call.output_type.element, flat,
+                       None if flat_valid is None else ~flat_valid, src.dictionary,
+                       hi=flat_hi)
+        # an aggregate over no rows is NULL (an empty group arises only from
+        # an empty input)
+        return Column(call.output_type, lengths, lengths == 0, children=[child])
+
+    def _map_agg_column(self, call, page, layout) -> Column:
+        """histogram(x) / map_agg(k, v): each distinct (group, key) pair is
+        one entry (``grouped_pairs`` over the original row order; NULL keys
+        drop). histogram's values are the run counts, map_agg's the value at
+        the run's representative row."""
+        key_col = self._narrowed_or_flag(page.columns[call.arg_channel], page.sel)
+        entry_counts, rep, run_counts, _live = agg_ops.grouped_pairs(
+            layout, _col_to_lowered(key_col), page.sel)
+        rep = rep.long()
+        keys_flat = Column(call.output_type.key, key_col.values[rep], None, key_col.dictionary)
+        if call.function == "histogram":
+            vals_flat = Column(T.BIGINT, run_counts)
+        else:
+            vcol = page.columns[call.arg2_channel]
+            vals_flat = Column(call.output_type.value, vcol.values[rep],
+                               vcol.nulls[rep] if vcol.nulls is not None else None,
+                               vcol.dictionary, hi=vcol.hi[rep] if vcol.hi is not None else None)
+        # NULL for a group whose input is empty once NULL keys drop
+        return Column(call.output_type, entry_counts, entry_counts == 0,
+                      children=[keys_flat, vals_flat])
 
     def _exec_aggregate(self, call: P.AggregateCall, page, layout, arg_l, sel_l,
                         hi_l=None, arg2_l=None, hi2_l=None):
@@ -987,6 +1134,7 @@ class Executor:
     @staticmethod
     def _gather_right_cols(right_cols, rows, mask) -> List[Column]:
         """Build-side payload columns gathered at the matched row ids."""
+        _refuse_nested_payloads(right_cols)
         lows = [_col_to_lowered(rc) for rc in right_cols]
         hi_map = {}
         for i, rc in enumerate(right_cols):
@@ -1202,6 +1350,7 @@ class Executor:
             emit = torch.where(probe_live, counts.clamp(min=1), torch.zeros_like(counts))
         total = int(emit.to(torch.int64).sum().item())
         p, k, live, _ = join_ops.expand(emit, max(total, 1))
+        _refuse_nested_payloads(left.columns)
         g = ranks_ops.batched_gather([lo, counts] + _flat_arrays(left.columns), p)
         matched = live & (k < g[1])
         rows = build.rows[(g[0] + k).clamp(0, build.n - 1)]
@@ -1274,6 +1423,44 @@ class Executor:
             page = Page(out_cols, passed if page.sel is None else page.sel & passed)
         return page
 
+    # ----------------------------------------------------- pattern matching
+    def _exec_MatchRecognizeNode(self, node: P.MatchRecognizeNode) -> Page:
+        """MATCH_RECOGNIZE on the host (exec/match_recognize.py): the
+        backtracking matcher is sequential, and its input is
+        post-aggregation scale. Partitions run in the order of their keys'
+        text; rows within one follow the ORDER BY, NULLs last ascending."""
+        from trino_tpu_torch.exec.match_recognize import run_match_recognize
+
+        page = self.execute(node.source)
+        t0 = time.perf_counter()
+        names = node.input_names or node.source.output_names
+        # case-insensitive, as the analyzer resolves names
+        lnames = [n.lower() for n in names]
+        parts: Dict[tuple, List[dict]] = {}
+        part_names = [lnames[c] for c in node.partition_channels]
+        for r in page.to_pylist():
+            row = dict(zip(lnames, r))
+            parts.setdefault(tuple(row[n] for n in part_names), []).append(row)
+        sort_cols = [(lnames[c], asc) for c, asc, _n in node.sort_channels]
+
+        def order_key(row):
+            return tuple(_SortKey(row[n], asc) for n, asc in sort_cols)
+
+        out_rows: List[tuple] = []
+        for key in sorted(parts, key=lambda k: tuple(map(repr, k))):
+            for mvals in run_match_recognize(
+                    parts[key], order_key, list(node.pattern), list(node.defines),
+                    list(node.measures), node.after_match):
+                out_rows.append(key + mvals)
+        if not out_rows:
+            out = Page.all_dead(node.output_types, self.device)
+        else:
+            out = Page([column_to_device(column_data_from_python(t, [r[i] for r in out_rows]),
+                                         self.device)
+                        for i, t in enumerate(node.output_types)])
+        M.NESTED_HOST_SECONDS.inc(time.perf_counter() - t0)
+        return out
+
     # ------------------------------------------------------------- ordering
     def _exec_SortNode(self, node: P.SortNode) -> Page:
         return self.sorted_page(self.execute(node.source), node.sort_channels)
@@ -1281,7 +1468,12 @@ class Executor:
     def sorted_page(self, page: Page, sort_channels, limit: Optional[int] = None) -> Page:
         """Rows in sort order (dead rows last); sel becomes a prefix mask of
         the live (and limit-capped) rows. Every array rides the one sort
-        permutation."""
+        permutation; a page with a nested column sorts on the host."""
+        if any(c.type.is_nested for c in page.columns):
+            t0 = time.perf_counter()
+            out = self._sorted_page_host(page, sort_channels, limit)
+            M.NESTED_HOST_SECONDS.inc(time.perf_counter() - t0)
+            return out
         n = page.num_rows
         keys = [(kl, asc, nf) for c, asc, nf in sort_channels
                 for kl in _key_lowereds(page.columns[c])]
@@ -1293,6 +1485,34 @@ class Executor:
         sel = torch.arange(n, device=self.device) < live
         return Page(_cols_from_flat(page.columns, sorted_arrays), sel)
 
+    @staticmethod
+    def _sorted_page_host(page: Page, sort_channels, limit=None) -> Page:
+        """ORDER BY on the host for a page with nested columns: compact,
+        one stable lexsort with SQL NULL placement, then ``host_take`` of
+        the permutation, which re-flattens the children."""
+        compacted = page.compact()
+        lex_keys = []  # least significant first, for np.lexsort
+        for c, asc, nf in reversed(list(sort_channels)):
+            col = compacted.columns[c]
+            if col.type.is_nested:
+                raise NotImplementedError("ORDER BY an array/map column")
+            v = to_numpy(col.values)
+            if v.dtype == np.bool_:
+                v = v.astype(np.int8)
+            if not asc:
+                v = -v if np.issubdtype(v.dtype, np.floating) else ~v
+            nulls_first = (not asc) if nf is None else nf
+            if col.nulls is not None:
+                isnull = to_numpy(col.nulls)
+                lex_keys.append(np.where(isnull, np.zeros((), v.dtype), v))
+                lex_keys.append((~isnull if nulls_first else isnull).astype(np.int8))
+            else:
+                lex_keys.append(v)
+        order = np.lexsort(lex_keys) if lex_keys else np.arange(compacted.num_rows)
+        if limit is not None:
+            order = order[:limit]
+        return Page([host_take(c, order) for c in compacted.columns], None)
+
     def _exec_TopNNode(self, node: P.TopNNode) -> Page:
         return self.sorted_page(self.execute(node.source), node.sort_channels,
                                 limit=node.count)
@@ -1302,6 +1522,36 @@ class Executor:
 
     def _exec_OutputNode(self, node: P.OutputNode) -> Page:
         return self.execute(node.source)
+
+
+def _refuse_nested_payloads(cols: List[Column]) -> None:
+    """Join payloads are flat: a nested column is refused, as in the
+    reference."""
+    if any(c.type.is_nested for c in cols):
+        raise NotImplementedError("array/map columns through join payloads")
+
+
+class _SortKey:
+    """A total-order sort key with SQL NULL placement (last ascending,
+    first descending)."""
+
+    __slots__ = ("v", "asc")
+
+    def __init__(self, v, asc):
+        self.v, self.asc = v, asc
+
+    def __lt__(self, other):
+        a, b = self.v, other.v
+        if a is None or b is None:
+            if a is None and b is None:
+                return False
+            return (a is None) != self.asc  # None last when ascending
+        return (a < b) if self.asc else (b < a)
+
+    def __eq__(self, other):
+        # value equality: a tuple compares a later key only when the
+        # earlier ones are equal
+        return self.v == other.v
 
 
 @dataclasses.dataclass

@@ -21,16 +21,22 @@ def _tensor_bytes(t) -> int:
     return int(t.numel()) * t.element_size()
 
 
+def _column_bytes(c) -> int:
+    total = _tensor_bytes(c.values)
+    if c.nulls is not None:
+        total += _tensor_bytes(c.nulls)
+    if c.hi is not None:
+        total += _tensor_bytes(c.hi)
+    for k in c.children or ():
+        total += _column_bytes(k)
+    return total
+
+
 def page_bytes(page) -> int:
-    """Exact device bytes of a Page: every column's values, nulls and high
-    limb, and the selection mask."""
-    total = 0
-    for c in page.columns:
-        total += _tensor_bytes(c.values)
-        if c.nulls is not None:
-            total += _tensor_bytes(c.nulls)
-        if c.hi is not None:
-            total += _tensor_bytes(c.hi)
+    """Exact device bytes of a Page: every column's values, nulls, high
+    limb and nested children, and the selection mask. (The reference counts
+    neither children nor high limbs.)"""
+    total = sum(_column_bytes(c) for c in page.columns)
     if page.sel is not None:
         total += _tensor_bytes(page.sel)
     return total
@@ -141,16 +147,19 @@ def partition_page_host(page, key_channels, parts: int):
 
 
 def _pad_like(page):
-    """1-row all-dead page with the same column dtypes and dictionaries."""
+    """1-row all-dead page with the same column dtypes and dictionaries (a
+    nested column's children empty, a row's fields one row)."""
     import torch
 
     from trino_tpu_torch.data.page import Column, Page
 
     device = page.columns[0].values.device
-    cols = [
-        Column(c.type, torch.zeros((1,) + tuple(c.values.shape[1:]), dtype=c.values.dtype,
-                                   device=device),
-               None, c.dictionary, c.vrange)
-        for c in page.columns
-    ]
-    return Page(cols, torch.zeros((1,), dtype=torch.bool, device=device))
+
+    def pad(c, nrows):
+        kids = ([pad(k, nrows if c.type.is_row else 0) for k in c.children]
+                if c.children is not None else None)
+        return Column(c.type, torch.zeros((nrows,), dtype=c.values.dtype, device=device),
+                      None, c.dictionary, c.vrange, children=kids)
+
+    return Page([pad(c, 1) for c in page.columns],
+                torch.zeros((1,), dtype=torch.bool, device=device))

@@ -303,17 +303,18 @@ def stage_splits(session, node, conn, splits, constraint,
 def split_columns(column_names, column_types, datas):
     """Each scanned column as its per-split parts on one merged dictionary
     (``spi.column_parts``: only splits with another vocabulary are
-    recoded), never joined on the host; None when no row is left."""
-    from trino_tpu_torch.connector.spi import column_parts
+    recoded), never joined on the host; None when no row is left. A nested
+    column takes the single-shot path, as in the reference: its parts are
+    joined on the host into one ``ColumnData`` (children recurse)."""
+    from trino_tpu_torch.connector.spi import column_parts, concat_column_data
 
     if not datas:
         return None
     cols = []
     for name, typ in zip(column_names, column_types):
-        if typ.is_nested:
-            raise NotImplementedError(f"scanning a {typ} column")
-        cols.append(column_parts([d[name] for d in datas]))
-    if cols and sum(len(v) for v in cols[0].values) == 0:
+        parts = [d[name] for d in datas]
+        cols.append(concat_column_data(parts) if typ.is_nested else column_parts(parts))
+    if column_names and sum(len(d[column_names[0]].values) for d in datas) == 0:
         return None
     return cols
 
@@ -481,7 +482,16 @@ def page_from_split_columns(column_types, cols, transfer, device):
 
     if cols is None:
         return Page.all_dead(column_types, device)
-    return Page([Column(
+
+    def nested(cd):
+        return Column(cd.type, transfer(cd.values),
+                      transfer(cd.nulls) if cd.nulls is not None else None,
+                      cd.dictionary, cd.vrange,
+                      hi=transfer(cd.hi) if cd.hi is not None else None,
+                      children=[nested(k) for k in cd.children]
+                      if cd.children is not None else None)
+
+    return Page([nested(c) if typ.is_nested else Column(
         typ,
         transfer(c.values, device_dtype(c)),
         transfer(c.nulls) if c.nulls is not None else None,

@@ -74,3 +74,7 @@ HOST_CACHE_BYTES = Gauge("host_cache_bytes")
 # of days (ops/expr_lower.py): string work run once a distinct value on the
 # host, before one gather by code on the device
 SCALAR_HOST_SECONDS = Counter("scalar_host_seconds_total")
+# host seconds of the nested slice's host passes (exec/executor.py): the
+# MATCH_RECOGNIZE matcher with its row conversions, and the ORDER BY of a
+# page holding nested columns
+NESTED_HOST_SECONDS = Counter("nested_host_seconds_total")

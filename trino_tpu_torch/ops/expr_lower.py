@@ -15,15 +15,21 @@ functions, ``greatest``/``least``, the float classes), bitwise on int64
 patterns, ``coalesce``/``nullif``, date and timestamp (every ``extract``
 field, ``date_trunc``, the differences, ``date_format``/``date_parse``,
 the day and month names), the strings, the JSON scalars, varbinary
-(hex, utf8, md5, sha256) and ``random``/``now``/``current_date``.
+(hex, utf8, md5, sha256) and ``random``/``now``/``current_date``; and
+the nested types: the array, map and row constructors, field access,
+subscripts and ``element_at``, ``cardinality``, ``contains``,
+``array_position``, ``array_min``/``max``/``sum``, ``map_keys``/``values``,
+array equality and the lambdas (``transform``, ``any``/``all``/``none_match``),
+over ``ops/array_ops.py``.
 
 String work is dictionary-first: a function runs on the host once for each
 distinct value of the vocabulary (or once a day of a bounded table of
-days), and each row is one gather by code on the device. The nested types
-(arrays, maps, rows, lambdas) are not ported; they and any other unported
-expression raise NotImplementedError naming themselves.
+days), and each row is one gather by code on the device. An expression
+the reference does not lower raises NotImplementedError naming itself.
 
-A lowered value is ``LoweredVal(vals, valid, dictionary, bound, hi)``;
+A lowered value is ``LoweredVal(vals, valid, dictionary, bound, hi,
+children)``; a nested value holds per-row lengths in ``vals`` and the
+flattened element values in ``children``, as ``Column`` does;
 ``valid`` is a bool tensor or None (all valid). Data-dependent errors
 (division by zero, overflow, an invalid function argument) are collected as
 flags on the context and raised after execution, as in the reference.
@@ -46,6 +52,7 @@ from trino_tpu_torch import types as T
 from trino_tpu_torch.data.dictionary import NULL_CODE, Dictionary
 from trino_tpu_torch.data.page import Column, to_device, torch_dtype
 from trino_tpu_torch.obs import metrics as M
+from trino_tpu_torch.ops import array_ops as A
 from trino_tpu_torch.ops import datetime_ops as dt
 from trino_tpu_torch.sql import ir
 
@@ -65,6 +72,9 @@ class LoweredVal:
     # skip the int128 path when every intermediate provably fits int64
     bound: Optional[int] = None
     hi: Optional[torch.Tensor] = None  # long-decimal high limb
+    # nested values: the flattened children (array: [elements], map:
+    # [keys, values], row: the fields), as data/page.py Column.children
+    children: Optional[List["LoweredVal"]] = None
 
 
 class LowerCtx:
@@ -100,13 +110,18 @@ def and_valid(a: Optional[torch.Tensor], b: Optional[torch.Tensor]) -> Optional[
 def lower(expr: ir.Expr, ctx: LowerCtx) -> LoweredVal:
     if isinstance(expr, ir.ColumnRef):
         col = ctx.columns[expr.index]
-        if col.type.is_nested:
-            raise NotImplementedError(f"lowering a {col.type} column")
         valid = None if col.nulls is None else ~col.nulls
         bound = None
         if col.vrange is not None and not col.values.dtype.is_floating_point:
             bound = max(abs(int(col.vrange[0])), abs(int(col.vrange[1])))
-        return LoweredVal(col.values, valid, col.dictionary, bound, hi=col.hi)
+        children = None
+        if col.children is not None:
+            # one level, as the reference: a child's own children and high
+            # limb are not carried
+            children = [LoweredVal(k.values, None if k.nulls is None else ~k.nulls,
+                                   k.dictionary) for k in col.children]
+        return LoweredVal(col.values, valid, col.dictionary, bound, hi=col.hi,
+                          children=children)
     if isinstance(expr, ir.Constant):
         return _lower_constant(expr, ctx)
     if isinstance(expr, ir.Case):
@@ -132,17 +147,43 @@ def _all_null(ctx: LowerCtx) -> torch.Tensor:
 
 def _lower_constant(expr: ir.Constant, ctx: LowerCtx) -> LoweredVal:
     t = expr.type
-    if t.is_nested:
-        raise NotImplementedError(f"{t} constant")
     if expr.value is None:
         dtype = t.np_dtype if t.np_dtype is not None else np.dtype(np.int32)
-        return LoweredVal(_const_array(ctx, dtype, 0), _all_null(ctx), None)
+        children = None
+        if t.is_nested:
+            children = [
+                LoweredVal(torch.zeros((0,), dtype=torch_dtype(ct.np_dtype or np.int64),
+                                       device=ctx.device),
+                           None, Dictionary([]) if ct.is_varchar else None)
+                for ct in T.type_children(t)]
+        return LoweredVal(_const_array(ctx, dtype, 0), _all_null(ctx), None,
+                          children=children)
     if t.is_varchar:
         return LoweredVal(_const_array(ctx, np.int32, 0), None, Dictionary([expr.value]))
     bound = None
     if not (t.is_floating or t == T.BOOLEAN):
         bound = abs(int(expr.value))
     return LoweredVal(_const_array(ctx, t.np_dtype, expr.value), None, None, bound)
+
+
+def _typed_null_nested(ctx: LowerCtx, tt: T.Type) -> LoweredVal:
+    """A typed NULL of a nested type: every row NULL; a row's fields have
+    its rows, an array's or map's children are empty."""
+    def null_child(ct: T.Type, n: int) -> LoweredVal:
+        kids = ([null_child(k, n if isinstance(ct, T.RowType) else 0)
+                 for k in T.type_children(ct)] if ct.is_nested else None)
+        if ct.is_varchar:
+            vals = torch.full((n,), NULL_CODE, dtype=torch.int32, device=ctx.device)
+        else:
+            vals = torch.zeros((n,), dtype=torch_dtype(ct.np_dtype or np.int32),
+                               device=ctx.device)
+        return LoweredVal(vals, torch.zeros((n,), dtype=torch.bool, device=ctx.device),
+                          Dictionary([]) if ct.is_varchar else None, children=kids)
+
+    n = ctx.num_rows
+    flat_n = n if isinstance(tt, T.RowType) else 0
+    return LoweredVal(_const_array(ctx, tt.np_dtype or np.dtype(np.int32), 0), _all_null(ctx),
+                      None, children=[null_child(k, flat_n) for k in T.type_children(tt)])
 
 
 def _lower_cast(expr: ir.Cast, ctx: LowerCtx) -> LoweredVal:
@@ -153,7 +194,9 @@ def _lower_cast(expr: ir.Cast, ctx: LowerCtx) -> LoweredVal:
     ft, tt = expr.value.type, expr.type
     if ft == tt:
         return a
-    if ft == T.UNKNOWN and not tt.is_nested:
+    if ft == T.UNKNOWN and tt.is_nested:
+        return _typed_null_nested(ctx, tt)
+    if ft == T.UNKNOWN:
         # typed NULL: every row invalid, representation per target type
         dtype = tt.np_dtype if tt.np_dtype is not None else np.dtype(np.int32)
         return LoweredVal(_const_array(ctx, dtype, 0), _all_null(ctx),
@@ -269,7 +312,12 @@ def _to_float128(lv: LoweredVal, t: T.Type) -> torch.Tensor:
 
 def _compare(ctx: LowerCtx, op: Callable, a: LoweredVal, at: T.Type,
              b: LoweredVal, bt: T.Type) -> LoweredVal:
-    """``op`` over two lowered operands of SQL types ``at`` and ``bt``."""
+    """``op`` over two lowered operands of SQL types ``at`` and ``bt``. Two
+    arrays compare for equality whatever ``op`` (negated for ``ne``), as in
+    the reference; the analyzer refuses their ordering comparisons."""
+    if at.is_array and bt.is_array:
+        out = _array_equal(a, b, ctx.device)
+        return LoweredVal(~out.vals, out.valid) if op is operator.ne else out
     if a.hi is not None or b.hi is not None:
         # two-limb operand(s): compare as int128 at the common scale
         from trino_tpu_torch.ops import int128 as i128
@@ -284,7 +332,7 @@ def _compare(ctx: LowerCtx, op: Callable, a: LoweredVal, at: T.Type,
         return LoweredVal(op(cmp, torch.zeros_like(cmp)), and_valid(a.valid, b.valid))
     if at.is_varchar and bt.is_varchar:
         av, bv = _align_varchar(a, b, ctx.device)
-    elif at.is_nested or bt.is_nested or at.is_varchar or bt.is_varchar:
+    elif at.is_varchar or bt.is_varchar:
         raise NotImplementedError(f"comparing {at} with {bt}")
     else:
         av, bv = _numeric_align(a.vals, at, b.vals, bt)
@@ -1281,7 +1329,8 @@ def _unify_branch_dicts(branches, device):
         if v is None or v.dictionary is None or v.dictionary.values == merged.values:
             return v
         tbl = v.dictionary.recode_table(merged)
-        return LoweredVal(_code_lut(v, tbl, NULL_CODE, device), v.valid, merged, hi=v.hi)
+        return LoweredVal(_code_lut(v, tbl, NULL_CODE, device), v.valid, merged, hi=v.hi,
+                          children=v.children)
 
     return [recode(v) for v in branches], merged
 
@@ -1602,6 +1651,339 @@ def _lower_current_date(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
     return LoweredVal(_const_array(ctx, np.int32, days), None, None, days)
 
 
+# ------------------------------------------------------------ nested types
+# arrays, maps and rows (ops/array_ops.py); reference: the array/map section
+# of trino_tpu/ops/expr_lower.py
+
+
+def _array_equal(a: LoweredVal, b: LoweredVal, device) -> LoweredVal:
+    """SQL array equality: a length mismatch is false; so is any definite
+    element mismatch; else NULL if a compared pair holds a NULL; else true.
+    Runs over the left flat layout with clamped gathers into the right's."""
+    a_len = a.vals.to(torch.int32)
+    b_len = b.vals.to(torch.int32)
+    a_off = A.offsets_from_lengths(a_len)
+    b_off = A.offsets_from_lengths(b_len)
+    ae, be = a.children[0], b.children[0]
+    av, bv = ae.vals, be.vals
+    if ae.dictionary is not None and be.dictionary is not None:
+        av, bv = _align_varchar(LoweredVal(av, None, ae.dictionary),
+                                LoweredVal(bv, None, be.dictionary), device)
+    flat_n = int(av.shape[0])
+    lens_eq = a_len == b_len
+    if flat_n == 0:
+        return LoweredVal(lens_eq, and_valid(a.valid, b.valid))
+    rowid = A.rowid_of_flat(a_off, flat_n).long()
+    row = _row_index(rowid, a_len)
+    pos = torch.arange(flat_n, dtype=torch.int32, device=av.device) - a_off[rowid]
+    active = (pos < a_len[row]) & lens_eq[row]
+    bn = max(int(bv.shape[0]), 1)
+    b_idx = (b_off[rowid] + pos).clamp(0, bn - 1).long()
+    b_at = A.nonempty(bv)[b_idx]
+    ones = torch.ones((flat_n,), dtype=torch.bool, device=av.device)
+    a_ok = ae.valid if ae.valid is not None else ones
+    b_ok = A.nonempty(be.valid)[b_idx] if be.valid is not None else ones
+    if av.dtype != b_at.dtype:
+        dt_ = torch.promote_types(av.dtype, b_at.dtype)
+        av, b_at = av.to(dt_), b_at.to(dt_)
+    mismatch = active & a_ok & b_ok & (av != b_at)
+    nullpair = active & (~a_ok | ~b_ok)
+    any_mismatch = A.count_in_ranges(a_off, mismatch) > 0
+    any_nullpair = A.count_in_ranges(a_off, nullpair) > 0
+    vals = lens_eq & ~any_mismatch
+    indeterminate = vals & any_nullpair
+    return LoweredVal(vals, and_valid(and_valid(a.valid, b.valid), ~indeterminate))
+
+
+def _row_index(rowid: torch.Tensor, per_row: torch.Tensor) -> torch.Tensor:
+    """``rowid`` clamped to the rows of ``per_row``: flat elements past the
+    last row's range (a map aggregate's dead entries) read the last row, as
+    JAX's clamping gather does; offsets, one longer, take ``rowid`` as it
+    is."""
+    return rowid.clamp(max=max(int(per_row.shape[0]) - 1, 0))
+
+
+def _lower_row_ctor(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """ROW(a, b, ...): one child per field, with the parent's rows. The
+    row itself is never NULL; field NULLs live in the children."""
+    items = [lower(a, ctx) for a in expr.args]
+    return LoweredVal(torch.zeros((ctx.num_rows,), dtype=torch.int8, device=ctx.device),
+                      None, None, children=items)
+
+
+def _lower_row_field(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """row[i] (a 1-based constant ordinal); a NULL row makes the field
+    NULL."""
+    base = lower(expr.args[0], ctx)
+    idx_e = expr.args[1]
+    assert isinstance(idx_e, ir.Constant)
+    field = base.children[int(idx_e.value) - 1]
+    return LoweredVal(field.vals, and_valid(base.valid, field.valid), field.dictionary,
+                      children=field.children, hi=field.hi)
+
+
+def _recode_onto(x: LoweredVal, target: Optional[Dictionary], device) -> torch.Tensor:
+    """``x``'s codes in ``target``'s code space (a varchar probe against a
+    flat child's dictionary); other values unchanged."""
+    if x.dictionary is None or target is None or x.dictionary.values == target.values:
+        return x.vals
+    return _code_lut(x, x.dictionary.recode_table(target), NULL_CODE, device)
+
+
+def _lower_array_ctor(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """ARRAY[e1, ..., ek]: every row holds k elements, flattened row-major;
+    varchar items go onto one merged dictionary and the element dtype is
+    the items' promoted dtype."""
+    k = len(expr.args)
+    n = ctx.num_rows
+    lengths = torch.full((n,), k, dtype=torch.int32, device=ctx.device)
+    if k == 0:
+        elem = LoweredVal(torch.zeros((0,), dtype=torch.int64, device=ctx.device), None, None)
+        return LoweredVal(lengths, None, children=[elem])
+    items = [lower(a, ctx) for a in expr.args]
+    if any(it.children is not None for it in items):
+        raise NotImplementedError("nested array constructors not supported")
+    d = None
+    present = [it.dictionary for it in items if it.dictionary is not None]
+    if present:
+        # a NULL literal lowers without a dictionary: it adds no vocabulary
+        # and its codes become NULL_CODE
+        d = present[0]
+        for dc in present[1:]:
+            if dc.values != d.values:
+                d = d.merge(dc)
+
+        def recoded(it):
+            if it.dictionary is not None and it.dictionary.values == d.values:
+                return it
+            table = (it.dictionary.recode_table(d) if it.dictionary is not None
+                     else np.array([NULL_CODE], np.int32))
+            codes = _code_lut(it, table, NULL_CODE, ctx.device)
+            if it.valid is not None:
+                codes = torch.where(it.valid, codes, torch.full_like(codes, NULL_CODE))
+            return LoweredVal(codes, it.valid, d)
+
+        items = [recoded(it) for it in items]
+    element = getattr(expr.type, "element", None)
+    if d is None and element is not None and element.is_varchar:
+        d = Dictionary([])  # an all-NULL varchar array literal
+    dt_ = items[0].vals.dtype
+    for it in items[1:]:
+        dt_ = torch.promote_types(dt_, it.vals.dtype)
+    flat = torch.stack([it.vals.to(dt_) for it in items], dim=1).reshape(-1)
+    fvalid = None
+    if any(it.valid is not None for it in items):
+        ones = torch.ones((n,), dtype=torch.bool, device=ctx.device)
+        fvalid = torch.stack([it.valid if it.valid is not None else ones for it in items],
+                             dim=1).reshape(-1)
+    return LoweredVal(lengths, None, children=[LoweredVal(flat, fvalid, d)])
+
+
+def _nested_parts(a: LoweredVal):
+    """(lengths, offsets) of a nested value. The raw lengths describe the
+    flat layout even under NULL rows."""
+    lens = a.vals.to(torch.int32)
+    return lens, A.offsets_from_lengths(lens)
+
+
+def _lower_cardinality(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    a = lower(expr.args[0], ctx)
+    return LoweredVal(a.vals.to(torch.int64), a.valid, None)
+
+
+def _lower_subscript(strict: bool, is_map: bool):
+    """a[i] / element_at(a, i) over arrays (1-based, negative from the end)
+    and maps (the first entry whose key equals). The strict forms raise
+    INVALID_FUNCTION_ARGUMENT for a live row out of bounds or without the
+    key; element_at gives NULL."""
+    def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+        a = lower(expr.args[0], ctx)
+        key = lower(expr.args[1], ctx)
+        lens, offsets = _nested_parts(a)
+        if is_map:
+            kflat, vflat = a.children
+            flat_n = int(kflat.vals.shape[0])
+            rowid = A.rowid_of_flat(offsets, flat_n).long()
+            kv = _recode_onto(key, kflat.dictionary, ctx.device)
+            match = kflat.vals == kv[_row_index(rowid, kv)]
+            idx1 = A.first_match_index(offsets, match)
+            found = idx1 > 0
+            vals, _ = A.gather_at(offsets, lens, vflat.vals, idx1)
+            evalid = None
+            if vflat.valid is not None:
+                evalid, _ = A.gather_at(offsets, lens, vflat.valid, idx1)
+            missing, dictionary = ~found, vflat.dictionary
+            valid = and_valid(and_valid(a.valid, key.valid), and_valid(found, evalid))
+        else:
+            eflat = a.children[0]
+            vals, in_bounds = A.gather_at(offsets, lens, eflat.vals, key.vals)
+            evalid = None
+            if eflat.valid is not None:
+                evalid, _ = A.gather_at(offsets, lens, eflat.valid, key.vals)
+            missing, dictionary = ~in_bounds, eflat.dictionary
+            valid = and_valid(and_valid(a.valid, key.valid), and_valid(in_bounds, evalid))
+        if strict:
+            ones = torch.ones_like(missing)
+            base_ok = a.valid if a.valid is not None else ones
+            kok = key.valid if key.valid is not None else ones
+            ctx.add_error(INVALID_FUNCTION_ARGUMENT, missing & base_ok & kok, None)
+        return LoweredVal(vals, valid, dictionary)
+
+    return fn
+
+
+def _flat_match(ctx: LowerCtx, expr: ir.Call):
+    """(array value, probe, offsets, flat element matches) of
+    contains/array_position: each element compared with its row's probe;
+    a NULL element never matches."""
+    a = lower(expr.args[0], ctx)
+    x = lower(expr.args[1], ctx)
+    _lens, offsets = _nested_parts(a)
+    eflat = a.children[0]
+    rowid = A.rowid_of_flat(offsets, int(eflat.vals.shape[0])).long()
+    xv = _recode_onto(x, eflat.dictionary, ctx.device)
+    match = eflat.vals == xv[_row_index(rowid, xv)]
+    if eflat.valid is not None:
+        match = match & eflat.valid
+    return a, x, offsets, match
+
+
+def _lower_contains(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """contains(a, x): true if found; else NULL if the array holds a NULL
+    element; else false."""
+    a, x, offsets, match = _flat_match(ctx, expr)
+    found = A.count_in_ranges(offsets, match) > 0
+    evalid = a.children[0].valid
+    valid = and_valid(a.valid, x.valid)
+    if evalid is not None:
+        has_null_elem = A.count_in_ranges(offsets, ~evalid) > 0
+        valid = and_valid(valid, found | ~has_null_elem)
+    return LoweredVal(found, valid, None)
+
+
+def _lower_array_position(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    a, x, offsets, match = _flat_match(ctx, expr)
+    idx1 = A.first_match_index(offsets, match)
+    return LoweredVal(idx1.to(torch.int64), and_valid(a.valid, x.valid), None)
+
+
+def _lower_array_reduce(kind: str):
+    """array_sum (NULL elements skipped, NULL for an empty array) and
+    array_min/array_max (a segment min/max over the flat child, NULL when
+    no element is valid)."""
+    def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+        a = lower(expr.args[0], ctx)
+        lens, offsets = _nested_parts(a)
+        eflat = a.children[0]
+        empty = lens == 0
+        x = eflat.vals
+        if kind == "sum":
+            if eflat.valid is not None:
+                x = torch.where(eflat.valid, x, torch.zeros_like(x))
+            return LoweredVal(A.segment_reduce_by_range(offsets, x),
+                              and_valid(a.valid, ~empty), None)
+        flat_n = int(x.shape[0])
+        n = ctx.num_rows
+        if x.dtype.is_floating_point:
+            sentinel = float("inf") if kind == "min" else float("-inf")
+        else:
+            info = torch.iinfo(x.dtype)
+            sentinel = info.max if kind == "min" else info.min
+        if eflat.valid is not None:
+            x = torch.where(eflat.valid, x, torch.full_like(x, sentinel))
+        out = torch.full((n,), sentinel, dtype=x.dtype, device=x.device)
+        if flat_n:
+            rowid = A.rowid_of_flat(offsets, flat_n).long()
+            # elements past the last row's range drop, as a segment
+            # reduction drops out-of-range segment ids
+            x = torch.where(rowid < n, x, torch.full_like(x, sentinel))
+            out.scatter_reduce_(0, rowid.clamp(max=n - 1), x,
+                                "amin" if kind == "min" else "amax")
+        has_valid = (A.count_in_ranges(offsets, eflat.valid) > 0
+                     if eflat.valid is not None else ~empty)
+        return LoweredVal(out, and_valid(a.valid, has_valid), eflat.dictionary)
+
+    return fn
+
+
+def _lower_map_part(which: int):
+    """map_keys (0) / map_values (1): the map's lengths over one child."""
+    def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+        a = lower(expr.args[0], ctx)
+        return LoweredVal(a.vals.to(torch.int32), a.valid, children=[a.children[which]])
+
+    return fn
+
+
+def _lower_lambda_over_flat(ctx: LowerCtx, arr: LoweredVal, lam: "ir.Lambda",
+                            elem_type) -> LoweredVal:
+    """A lambda body over an array's flattened child: the element column is
+    channel 0 of a fresh context whose row space is the flat space (with
+    the outer context's device and generator), one pass over every element
+    of every row. An empty child lowers over one dummy row, cut after."""
+    child = arr.children[0]
+    flat_n = int(child.vals.shape[0])
+    elem_col = Column(
+        elem_type,
+        A.nonempty(child.vals),
+        None if child.valid is None else (
+            ~child.valid if flat_n else torch.zeros((1,), dtype=torch.bool,
+                                                     device=child.vals.device)),
+        child.dictionary,
+    )
+    inner = LowerCtx([elem_col], max(flat_n, 1), None, ctx.device, ctx.generator)
+    out = lower(lam.body, inner)
+    ctx.errors.extend(inner.errors)
+    if flat_n == 0:
+        out = LoweredVal(out.vals[:0], None if out.valid is None else out.valid[:0],
+                         out.dictionary)
+    return out
+
+
+def _lower_transform(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    arr = lower(expr.args[0], ctx)
+    out = _lower_lambda_over_flat(ctx, arr, expr.args[1], expr.args[0].type.element)
+    return LoweredVal(arr.vals.to(torch.int32), arr.valid,
+                      children=[LoweredVal(out.vals, out.valid, out.dictionary)])
+
+
+def _lower_match(kind: str):
+    """any_match / all_match / none_match, three-valued: any is true if an
+    element is true, NULL if none is true but one is unknown; all is false
+    if an element is false, NULL if the rest hold an unknown; none is not
+    any. An empty array gives false for any and true for all and none."""
+    def fn(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+        arr = lower(expr.args[0], ctx)
+        out = _lower_lambda_over_flat(ctx, arr, expr.args[1], expr.args[0].type.element)
+        _lens, offsets = _nested_parts(arr)
+        known = out.valid
+        n_unknown = A.count_in_ranges(offsets, ~known) if known is not None else None
+        if kind in ("any", "none"):
+            flat_true = out.vals if known is None else out.vals & known
+            hit = A.count_in_ranges(offsets, flat_true) > 0
+            valid = arr.valid if n_unknown is None else and_valid(
+                arr.valid, hit | (n_unknown == 0))
+            return LoweredVal(hit if kind == "any" else ~hit, valid, None)
+        flat_false = ~out.vals if known is None else ~out.vals & known
+        any_false = A.count_in_ranges(offsets, flat_false) > 0
+        valid = arr.valid if n_unknown is None else and_valid(
+            arr.valid, any_false | (n_unknown == 0))
+        return LoweredVal(~any_false, valid, None)
+
+    return fn
+
+
+def _lower_map_ctor(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """map(keys, values): key and value arrays of unequal length raise
+    INVALID_FUNCTION_ARGUMENT."""
+    ka = lower(expr.args[0], ctx)
+    va = lower(expr.args[1], ctx)
+    mismatch = ka.vals.to(torch.int32) != va.vals.to(torch.int32)
+    ctx.add_error(INVALID_FUNCTION_ARGUMENT, mismatch, and_valid(ka.valid, va.valid))
+    return LoweredVal(ka.vals.to(torch.int32), and_valid(ka.valid, va.valid),
+                      children=[ka.children[0], va.children[0]])
+
+
 FUNCTIONS: Dict[str, Callable[..., LoweredVal]] = {
     "random": _lower_random,
     "now": _lower_now,
@@ -1720,4 +2102,24 @@ FUNCTIONS: Dict[str, Callable[..., LoweredVal]] = {
     "is_nan": _lower_float_class("nan"),
     "is_finite": _lower_float_class("finite"),
     "is_infinite": _lower_float_class("inf"),
+    "row_ctor": _lower_row_ctor,
+    "row_field": _lower_row_field,
+    "array_ctor": _lower_array_ctor,
+    "cardinality": _lower_cardinality,
+    "subscript": _lower_subscript(strict=True, is_map=False),
+    "element_at": _lower_subscript(strict=False, is_map=False),
+    "map_subscript": _lower_subscript(strict=True, is_map=True),
+    "map_element_at": _lower_subscript(strict=False, is_map=True),
+    "contains": _lower_contains,
+    "array_position": _lower_array_position,
+    "array_min": _lower_array_reduce("min"),
+    "array_max": _lower_array_reduce("max"),
+    "array_sum": _lower_array_reduce("sum"),
+    "map_keys": _lower_map_part(0),
+    "map_values": _lower_map_part(1),
+    "map_ctor": _lower_map_ctor,
+    "transform": _lower_transform,
+    "any_match": _lower_match("any"),
+    "all_match": _lower_match("all"),
+    "none_match": _lower_match("none"),
 }

@@ -294,7 +294,57 @@ class Planner:
         but are TYPE-checked here by stripping pattern navigation
         (PREV/FIRST/... -> argument, var-qualifiers -> bare columns) and
         analyzing against the input scope — typos fail at plan time."""
-        raise NotImplementedError("MATCH_RECOGNIZE is not ported")
+        from trino_tpu_torch.sql.routines import _rewrite_node
+
+        inner = self.plan_relation(rel.input, outer_scope, ctes)
+        analyzer = ExprAnalyzer(inner.scope)
+
+        def channel(e: ast.Expression, what: str) -> int:
+            out = analyzer.analyze(e)
+            if not isinstance(out, ir.ColumnRef):
+                raise PlanningError(
+                    f"MATCH_RECOGNIZE {what} must be an input column")
+            return out.index
+
+        part = [channel(e, "PARTITION BY") for e in rel.partition_by]
+        order = [(channel(e, "ORDER BY"), asc, None)
+                 for e, asc in rel.order_by]
+        pattern_vars = {v for v, _ in rel.pattern}
+        for v, _ in rel.defines:
+            if v not in pattern_vars:
+                raise PlanningError(f"DEFINE {v} not in PATTERN")
+
+        def strip(e: ast.Expression) -> ast.Expression:
+            def fn(x):
+                if isinstance(x, ast.Identifier) and len(x.parts) == 2 \
+                        and x.parts[0].lower() in pattern_vars:
+                    return ast.Identifier((x.parts[1],))
+                if isinstance(x, ast.FunctionCall):
+                    n = x.name.lower()
+                    if n in ("prev", "next", "first", "last") and x.args:
+                        return x.args[0]
+                    if n == "classifier":
+                        return ast.Literal("string", "X")
+                    if n == "match_number":
+                        return ast.Literal("number", "1")
+                return x
+
+            return _rewrite_node(e, fn)
+
+        measure_types = []
+        for e, _name in rel.measures:
+            measure_types.append(analyzer.analyze(strip(e)).type)
+        for _v, pred in rel.defines:
+            analyzer.analyze(strip(pred))  # column/type validation only
+        node = P.MatchRecognizeNode(
+            source=inner.node, partition_channels=part, sort_channels=order,
+            pattern=tuple(rel.pattern), defines=tuple(rel.defines),
+            measures=tuple(rel.measures), measure_types=measure_types,
+            after_match=rel.after_match,
+            input_names=[f.name for f in inner.scope.fields])
+        fields = [Field(n, t, None)
+                  for n, t in zip(node.output_names, node.output_types)]
+        return RelationPlan(node, Scope(fields, outer_scope))
 
     def _plan_table_function(self, rel: "ast.TableFunctionCall", outer_scope
                              ) -> RelationPlan:
