@@ -136,10 +136,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (written by the JAX package: tests/test_torch_statements.py
    --write-expected).
 
+12. compiled (run after phase nested, before phase mainpath): the compiled
+   tier (trino_tpu_torch/exec/compiled.py). Each of the 22 TPC-H queries at
+   SF1 is built into a CompiledQuery (phase-1 dynamic filters on the host,
+   staging, capacity hints), captured into one CUDA graph on its first run
+   and run five times, first in an uncached session, then in a cached one
+   where a second build of the same query must stage 0 rows and copy 0
+   bytes host->device. Rows of the first and fifth run must equal
+   tpch_sf1_expected.json; the join tiers of each capture must equal those
+   of a trace of the JAX package's CompiledQuery at SF1
+   (trino_tpu_torch/testdata/compiled_sf1_expected.json, written by
+   tests/test_torch_compiled_tpch.py --write-expected: Q17 is the one query
+   whose compiled reference selects merge-pallas), and its graph must hold
+   the merge launch. The wrapper counts the warm-up's launches, which must
+   equal the launches it recorded into the graph while capturing (those it
+   does not count); one more replay of every graph that holds merge
+   launches runs under torch.profiler, and the merge kernels the card ran
+   in it must equal what the graph holds (the profiler can drop a buffer of
+   events, which only lowers the count, so up to three such replays run). The kernel's inputs of each
+   warm-up (the same body the graph runs, at the same shapes) join phase
+   mainpath. The path's launch count is the warm-ups' plus the graph's
+   per replay. Then TPC-DS q95 and q64 at
+   SF1 (rows as phase analytics) and Q13 with its join hint cut to a quarter,
+   which must capture again and give the expected rows. One line a query:
+   build seconds (phase 1, staging), warm-up and capture seconds of every
+   capture, the first run's wall and the median of the later replays
+   (host clock around ``run()``, synchronised), the same query's eager warm
+   wall from phase tpch or analytics, the graph pool's bytes beside
+   ``torch.cuda.memory_allocated``, recompiles and merge launches.
+
 With ``--profile`` it also runs each query once more (warm) in each of the
 five sessions (tpch, cache, analytics, scalar, nested) under
 torch.profiler and prints the device time by kernel, the device's busy
-share of the wall, the device launches and the largest device item; and it times the DML sequence over tpch.sf1.orders (1.5M
+share of the wall, the device launches and the largest device item; one
+replay of each TPC-H query's graph the same way (the merge kernel's symbol
+must show in Q17's); and it times the DML sequence over tpch.sf1.orders (1.5M
 rows), holding each read's cache disposition to the reference's.
 
 The last three lines of standard output are the kernel summary
@@ -155,6 +186,7 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA's data sheet)
+TIERS = ("dense", "fused", "merge-sorted", "merge-pallas", "legacy")
 INT32_MAX = 2**31 - 1
 
 
@@ -458,19 +490,23 @@ def check_rows(what, got, want, sort_keys=None, rel_tol=None):
 class MergeCapture:
     """Wraps the merge kernel's wrapper while the queries run: keeps the
     inputs of every cold run for phase mainpath (the wrapper still counts
-    each launch, and the capture launches nothing)."""
+    each launch, and the capture launches nothing). Nothing is kept while a
+    CUDA graph is being captured: a clone then copies no data yet."""
 
     def __init__(self):
         self.captured = []  # (path, query, build, probe, block_build)
         self.now = None  # (path, query, run)
 
     def __enter__(self):
+        import torch
+
         from trino_tpu_torch.ops import merge
 
         self.wrapper = merge.merge_unique_sorted
 
         def capture(build, probe, block_build=2048):
-            if self.now is not None and self.now[2] == "cold":
+            if self.now is not None and self.now[2] == "cold" and \
+                    not torch.cuda.is_current_stream_capturing():
                 self.captured.append((self.now[0], self.now[1], build.clone(),
                                       probe.clone(), block_build))
             return self.wrapper(build, probe, block_build=block_build)
@@ -719,6 +755,228 @@ def phase_nested(device, nested, card):
     return out, session
 
 
+COMPILED_REPLAYS = 5  # synchronised replays of each captured query
+
+
+PROFILED_REPLAY_TRIES = 3  # the profiler can drop a buffer of a replay's events
+
+
+def replay_merge_kernels(cq, device, want):
+    """Replays of ``cq``'s graph under torch.profiler, until one shows
+    ``want`` merge kernels or PROFILED_REPLAY_TRIES have run: (the most merge
+    kernels a trace showed, their device milliseconds, each trace's device
+    events). A dropped buffer can only lower a trace's count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    best, best_ms, traces = -1, None, []
+    for _ in range(PROFILED_REPLAY_TRIES):
+        sync(device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            cq.run()
+            torch.cuda.synchronize(device)
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        traces.append(sum(e.count for e in events))
+        merge = [e for e in events if "merge_unique" in e.key]
+        n = sum(e.count for e in merge)
+        if n > best:
+            best = n
+            best_ms = sum(e.self_cuda_time_total if getattr(e, "self_device_time_total", None)
+                          is None else e.self_device_time_total for e in merge) / 1e3
+        if n == want:
+            break
+    return best, best_ms, traces
+
+
+def run_compiled(session, device, path, name, sql, want_rows, want, cap, sort_keys=None,
+                 rel_tol=None, replays=COMPILED_REPLAYS, cut_join_hints=False,
+                 mainpath=None):
+    """Build ``sql`` into a CompiledQuery and run it ``replays`` times (the
+    first run captures its graph, and again after each overflow): the rows
+    of the first and last run are checked, the join tiers a capture against
+    the reference's (``want``: its tiers over its recompiles + 1 traces),
+    and the merge kernel's launches: the wrapper's count of the warm-ups
+    against what it recorded into the graphs, and one profiled replay of a
+    graph that holds merge launches against the kernels the card ran. The
+    warm-ups' merge inputs go to ``cap`` under the path ``mainpath``.
+    Returns the record printed for the query and the CompiledQuery, closed."""
+    from trino_tpu_torch.exec.compiled import CompiledQuery
+    from trino_tpu_torch.exec.query import plan_sql
+    from trino_tpu_torch.obs import metrics as M
+    from trino_tpu_torch.ops import merge
+    import torch
+
+    what = f"{name} ({path}, compiled)"
+    merge.launches = 0
+    tiers0 = tier_counts(M.FUSED_JOIN_SELECTIONS, TIERS)
+    c0 = plane_counters()
+    sync(device)
+    t0 = time.perf_counter()
+    cq = CompiledQuery.build(session, plan_sql(session, sql))
+    build_s = time.perf_counter() - t0
+    build_counters = counters_delta(c0)
+    if cut_join_hints:
+        cq.capacity_hints = {k: max(v // 4, 1) if k.startswith("join:") else v
+                             for k, v in cq.capacity_hints.items()}
+    walls = []
+    cap.now = (mainpath, name, "cold") if mainpath else None
+    for i in range(replays):
+        sync(device)
+        t = time.perf_counter()
+        page = cq.run()
+        sync(device)
+        walls.append(time.perf_counter() - t)
+        if i in (0, replays - 1):
+            check_rows(f"{what} run {i + 1}", jsonable_rows(page.to_pylist()), want_rows,
+                       sort_keys, rel_tol)
+        if i == 0:
+            after_first = {"memory_allocated": torch.cuda.memory_allocated(device),
+                           "memory_reserved": torch.cuda.memory_reserved(device)} \
+                if device.type == "cuda" else {}
+    cap.now = None
+    warmup_launches = merge.launches
+    tiers = {t: v - tiers0[t] for t, v in tier_counts(M.FUSED_JOIN_SELECTIONS, TIERS).items()}
+    in_graph = cq.captures[-1]["merge_launches"]
+    if want is not None:
+        ref_traces, traces = want["recompiles"] + 1, cq.recompiles + 1
+        if any(tiers[t] * ref_traces != want["tiers"][t] * traces for t in TIERS):
+            raise AssertionError(f"{what} join tiers {tiers} over {traces} captures != the "
+                                 f"reference's {want['tiers']} over {ref_traces} traces")
+        if want["tiers"].get("merge-pallas", 0) >= 1 and in_graph < 1:
+            raise AssertionError(f"{what} selected merge-pallas but its graph holds no "
+                                 f"merge launch: {cq.captures}")
+    if warmup_launches != sum(c["merge_launches"] for c in cq.captures):
+        raise AssertionError(f"{what}: the warm-ups launched the merge kernel "
+                             f"{warmup_launches} times, the graphs hold {cq.captures}")
+    profiled = profiled_ms = traces = None
+    if in_graph:
+        profiled, profiled_ms, traces = replay_merge_kernels(cq, device, in_graph)
+        if profiled != in_graph:
+            raise AssertionError(f"{what}: profiled replays ran at most {profiled} merge "
+                                 f"kernels (device events a trace: {traces}), the graph "
+                                 f"holds {in_graph}")
+    replayed = sum(c["merge_launches"] * c["replays"] for c in cq.captures)
+    record = {
+        "query": name, "session": path, "rows": len(want_rows), "recompiles": cq.recompiles,
+        "build_s": build_s, "phase1_s": cq.phase1_s, "staging_s": cq.staging_s,
+        "df_apply_s": cq.df_apply_s,
+        "warmup_s": sum(c["warmup_s"] for c in cq.captures),
+        "capture_s": sum(c["capture_s"] for c in cq.captures),
+        "captures": cq.captures, "first_run_s": walls[0],
+        "replay_walls_s": walls[1:], "replay_median_s": sorted(walls[1:])[len(walls[1:]) // 2]
+        if len(walls) > 1 else None,
+        "pool_bytes": cq.captures[-1]["pool_bytes"] if cq.captures else 0,
+        **after_first, "merge_launches": warmup_launches + replayed,
+        "merge_launches_warmup": warmup_launches, "merge_launches_replayed": replayed,
+        "profiled_replay_merge_kernels": profiled,
+        "profiled_replay_merge_device_ms": profiled_ms, "profiled_replay_events": traces,
+        "tiers": tiers,
+        "fresh_staged_rows": cq.fresh_staged_rows, "cache_hits": cq.cache_hits,
+        "staged_rows": build_counters["staged_rows"], "h2d_bytes": build_counters["h2d_bytes"]}
+    cq.close()
+    return record, cq
+
+
+def phase_compiled(device, expected, compiled, analytics, eager_walls, cap, card):
+    """The compiled tier (trino_tpu_torch/exec/compiled.py): the 22 TPC-H
+    queries at SF1, each built into a CompiledQuery, captured into one CUDA
+    graph and replayed, in an uncached session and then in a cached one,
+    where a second build must stage nothing; TPC-DS q95 and q64 at SF1; Q13
+    with its join hint cut to a quarter, which must capture again."""
+    from trino_tpu_torch import Session
+
+    props = {"catalog": "tpch", "schema": "sf1", "fused_join_pallas": True}
+    out = []
+    for path, extra in (("uncached", {}), ("cached", {"device_cache_enabled": True})):
+        session = Session(properties={**props, **extra}, device=device)
+        for q in range(1, 23):
+            entry = expected[str(q)]
+            rec, _ = run_compiled(session, device, path, f"Q{q}", entry["sql"], entry["rows"],
+                                  compiled["queries"][str(q)], cap,
+                                  mainpath=f"compiled_{path}")
+            rec["eager_warm_wall_s"] = eager_walls.get(f"Q{q}")
+            if path == "cached":
+                # a second build of the same query: every scan a cache hit
+                warm, _ = run_compiled(session, device, path, f"Q{q}", entry["sql"],
+                                       entry["rows"], compiled["queries"][str(q)], cap,
+                                       replays=1)
+                if warm["fresh_staged_rows"] or warm["staged_rows"] or warm["h2d_bytes"]:
+                    raise AssertionError(
+                        f"Q{q} (cached, compiled): the second build staged "
+                        f"{warm['fresh_staged_rows']} rows, {warm['h2d_bytes']} bytes")
+                rec["warm_build"] = {k: warm[k] for k in (
+                    "build_s", "staging_s", "fresh_staged_rows", "cache_hits", "h2d_bytes",
+                    "first_run_s", "merge_launches")}
+            out.append(rec)
+            print("compiled", json.dumps({**rec, "card": card}), flush=True)
+    session = Session(properties=dict(analytics["properties"]), device=device)
+    for name in ("q95", "q64"):
+        entry = analytics["queries"][name]
+        rec, _ = run_compiled(session, device, "analytics", name, entry["sql"], entry["rows"],
+                              None, cap, entry["sort_keys"], ANALYTICS_REL_TOL)
+        rec["eager_warm_wall_s"] = eager_walls.get(name)
+        out.append(rec)
+        print("compiled", json.dumps({**rec, "card": card}), flush=True)
+    session = Session(properties=props, device=device)
+    rec, _ = run_compiled(session, device, "overflow", "Q13", expected["13"]["sql"],
+                          expected["13"]["rows"], None, cap, replays=2, cut_join_hints=True)
+    if rec["recompiles"] < 1:
+        raise AssertionError(f"Q13 with its join hint cut to a quarter did not capture "
+                             f"again: {rec}")
+    out.append(rec)
+    print("compiled", json.dumps({**rec, "card": card}), flush=True)
+    return out
+
+
+def phase_profile_compiled(device, expected, compiled, card):
+    """``--profile``: one replay of each TPC-H query's graph under
+    torch.profiler: the kernels it launched, its device busy share, and the
+    merge kernel's symbol in the replays of the queries whose reference
+    selects merge-pallas."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from trino_tpu_torch import Session
+    from trino_tpu_torch.exec.compiled import CompiledQuery
+    from trino_tpu_torch.exec.query import plan_sql
+
+    session = Session(properties={"catalog": "tpch", "schema": "sf1",
+                                  "fused_join_pallas": True}, device=device)
+    for q in range(1, 23):
+        cq = CompiledQuery.build(session, plan_sql(session, expected[str(q)]["sql"]))
+        cq.run()  # capture
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cq.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        cq.close()
+        by_kernel = []
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or e.key.startswith("Activity Buffer"):
+                continue
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = e.self_cuda_time_total
+            if dev_us > 0:
+                by_kernel.append((dev_us, e.count, e.key))
+        by_kernel.sort(reverse=True)
+        device_s = sum(us for us, _, _ in by_kernel) / 1e6
+        merge_seen = any("merge_unique" in k for _, _, k in by_kernel)
+        if compiled["queries"][str(q)]["tiers"].get("merge-pallas", 0) >= 1 and not merge_seen:
+            raise AssertionError(f"Q{q}: the profiled replay shows no merge kernel: "
+                                 f"{[k for _, _, k in by_kernel[:20]]}")
+        print("profile", json.dumps({
+            "session": "compiled", "query": f"Q{q}", "wall_s": wall, "device_s": device_s,
+            "device_busy_share": device_s / wall if wall else None,
+            "device_launches": sum(c for _, c, _ in by_kernel), "merge_kernel_seen": merge_seen,
+            "top": [{"kernel": k[:80], "calls": c, "device_ms": us / 1e3}
+                    for us, c, k in by_kernel[:8]], "card": card}), flush=True)
+
+
 def check_random(session, device):
     """random() over every lineitem row at SF1, drawn on the card from the
     session's generator."""
@@ -798,20 +1056,23 @@ def check_transcendentals(device):
 
 def phase_mainpath(captured, merge_queries):
     """The merge kernel against its plain version on the very inputs the
-    cold runs of both sessions gave it (exact), with the same times as
-    phase kernel; one row a launch, named after its session and query."""
+    cold runs of both sessions and the compiled tier's warm-ups gave it
+    (exact), with the same times as phase kernel; one row a launch, named
+    after its path and query. ``merge_queries``: path -> the queries whose
+    reference selects merge-pallas there."""
     import torch
 
-    for path in ("tpch", "cache"):
+    for path, want in merge_queries.items():
         got = sorted({q for p, q, *_ in captured if p == path})
-        if got != merge_queries:
+        if got != want:
             raise AssertionError(f"{path}: merge kernel inputs captured for queries {got}, "
-                                 f"want {merge_queries}")
+                                 f"want {want}")
     rows = []
     seen = {}
     for path, q, b, p, bb in captured:
         seen[(path, q)] = seen.get((path, q), 0) + 1
-        row, _ = check_and_time(f"q{q}_sf1_{path}_mainpath_{seen[(path, q)]}", b, p, bb,
+        name = str(q).lower() if isinstance(q, str) else f"q{q}"
+        row, _ = check_and_time(f"{name}_sf1_{path}_mainpath_{seen[(path, q)]}", b, p, bb,
                                 live_build=int((b != INT32_MAX).sum().item()))
         rows.append(row)
     del captured[:]
@@ -1255,9 +1516,18 @@ def main() -> int:
         check_random(scalar_session, device)
         check_transcendentals(device)
         nested_runs, nested_session = phase_nested(device, nested, card)
-    merge_queries = sorted(int(q) for q, e in expected.items()
-                           if e["tiers"].get("merge-pallas", 0) >= 1)
-    rows += phase_mainpath(cap.captured, merge_queries)
+        compiled = testdata("compiled_sf1_expected.json")
+        eager_walls = {**{f"Q{q}": runs[1]["wall_s"] for q, runs in tpch.items()},
+                       **{name: runs[1]["wall_s"] for name, runs in analytics_runs.items()}}
+        compiled_runs = phase_compiled(device, expected, compiled, analytics, eager_walls,
+                                       cap, card)
+    eager_merge = sorted(int(q) for q, e in expected.items()
+                         if e["tiers"].get("merge-pallas", 0) >= 1)
+    compiled_merge = sorted(f"Q{q}" for q, e in compiled["queries"].items()
+                            if e["tiers"].get("merge-pallas", 0) >= 1)
+    rows += phase_mainpath(cap.captured, {
+        "tpch": eager_merge, "cache": eager_merge,
+        "compiled_uncached": compiled_merge, "compiled_cached": compiled_merge})
     if profiling:
         tpch_sql = [(f"Q{q}", expected[str(q)]["sql"]) for q in range(1, 23)]
         phase_profile(session, tpch_sql, "uncached")
@@ -1268,6 +1538,7 @@ def main() -> int:
                       [(n, e["sql"]) for n, e in scalar["queries"].items()], "scalar")
         phase_profile(nested_session,
                       [(n, e["sql"]) for n, e in nested["queries"].items()], "nested")
+        phase_profile_compiled(device, expected, compiled, card)
     statements = testdata("statements_sf1_expected.json")
     statement_launches = phase_statements(
         (("uncached", session), ("cached", cached_session)), device, statements, expected, card)
@@ -1290,7 +1561,9 @@ def main() -> int:
                          for run in runs),
         "scalar": sum(run["merge_launches"] for runs in scalar_runs.values() for run in runs),
         "statements": statement_launches,
-        "nested": sum(run["merge_launches"] for runs in nested_runs.values() for run in runs)}
+        "nested": sum(run["merge_launches"] for runs in nested_runs.values() for run in runs),
+        "compiled": sum(rec["merge_launches"] + rec.get("warm_build", {}).get("merge_launches", 0)
+                        for rec in compiled_runs)}
     for path, n in launches_by_path.items():
         if n < 1 and path not in ("analytics", "scalar", "nested"):
             raise AssertionError(f"the 22 queries of path {path} launched the merge kernel "
@@ -1305,6 +1578,16 @@ def main() -> int:
             f"{label}_wall_s": sum(run["wall_s"] for runs in by_query.values()
                                    for run in runs if run["run"] == label)
             for label in ("cold", "warm")}), flush=True)
+    for path in ("uncached", "cached"):
+        recs = [r for r in compiled_runs if r["session"] == path]
+        print("compiled_total", json.dumps({
+            "session": path, "replay_median_s": sum(r["replay_median_s"] for r in recs),
+            "eager_warm_wall_s": sum(r["eager_warm_wall_s"] for r in recs),
+            "build_s": sum(r["build_s"] for r in recs),
+            "warmup_s": sum(r["warmup_s"] for r in recs),
+            "capture_s": sum(r["capture_s"] for r in recs),
+            "recompiles": sum(r["recompiles"] for r in recs),
+            "max_pool_bytes": max(r["pool_bytes"] for r in recs), "card": card}), flush=True)
     summary = {
         "name": "merge_unique_sorted",
         "route": "cuda",

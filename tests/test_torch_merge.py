@@ -156,6 +156,26 @@ def test_non_int32_keys_raise(bad):
 
 
 @pytest.mark.cuda
+def test_launch_recorded_into_a_graph_is_not_counted():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
+    rng = np.random.default_rng(5)
+    b = torch.from_numpy(_sorted_build(rng, 256, 1024, dead=2)).cuda()
+    p = torch.from_numpy(_sorted_probe(rng, 6113, 0, 1024)).cuda()
+    merge.merge_unique_sorted(b, p)  # builds the library outside the capture
+    torch.cuda.synchronize()
+    launches, captured = merge.launches, merge.captured
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = merge.merge_unique_sorted(b, p)
+    assert (merge.launches, merge.captured) == (launches, captured + 1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert merge.launches == launches  # a replay does not pass through the wrapper
+    assert torch.equal(got, merge.merge_unique_sorted_plain(b, p))
+
+
+@pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")

@@ -20,8 +20,10 @@ through staging or ``to_device``.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,11 +49,63 @@ def torch_dtype(np_dtype) -> torch.dtype:
 
 def to_device(arr, device) -> torch.Tensor:
     """Host numpy array -> tensor on ``device`` (dtype kept exactly; the
-    tensor never shares a read-only host buffer)."""
+    tensor never shares a read-only host buffer). Inside ``constant_store``
+    the tensor comes from that store."""
     arr = np.ascontiguousarray(arr)
+    store = _CONSTANTS.get()
+    if store is not None:
+        return store.tensor(arr, device)
     if not arr.flags.writeable:
         arr = arr.copy()
     return torch.from_numpy(arr).to(device)
+
+
+class ConstantStore:
+    """The host-computed constants of one compiled query body (lookup
+    tables over dictionaries, Values rows, fixed tables), on the device
+    and keyed by content. A captured CUDA graph may not copy from host
+    memory, so the warm-up run of the body fills the store and the
+    capture reuses its tensors; once ``frozen``, a constant the warm-up
+    did not upload raises. The body only reads these tensors."""
+
+    def __init__(self):
+        self._tensors: Dict[tuple, torch.Tensor] = {}
+        self.frozen = False
+
+    def __len__(self) -> int:
+        return len(self._tensors)
+
+    def tensor(self, arr: np.ndarray, device) -> torch.Tensor:
+        device = torch.device(device)
+        key = (str(device), arr.dtype.str, arr.shape, arr.tobytes())
+        t = self._tensors.get(key)
+        if t is None:
+            if self.frozen:
+                raise RuntimeError(
+                    f"constant of shape {arr.shape} ({arr.dtype}) first uploaded "
+                    "after the warm-up run of a compiled body")
+            host = torch.from_numpy(arr.copy())
+            if device.type == "cuda":
+                # pinned and asynchronous: no synchronizing copy
+                t = host.pin_memory().to(device, non_blocking=True)
+            else:
+                t = host.to(device)
+            self._tensors[key] = t
+        return t
+
+
+_CONSTANTS: "contextvars.ContextVar[Optional[ConstantStore]]" = contextvars.ContextVar(
+    "trino_tpu_torch_constants", default=None)
+
+
+@contextlib.contextmanager
+def constant_store(store: ConstantStore):
+    """Route every ``to_device`` of the block through ``store``."""
+    token = _CONSTANTS.set(store)
+    try:
+        yield store
+    finally:
+        _CONSTANTS.reset(token)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -25,7 +25,15 @@ An expansion's output is sized by one host read of its exact total. A
 per-query MemoryContext (exec/memory.py) observes every node's output
 bytes; over the ``query_max_device_memory`` budget, joins and grouped
 aggregations hash-partition their inputs on the host and run in passes.
-The compiled tier is not ported.
+
+The compiled tier (exec/compiled.py) runs this executor with
+``eager_tier`` off, as the body of a captured CUDA graph: no host read of
+the device and no upload of host data once its constants are in the
+query's store. There every expansion and compaction takes its capacity
+from a hint and raises a deferred CAPACITY_EXCEEDED flag when it
+overflows; nothing spills; no sorted build comes from the device cache;
+MATCH_RECOGNIZE and the ORDER BY of a page holding nested columns, both
+host steps, are refused.
 
 Data-dependent runtime errors (division by zero, decimal overflow, an
 invalid function argument, capacity overflow, a scalar subquery without
@@ -77,11 +85,24 @@ class QueryError(RuntimeError):
         self.code = code
 
 
-def raise_query_errors(codes, flags):
+def fired_flags(flags) -> List[bool]:
+    """Whether each deferred error flag fired: one device-to-host read."""
+    if not flags:
+        return []
+    return torch.stack([f.reshape(-1).any() for f in flags]).tolist()
+
+
+def raise_fired(codes, fired) -> None:
     """Raise the first deferred runtime error whose flag fired."""
-    for code, flag in zip(codes, flags):
-        if bool(flag.any().item()):
+    for code, hit in zip(codes, fired):
+        if hit:
             raise QueryError(code.replace("_", " ").capitalize(), code=code)
+
+
+def raise_query_errors(codes, flags):
+    """Raise the first deferred runtime error whose flag fired; every flag
+    is read in one device-to-host read."""
+    raise_fired(codes, fired_flags(flags))
 
 
 def _col_from_lowered(t: T.Type, lv: L.LoweredVal) -> Column:
@@ -162,14 +183,19 @@ def dynamic_domain_map(node, dyn_domains):
     return dyn
 
 
-def apply_dynamic_domains(node, dyn_domains, datas):
+def apply_dynamic_domains(node, dyn_domains, datas, allow=None):
     """Drop scanned host rows outside the scan's dynamic-filter domains
     before the device transfer (connectors treat constraints as advisory).
-    Varchar domains are skipped: dictionary codes are page-local."""
+    Varchar domains are skipped: dictionary codes are page-local.
+    ``allow(node, column, domain)`` restricts which domains apply here (the
+    compiled tier prunes strong domains on the host and enforces the weak
+    ones on the device)."""
     from trino_tpu_torch.connector.spi import column_data_take
     from trino_tpu_torch.exec.host_eval import domain_mask
 
     dyn = dynamic_domain_map(node, dyn_domains)
+    if allow is not None:
+        dyn = {c: d for c, d in dyn.items() if allow(node, c, d)}
     if not dyn:
         return datas
     out = []
@@ -202,17 +228,34 @@ class Executor:
     query: the reference always collects them, and its per-node live count
     is a device-to-host read and sync per plan node. Here each node's live
     count stays a device scalar, and ``execute_checked`` reads them all in
-    one batch when the plan has run."""
+    one batch when the plan has run.
+
+    The class flags mark the tier. The eager tier reads the device where
+    the host must decide (an expansion's exact total, dynamic-filter
+    domains, spill partitions); the compiled tier's subclasses
+    (exec/compiled.py) turn ``eager_tier`` off. A scan prunes its host rows
+    by the dynamic domains before the transfer, limited to those
+    ``df_host_allow(node, column, domain)`` accepts where it is set.
+    ``count_tiers`` off keeps a repeated execution of one body from
+    counting its join-tier selections again."""
 
     DYNAMIC_FILTER_MAX_SET = 1024  # in-set domain cap
+    eager_tier = True
+    collect_stats = False
+    df_host_allow = None
+    count_tiers = True
 
-    def __init__(self, session, collect_stats: bool = False):
+    def __init__(self, session, collect_stats: Optional[bool] = None,
+                 capacity_hints: Optional[Dict[str, int]] = None):
         self.session = session
-        self.collect_stats = collect_stats
+        if collect_stats is not None:
+            self.collect_stats = collect_stats
         self.device = session.device
         self.errors: List[Tuple[str, torch.Tensor]] = []
-        # static output capacities by hint key ("cmp:<id>" for Compact)
-        self.capacity_hints: Dict[str, int] = {}
+        # static output capacities by hint key ("cmp:<id>" for Compact,
+        # "join:<id>" for an expansion, "dfc:<id>" for a filtered scan)
+        self.capacity_hints: Dict[str, int] = (
+            capacity_hints if capacity_hints is not None else {})
         # build-side key domains by (join_id, key_index), consumed by probe
         # scans annotated by the optimizer
         self.dyn_domains: Dict[Tuple[int, int], object] = {}
@@ -363,7 +406,10 @@ class Executor:
     def _host_applied_domains(self, node: P.TableScanNode) -> Dict:
         """The dynamic domains this executor applies on the host at the scan:
         part of the cache signature (devcache/keys.py)."""
-        return dynamic_domain_map(node, self.dyn_domains)
+        dyn = dynamic_domain_map(node, self.dyn_domains)
+        if self.df_host_allow is not None:
+            dyn = {c: d for c, d in dyn.items() if self.df_host_allow(node, c, d)}
+        return dyn
 
     def _exec_TableScanNode(self, node: P.TableScanNode) -> Page:
         from trino_tpu_torch import devcache
@@ -383,7 +429,8 @@ class Executor:
                                      constraint=constraint, handle=node.table_handle)
 
             def prune(datas):
-                return apply_dynamic_domains(node, self.dyn_domains, datas)
+                return apply_dynamic_domains(node, self.dyn_domains, datas,
+                                             allow=self.df_host_allow)
 
             page, scanned, prof = staging.staged_scan_page(
                 self.session, node, conn, splits, constraint,
@@ -460,11 +507,16 @@ class Executor:
         return self.compact_to(page, capacity, f"cmp:{node.id}")
 
     def hint_capacity(self, key: str, emit_counts: torch.Tensor) -> int:
-        """Static output capacity by hint key; without a hint, the exact
-        total (one device sync) padded to a power of two (at least 16)."""
+        """Static output capacity by hint key; without a hint, the eager
+        tier reads the exact total (one device sync) padded to a power of
+        two (at least 16), and the compiled tier raises."""
         cap = self.capacity_hints.get(key)
         if cap is not None:
             return cap
+        if not self.eager_tier:
+            raise RuntimeError(
+                f"{key} has no capacity hint in the compiled tier (its hints "
+                "come from sql/planner/stats.py estimate_capacity_hints)")
         total = int(emit_counts.sum().item())
         cap = max(16, 1 << (max(total, 1) - 1).bit_length())
         self.capacity_hints[key] = cap
@@ -702,7 +754,7 @@ class Executor:
     def aggregate_page(self, node: P.AggregationNode, page: Page) -> Page:
         """Group and aggregate; the output has ``capacity`` rows with sel
         marking live groups."""
-        if node.group_channels:
+        if node.group_channels and self.eager_tier:
             spilled = self._maybe_spill_aggregation(node, page)
             if spilled is not None:
                 return spilled
@@ -1038,7 +1090,7 @@ class Executor:
         if self.enable_dynamic_filtering and node.dyn_filter_keys:
             self._collect_dynamic_filters(node, right)
         left = self.execute(node.left)
-        if node.left_keys:
+        if node.left_keys and self.eager_tier:
             spilled = self._maybe_spill_join(node, left, right)
             if spilled is not None:
                 return spilled
@@ -1179,6 +1231,10 @@ class Executor:
             return None
         return bc, pc, ds[0], ds[1]
 
+    def _count_tier(self, tier: str) -> None:
+        if self.count_tiers:
+            M.FUSED_JOIN_SELECTIONS.inc(1, tier)
+
     def _fused_join_enabled(self) -> bool:
         return bool(self.props.get("fused_join_enabled", True))
 
@@ -1207,7 +1263,7 @@ class Executor:
         otherwise."""
         use_kernel = (bool(self.props.get("fused_join_pallas"))
                       and self._merge_sentinel_safe(node, left, right, build_keys))
-        M.FUSED_JOIN_SELECTIONS.inc(1, "merge-pallas" if use_kernel else "merge-sorted")
+        self._count_tier("merge-pallas" if use_kernel else "merge-sorted")
         return fused_ops.merge_sorted_build(build, probe_keys, use_pallas=use_kernel)
 
     def _cached_sorted_build(self, node: P.JoinNode, right: Page, build_keys):
@@ -1215,9 +1271,11 @@ class Executor:
         side must be a bare versioned TableScanNode, so the artifact's
         identity is provable from the scan signature and the join-key
         signature. Never inside a spilled join: there ``right`` is one
-        hash partition of the scan, not the scan."""
+        hash partition of the scan, not the scan. Never in the compiled
+        tier, which sorts in its captured body."""
         scan = node.right
-        if self._in_join_spill or not isinstance(scan, P.TableScanNode):
+        if (not self.eager_tier or self._in_join_spill
+                or not isinstance(scan, P.TableScanNode)):
             return None
         from trino_tpu_torch import devcache
 
@@ -1251,16 +1309,16 @@ class Executor:
                     build_keys, right.sel, presorted=True)
                 return self._merge_sorted_tier(node, left, right, build,
                                                build_keys, probe_keys)
-            M.FUSED_JOIN_SELECTIONS.inc(1, "fused")
+            self._count_tier("fused")
             return fused_ops.fused_probe_unique(build_keys, right.sel, probe_keys)
-        M.FUSED_JOIN_SELECTIONS.inc(1, "legacy")
+        self._count_tier("legacy")
         build = join_ops.build_side(build_keys, right.sel, presorted=presorted)
         return join_ops.probe_unique(build, probe_keys)
 
     def lookup_join(self, node: P.JoinNode, left: Page, right: Page) -> Page:
         dense = self._dense_join_cols(node, left, right)
         if dense is not None:
-            M.FUSED_JOIN_SELECTIONS.inc(1, "dense")
+            self._count_tier("dense")
             bc, pc, lo, span = dense
             table = join_ops.dense_unique_table(_col_to_lowered(bc), right.sel, lo, span)
             rows, matched = join_ops.dense_probe_unique(table, _col_to_lowered(pc), lo)
@@ -1295,7 +1353,7 @@ class Executor:
     def semi_join(self, node: P.JoinNode, left: Page, right: Page) -> Page:
         dense = self._dense_join_cols(node, left, right)
         if dense is not None:
-            M.FUSED_JOIN_SELECTIONS.inc(1, "dense")
+            self._count_tier("dense")
             bc, pc, lo, span = dense
             hit = join_ops.dense_membership(
                 _col_to_lowered(bc), right.sel, _col_to_lowered(pc), lo, span)
@@ -1315,10 +1373,10 @@ class Executor:
                     _rows, hit = self._merge_sorted_tier(
                         node, left, right, build, build_keys, probe_keys)
                 else:
-                    M.FUSED_JOIN_SELECTIONS.inc(1, "fused")
+                    self._count_tier("fused")
                     hit = fused_ops.fused_membership(build_keys, right.sel, probe_keys)
             else:
-                M.FUSED_JOIN_SELECTIONS.inc(1, "legacy")
+                self._count_tier("legacy")
                 hit = join_ops.membership(build_keys, right.sel, probe_keys,
                                           presorted=presorted)
         keep = hit if node.join_type == "semi" else ~hit
@@ -1337,7 +1395,8 @@ class Executor:
         the probe columns gathered at each output slot's probe row ``p`` and
         the build columns at its match (NULL where ``matched`` is false).
         ``plain_outer`` gives every live probe row at least one slot. One
-        host read of the exact total sizes the output."""
+        host read of the exact total sizes the output in the eager tier; the
+        compiled tier takes the ``join:<id>`` hint and flags an overflow."""
         build_keys, probe_keys = self._expansion_keys(node, left, right)
         build = join_ops.build_side(
             build_keys, right.sel,
@@ -1348,8 +1407,13 @@ class Executor:
             probe_live = (torch.ones_like(counts, dtype=torch.bool) if left.sel is None
                           else left.sel)
             emit = torch.where(probe_live, counts.clamp(min=1), torch.zeros_like(counts))
-        total = int(emit.to(torch.int64).sum().item())
-        p, k, live, _ = join_ops.expand(emit, max(total, 1))
+        if self.eager_tier:
+            capacity = max(int(emit.to(torch.int64).sum().item()), 1)
+        else:
+            capacity = self.hint_capacity(f"join:{node.id}", emit)
+        p, k, live, total = join_ops.expand(emit, capacity)
+        if not self.eager_tier:
+            self.errors.append((f"CAPACITY_EXCEEDED:join:{node.id}", total > capacity))
         _refuse_nested_payloads(left.columns)
         g = ranks_ops.batched_gather([lo, counts] + _flat_arrays(left.columns), p)
         matched = live & (k < g[1])
@@ -1403,11 +1467,13 @@ class Executor:
         """Cross join against a single-row relation (a scalar subquery);
         zero or several live rows raise through the deferred error flags."""
         if right.sel is None:
-            live = torch.tensor(right.num_rows, dtype=torch.int64, device=self.device)
-            idx = torch.zeros((), dtype=torch.int64, device=self.device)
+            live = torch.full((), right.num_rows, dtype=torch.int64, device=self.device)
+            idx = torch.zeros((1,), dtype=torch.int64, device=self.device)
         else:
             live = right.sel.sum()
-            idx = torch.argmax(right.sel.to(torch.int32))
+            # a one-element index gathers on the device (a 0-d one is read
+            # to the host)
+            idx = torch.argmax(right.sel.to(torch.int32)).reshape(1)
         self.errors.append(("SCALAR_SUBQUERY_MULTIPLE_ROWS", live > 1))
         self.errors.append(("SCALAR_SUBQUERY_NO_ROWS", live < 1))
         n = left.num_rows
@@ -1428,7 +1494,10 @@ class Executor:
         """MATCH_RECOGNIZE on the host (exec/match_recognize.py): the
         backtracking matcher is sequential, and its input is
         post-aggregation scale. Partitions run in the order of their keys'
-        text; rows within one follow the ORDER BY, NULLs last ascending."""
+        text; rows within one follow the ORDER BY, NULLs last ascending.
+        Refused in the compiled tier, as in the reference."""
+        if not self.eager_tier:
+            raise NotImplementedError("MATCH_RECOGNIZE executes on the host tier")
         from trino_tpu_torch.exec.match_recognize import run_match_recognize
 
         page = self.execute(node.source)
@@ -1468,8 +1537,12 @@ class Executor:
     def sorted_page(self, page: Page, sort_channels, limit: Optional[int] = None) -> Page:
         """Rows in sort order (dead rows last); sel becomes a prefix mask of
         the live (and limit-capped) rows. Every array rides the one sort
-        permutation; a page with a nested column sorts on the host."""
+        permutation; a page with a nested column sorts on the host (not in
+        the compiled tier, whose body has no host step)."""
         if any(c.type.is_nested for c in page.columns):
+            if not self.eager_tier:
+                raise NotImplementedError(
+                    "ORDER BY of a page with array/map columns in the compiled tier")
             t0 = time.perf_counter()
             out = self._sorted_page_host(page, sort_channels, limit)
             M.NESTED_HOST_SECONDS.inc(time.perf_counter() - t0)
@@ -1478,7 +1551,7 @@ class Executor:
         keys = [(kl, asc, nf) for c, asc, nf in sort_channels
                 for kl in _key_lowereds(page.columns[c])]
         sorted_arrays = sort_ops.sort_payloads(keys, page.sel, _flat_arrays(page.columns))
-        live = (torch.tensor(n, dtype=torch.int64, device=self.device)
+        live = (torch.full((), n, dtype=torch.int64, device=self.device)
                 if page.sel is None else page.sel.sum())
         if limit is not None:
             live = torch.clamp(live, max=limit)

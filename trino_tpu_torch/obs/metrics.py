@@ -78,3 +78,16 @@ SCALAR_HOST_SECONDS = Counter("scalar_host_seconds_total")
 # MATCH_RECOGNIZE matcher with its row conversions, and the ORDER BY of a
 # page holding nested columns
 NESTED_HOST_SECONDS = Counter("nested_host_seconds_total")
+
+# the compiled tier (exec/compiled.py): a run that captures its body into a
+# CUDA graph (warm-up, capture, first replay) is a miss and its wall goes to
+# COMPILE_SECONDS; a replay of the captured graph is a hit and its wall goes
+# to DEVICE_SECONDS. A build also charges its phase-1 dynamic-filter
+# seconds to STAGING_SECONDS above (its scans charge their own loads)
+COMPILE_CACHE_MISSES = Counter("compile_cache_misses_total")
+COMPILE_CACHE_HITS = Counter("compile_cache_hits_total")
+COMPILE_SECONDS = Counter("compile_seconds_total")
+DEVICE_SECONDS = Counter("device_seconds_total")
+# capacity hints the compiled tier repriced from the staged pages
+# (adaptive/reseed.py), by rule
+ADAPTIVE_ADAPTATIONS = Counter("adaptive_adaptations_total")

@@ -7,7 +7,12 @@ division, so days before 1970 land on the right date.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from trino_tpu_torch.data.page import to_device
+
+_MONTH_DAYS = np.array([31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31], np.int64)
 
 
 def _fdiv(a: torch.Tensor, b: int) -> torch.Tensor:
@@ -98,8 +103,7 @@ def trunc_date(days: torch.Tensor, unit: str) -> torch.Tensor:
 
 
 def days_in_month(y: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    lengths = torch.tensor([31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31],
-                           dtype=torch.int64, device=m.device)
+    lengths = to_device(_MONTH_DAYS, m.device)
     base = lengths[(m.to(torch.int64) - 1)]
     leap = ((torch.remainder(y, 4) == 0) & (torch.remainder(y, 100) != 0)) | \
         (torch.remainder(y, 400) == 0)

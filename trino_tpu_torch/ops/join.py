@@ -268,12 +268,11 @@ def dense_probe_unique(
     return torch.clamp(slot - 1, min=0), matched
 
 
-def dense_membership(
-    build_key: Lowered, build_sel: Optional[torch.Tensor],
-    probe_key: Lowered, lo: int, span: int,
+def dense_membership_table(
+    build_key: Lowered, build_sel: Optional[torch.Tensor], lo: int, span: int,
 ) -> torch.Tensor:
-    """Semi-join membership via a boolean table (one scatter — build
-    duplicates all write True — and one bounded gather)."""
+    """Build half of the dense membership test: the boolean table of span
+    ``span`` from ``lo`` (one scatter; build duplicates all write True)."""
     bvals, bvalid = build_key
     live = (torch.ones((bvals.shape[0],), dtype=torch.bool, device=bvals.device)
             if build_sel is None else build_sel)
@@ -281,13 +280,28 @@ def dense_membership(
         live = live & bvalid
     idx = torch.where(live, bvals.to(torch.int64) - lo,
                       torch.full_like(bvals, span, dtype=torch.int64))
-    lut = scatter_drop(span, idx, True, False, torch.bool)
+    return scatter_drop(span, idx, True, False, torch.bool)
+
+
+def dense_membership_probe(lut: torch.Tensor, probe_key: Lowered, lo: int) -> torch.Tensor:
+    """Probe half of the dense membership test: one bounded gather."""
+    span = lut.shape[0]
     pvals, pvalid = probe_key
     v = pvals.to(torch.int64)
     hit = (v >= lo) & (v < lo + span) & lut[(v - lo).clamp(0, span - 1)]
     if pvalid is not None:
         hit = hit & pvalid
     return hit
+
+
+def dense_membership(
+    build_key: Lowered, build_sel: Optional[torch.Tensor],
+    probe_key: Lowered, lo: int, span: int,
+) -> torch.Tensor:
+    """Semi-join membership via a boolean table (one scatter, one bounded
+    gather)."""
+    lut = dense_membership_table(build_key, build_sel, lo, span)
+    return dense_membership_probe(lut, probe_key, lo)
 
 
 def gather_columns(

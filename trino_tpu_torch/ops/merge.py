@@ -38,6 +38,10 @@ BLOCK_PROBE = 1024  # probe keys per tile (the reference's grid step)
 _PAD = 2**31 - 1
 # kernel launches on the CUDA path; the tests and chip_smoke.py read it
 launches = 0
+# launches recorded into a CUDA graph while it was captured: they run only
+# when the graph is replayed, so they are not launches (exec/compiled.py
+# reads this to know what its graph holds)
+captured = 0
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "merge_unique_sorted.cu"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -173,7 +177,7 @@ def merge_unique_sorted(build_sorted: torch.Tensor, probe_sorted: torch.Tensor,
     combined check (the detailed one runs only to name a failure), the
     launch function resolved once, the current stream read as a raw handle,
     and a device switch only when the tensors are not on the current one."""
-    global launches
+    global launches, captured
     b, p = build_sorted, probe_sorted
     if not (b.is_cuda and p.is_cuda and b.dtype is torch.int32 and p.dtype is torch.int32
             and b.dim() == 1 and p.dim() == 1 and b.is_contiguous() and p.is_contiguous()
@@ -202,5 +206,8 @@ def merge_unique_sorted(build_sorted: torch.Tensor, probe_sorted: torch.Tensor,
             err = fn(b.data_ptr(), nb, p.data_ptr(), np_, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"merge_unique_sorted kernel launch failed: CUDA error {err}")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return out

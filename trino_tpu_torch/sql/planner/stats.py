@@ -250,13 +250,19 @@ def grow_overflowed_hints(hints: Dict[str, int], codes, flags) -> Dict[str, int]
     expansion join / exchange whose capacity flag fired (flags may be
     per-device stacks). Returns a new dict, or None when nothing overflowed
     — the shared half of the bucketed-recompile loop (CompiledQuery.run /
-    DistributedQuery.run)."""
-    import numpy as np
+    DistributedQuery.run). The flags are tensors (on any device) or
+    host booleans; every capacity flag is read in one device-to-host read."""
+    import torch
 
+    cap = [(code[len(CAPACITY_ERROR_PREFIX):], flag) for code, flag in zip(codes, flags)
+           if code.startswith(CAPACITY_ERROR_PREFIX)]
+    if not cap:
+        return None
+    anys = [torch.as_tensor(f).reshape(-1).any() for _, f in cap]
+    fired = torch.stack([a.to(anys[0].device) for a in anys]).tolist()
     out = None
-    for code, flag in zip(codes, flags):
-        if code.startswith(CAPACITY_ERROR_PREFIX) and bool(np.asarray(flag).any()):
-            key = code[len(CAPACITY_ERROR_PREFIX):]
+    for (key, _), hit in zip(cap, fired):
+        if hit:
             out = dict(hints) if out is None else out
             out[key] = out.get(key, MIN_CAPACITY) * 2
     return out
