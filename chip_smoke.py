@@ -165,6 +165,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    wall from phase tpch or analytics, the graph pool's bytes beside
    ``torch.cuda.memory_allocated``, recompiles and merge launches.
 
+13. distributed (run after phase compiled, before phase mainpath): a port
+   CoordinatorServer and two in-process WorkerServers on the card, over
+   HTTP on localhost. The EXPLAIN (TYPE DISTRIBUTED) text of the 22 TPC-H
+   queries at SF1 must equal
+   trino_tpu_torch/testdata/distributed_sf1_expected.json (written by the
+   JAX package by planning only: tests/test_torch_cluster.py
+   --write-expected), and at least one plan must hold a [hash] fragment.
+   Then each query runs cold and warm through the statement protocol
+   (StatementClient): rows equal tpch_sf1_expected.json after the
+   protocol's JSON rounding, doubles within a relative 1e-8, the query
+   taking the distributed path; Q6 and Q17 run once more through a dbapi
+   cursor with ``?`` parameters. One line a query: walls, fragments, tasks,
+   join tiers, merge launches (counted from 0 before each run; a cold run's
+   kernel inputs join phase mainpath), the serde's wire, logical and raw
+   bytes, and the host seconds of encode (compress within it), decode
+   (decompress within it) and hash partitioning, summed over the threads
+   that spent them. Last, a second coordinator with two worker subprocesses
+   (``python -m trino_tpu_torch.server.worker --device cuda:0``, each with
+   its own CUDA context and tables) runs Q1, Q17 and Q18: rows checked, and
+   the tasks must have run on both processes. ``distributed_total`` sums
+   the walls beside phase tpch's eager walls.
+
 With ``--profile`` it also runs each query once more (warm) in each of the
 five sessions (tpch, cache, analytics, scalar, nested) under
 torch.profiler and prints the device time by kernel, the device's busy
@@ -977,6 +999,223 @@ def phase_profile_compiled(device, expected, compiled, card):
                     for us, c, k in by_kernel[:8]], "card": card}), flush=True)
 
 
+DIST_PROPS = {"catalog": "tpch", "schema": "sf1", "fused_join_pallas": True}
+DIST_REL_TOL = 1e-8  # doubles at SF1: partial and final sums add in another order
+DIST_PROCESS_QUERIES = (1, 17, 18)
+# Q6 and Q17 with ? for their constants, and the bindings
+DIST_PARAMS = {
+    6: (("date '1994-01-01'", "0.06 - 0.01", "0.06 + 0.01", "< 24"),
+        ("?", "?", "?", "< ?"), None),
+    17: (("'Brand#23'", "'MED BOX'"), ("?", "?"), ("Brand#23", "MED BOX")),
+}
+
+
+def dist_counters():
+    """The counters of the distributed path, and the join tiers."""
+    from trino_tpu_torch.obs import metrics as M
+
+    return {"wire_bytes": M.SERDE_BYTES.value("encode", "zlib")
+            + M.SERDE_BYTES.value("encode", "none"),
+            "logical_bytes": M.SERDE_BYTES.value("encode", "logical"),
+            "raw_bytes": M.SERDE_BYTES.value("encode", "none"),
+            "exchange_bytes": M.EXCHANGE_BYTES.value(),
+            **{f"{k}_s": M.SERDE_SECONDS.value(k)
+               for k in ("encode", "compress", "decode", "decompress")},
+            "partition_s": M.PARTITION_SECONDS.value(),
+            "tasks": M.TASKS_TOTAL.value(),
+            **{f"tier_{t}": M.FUSED_JOIN_SELECTIONS.value(t) for t in TIERS}}
+
+
+def dist_execute(coord, client, sql, device, what):
+    """(rows, wall, counter deltas, query info) of one statement through
+    the coordinator, the merge kernel's launches counted from 0."""
+    from trino_tpu_torch.ops import merge
+
+    merge.launches = 0
+    c0 = dist_counters()
+    sync(device)
+    t0 = time.perf_counter()
+    _cols, rows = client.execute(sql, timeout=600.0)
+    sync(device)
+    wall = time.perf_counter() - t0
+    c1 = dist_counters()
+    delta = {k: c1[k] - c0[k] for k in c0}
+    delta["merge_launches"] = merge.launches
+    info = coord.get_query(client.query_id).info()
+    return rows, wall, delta, info
+
+
+def start_workers(coord_url, n, device):
+    """``n`` worker subprocesses (``python -m trino_tpu_torch.server.worker``),
+    each with its own CUDA context, announcing to ``coord_url``."""
+    import tempfile
+
+    from trino_tpu_torch.server import wire
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env["TRINO_TPU_INTERNAL_SECRET"] = wire.get_secret()
+    procs = []
+    for i in range(n):
+        log = tempfile.TemporaryFile()
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "trino_tpu_torch.server.worker", "--coordinator", coord_url,
+             "--node-id", f"proc{i}", "--device", str(device)],
+            env=env, cwd=here, stdout=subprocess.DEVNULL, stderr=log), log))
+    return procs
+
+
+def stop_workers(procs):
+    for p, _ in procs:
+        p.terminate()
+    for p, log in procs:
+        try:
+            p.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=20)
+        log.close()
+
+
+def phase_distributed(device, expected, dist, cap, eager, card):
+    """The coordinator and two in-process workers on the card: the 22
+    TPC-H queries' distributed plans against the reference's, their rows
+    cold and warm through the statement protocol, Q6 and Q17 through a
+    dbapi cursor with ? parameters; then Q1, Q17 and Q18 through two
+    worker subprocesses."""
+    from trino_tpu_torch.client import dbapi
+    from trino_tpu_torch.client.remote import StatementClient
+    from trino_tpu_torch.server.coordinator import CoordinatorServer
+    from trino_tpu_torch.server.worker import WorkerServer
+
+    t_phase = time.perf_counter()
+    coord = CoordinatorServer(device=device)
+    coord.start()
+    workers = [WorkerServer(coordinator_url=coord.base_url, node_id=f"w{i}", device=device)
+               for i in range(2)]
+    out = {}
+    try:
+        for w in workers:
+            w.start()
+        if not coord.registry.wait_for_workers(2, timeout=30.0):
+            raise AssertionError("distributed: the in-process workers did not announce")
+        client = StatementClient(coord.base_url, {k: str(v) for k, v in DIST_PROPS.items()})
+        hashed = []
+        for q in range(1, 23):
+            sql = expected[str(q)]["sql"]
+            _c, plan = client.execute(f"explain (type distributed) {sql}", timeout=600.0)
+            lines = [r[0] for r in plan]
+            if lines != dist["queries"][str(q)]["explain"]:
+                raise AssertionError(f"Q{q} (distributed): EXPLAIN (TYPE DISTRIBUTED) differs "
+                                     f"from the reference's: {lines[:6]}")
+            if any(" [hash]" in line for line in lines):
+                hashed.append(q)
+        if not hashed:
+            raise AssertionError("distributed: no query's plan has a [hash] fragment")
+        for q in range(1, 23):
+            entry = expected[str(q)]
+            runs = []
+            for label in ("cold", "warm"):
+                cap.now = ("distributed", q, label)
+                rows, wall, d, info = dist_execute(coord, client, entry["sql"], device,
+                                                   f"Q{q}")
+                cap.now = None
+                check_rows(f"Q{q} (distributed, {label})", rows, entry["rows"],
+                           rel_tol=DIST_REL_TOL)
+                if info["fastPath"] != "distributed":
+                    raise AssertionError(f"Q{q} ran {info['fastPath']}, not distributed")
+                runs.append({"run": label, "wall_s": wall,
+                             "fragments": len(info["fragments"]) + 1,
+                             "tasks": sum(len(t) for t in info["fragments"].values()),
+                             **{k: v for k, v in d.items() if not k.startswith("tier_")},
+                             "tiers": {t: d[f"tier_{t}"] for t in TIERS if d[f"tier_{t}"]}})
+            out[q] = runs
+            print("distributed", json.dumps({
+                "query": f"Q{q}", "rows": len(entry["rows"]),
+                "eager_walls_s": eager.get(q), "runs": runs}), flush=True)
+        conn = dbapi.connect(coord.base_url, catalog="tpch", schema="sf1",
+                             fused_join_pallas="True")
+        cur = conn.cursor()
+        import datetime
+        import decimal
+
+        bindings = {6: (datetime.date(1994, 1, 1), decimal.Decimal("0.05"),
+                        decimal.Decimal("0.07"), 24)}
+        for q, (literals, marks, params) in DIST_PARAMS.items():
+            sql = expected[str(q)]["sql"]
+            for lit, mark in zip(literals, marks):
+                if lit not in sql:
+                    raise AssertionError(f"Q{q}: {lit!r} not in its SQL")
+                sql = sql.replace(lit, mark, 1)
+            t0 = time.perf_counter()
+            cur.execute(sql, params if params is not None else bindings[q])
+            wall = time.perf_counter() - t0
+            check_rows(f"Q{q} (dbapi, ? parameters)", jsonable_rows(cur.fetchall()),
+                       expected[str(q)]["rows"], rel_tol=DIST_REL_TOL)
+            print("distributed_dbapi", json.dumps({"query": f"Q{q}", "wall_s": wall}),
+                  flush=True)
+    finally:
+        cap.now = None
+        for w in workers:
+            w.stop()
+        coord.stop()
+    in_process_s = time.perf_counter() - t_phase
+    # two worker processes, each with its own CUDA context and tables
+    t0 = time.perf_counter()
+    coord = CoordinatorServer(device=device)
+    coord.start()
+    procs = start_workers(coord.base_url, 2, device)
+    procs_out = {}
+    try:
+        if not coord.registry.wait_for_workers(2, timeout=180.0):
+            logs = []
+            for p, log in procs:
+                log.seek(0)
+                logs.append(log.read()[-2000:].decode(errors="replace"))
+            raise AssertionError(f"distributed: worker subprocesses did not announce: {logs}")
+        urls = {n["url"] for n in coord.registry.alive()}
+        start_s = time.perf_counter() - t0
+        client = StatementClient(coord.base_url, {k: str(v) for k, v in DIST_PROPS.items()})
+        for q in DIST_PROCESS_QUERIES:
+            entry = expected[str(q)]
+            t1 = time.perf_counter()
+            _c, rows = client.execute(entry["sql"], timeout=600.0)
+            wall = time.perf_counter() - t1
+            check_rows(f"Q{q} (worker processes)", rows, entry["rows"], rel_tol=DIST_REL_TOL)
+            info = coord.get_query(client.query_id).info()
+            ran = {loc.base_url for locs in coord.get_query(client.query_id)
+                   .fragment_tasks.values() for loc in locs}
+            if ran != urls:
+                raise AssertionError(f"Q{q}: tasks ran on {sorted(ran)}, not on both "
+                                     f"worker processes {sorted(urls)}")
+            procs_out[q] = {"wall_s": wall, "tasks": sum(len(t) for t in
+                                                         info["fragments"].values())}
+            print("distributed_processes", json.dumps({"query": f"Q{q}", **procs_out[q]}),
+                  flush=True)
+    finally:
+        stop_workers(procs)
+        coord.stop()
+    summary = {
+        "cold_wall_s": sum(r[0]["wall_s"] for r in out.values()),
+        "warm_wall_s": sum(r[1]["wall_s"] for r in out.values()),
+        "eager_cold_wall_s": sum(w[0] for w in eager.values()),
+        "eager_warm_wall_s": sum(w[1] for w in eager.values()),
+        "hash_queries": [f"Q{q}" for q in hashed],
+        "merge_queries": sorted(f"Q{q}" for q, r in out.items()
+                                if any(x["merge_launches"] for x in r)),
+        **{f"{label}_{k}": sum(r[i][k] for r in out.values())
+           for i, label in ((0, "cold"), (1, "warm"))
+           for k in ("wire_bytes", "logical_bytes", "raw_bytes", "encode_s", "compress_s",
+                     "decode_s", "decompress_s", "partition_s", "tasks")},
+        "in_process_phase_s": in_process_s,
+        "processes_start_s": start_s,
+        "processes_phase_s": time.perf_counter() - t0,
+        "card": card}
+    print("distributed_total", json.dumps(summary), flush=True)
+    return out
+
+
 def check_random(session, device):
     """random() over every lineitem row at SF1, drawn on the card from the
     session's generator."""
@@ -1521,13 +1760,18 @@ def main() -> int:
                        **{name: runs[1]["wall_s"] for name, runs in analytics_runs.items()}}
         compiled_runs = phase_compiled(device, expected, compiled, analytics, eager_walls,
                                        cap, card)
+        dist_runs = phase_distributed(
+            device, expected, testdata("distributed_sf1_expected.json"), cap,
+            {q: (runs[0]["wall_s"], runs[1]["wall_s"]) for q, runs in tpch.items()}, card)
     eager_merge = sorted(int(q) for q, e in expected.items()
                          if e["tiers"].get("merge-pallas", 0) >= 1)
     compiled_merge = sorted(f"Q{q}" for q, e in compiled["queries"].items()
                             if e["tiers"].get("merge-pallas", 0) >= 1)
+    dist_merge = sorted(q for q, runs in dist_runs.items() if runs[0]["merge_launches"])
     rows += phase_mainpath(cap.captured, {
         "tpch": eager_merge, "cache": eager_merge,
-        "compiled_uncached": compiled_merge, "compiled_cached": compiled_merge})
+        "compiled_uncached": compiled_merge, "compiled_cached": compiled_merge,
+        "distributed": dist_merge})
     if profiling:
         tpch_sql = [(f"Q{q}", expected[str(q)]["sql"]) for q in range(1, 23)]
         phase_profile(session, tpch_sql, "uncached")
@@ -1563,9 +1807,11 @@ def main() -> int:
         "statements": statement_launches,
         "nested": sum(run["merge_launches"] for runs in nested_runs.values() for run in runs),
         "compiled": sum(rec["merge_launches"] + rec.get("warm_build", {}).get("merge_launches", 0)
-                        for rec in compiled_runs)}
+                        for rec in compiled_runs),
+        "distributed": sum(run["merge_launches"] for runs in dist_runs.values()
+                           for run in runs)}
     for path, n in launches_by_path.items():
-        if n < 1 and path not in ("analytics", "scalar", "nested"):
+        if n < 1 and path not in ("analytics", "scalar", "nested", "distributed"):
             raise AssertionError(f"the 22 queries of path {path} launched the merge kernel "
                                  f"no time")
     # as since the first slice: the launches of the uncached session's cold

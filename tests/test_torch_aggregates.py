@@ -366,7 +366,7 @@ def test_decimal_overflow_raises_in_both(both):
 
 def test_approx_percentile_splits_partial_final_in_port_planner():
     """The copied planner keeps the reference's split rule and state count
-    (the states themselves wait with the distributed worker)."""
+    (the states themselves: tests/test_torch_fragments.py)."""
     from trino_tpu_torch.sql.planner import plan as P
 
     call = P.AggregateCall("approx_percentile", 0, None, param=0.5)

@@ -125,7 +125,14 @@ NAMED_MODULES = (
     "trino_tpu_torch.connector.sqlite.connector",
     "trino_tpu_torch.connector.filesystem.connector",
     # the nested-type slice
-    "trino_tpu_torch.ops.array_ops", "trino_tpu_torch.exec.match_recognize")
+    "trino_tpu_torch.ops.array_ops", "trino_tpu_torch.exec.match_recognize",
+    # the distributed path
+    "trino_tpu_torch.data.serde", "trino_tpu_torch.sql.planner.fragmenter",
+    "trino_tpu_torch.server.wire", "trino_tpu_torch.server.statemachine",
+    "trino_tpu_torch.server.buffer", "trino_tpu_torch.server.exchange_client",
+    "trino_tpu_torch.server.task", "trino_tpu_torch.server.worker",
+    "trino_tpu_torch.server.fastpath", "trino_tpu_torch.server.coordinator",
+    "trino_tpu_torch.client.remote", "trino_tpu_torch.client.dbapi")
 
 
 def test_port_loads_neither_jax_nor_the_jax_package():

@@ -623,9 +623,220 @@ class Executor:
 
     # ---------------------------------------------------------- aggregation
     def _exec_AggregationNode(self, node: P.AggregationNode) -> Page:
-        if node.step != "single":
-            raise NotImplementedError(f"{node.step} aggregation is not ported")
-        return self.aggregate_page(node, self.execute(node.source))
+        page = self.execute(node.source)
+        if node.step == "partial":
+            return self.aggregate_partial(node, page)
+        if node.step == "final":
+            return self.aggregate_final(node, page)
+        return self.aggregate_page(node, page)
+
+    def aggregate_partial(self, node: P.AggregationNode, page: Page) -> Page:
+        """Partial aggregation: the group keys and each aggregate's
+        accumulator states. State column types follow ``plan._acc_types``,
+        so the page can cross the wire."""
+        payload_arrays, slots = self._agg_payloads(node.aggregates, page.columns)
+        layout, part_sel, payloads_l, sel_l = self.group_structure(
+            node.group_channels, page, payload_arrays)
+        out_cols: List[Column] = []
+        if node.group_channels:
+            out_cols.extend(self._gathered_key_cols(page, node.group_channels, layout))
+        src_types = node.source.output_types
+        for call, slot in zip(node.aggregates, slots):
+            s1 = slot[0] if slot is not None else None
+            hi_l = self._slot_hi(payloads_l, s1)
+            arg1 = self._slot_arg(payloads_l, s1)
+            if hi_l is not None and call.function not in ("sum", "count"):
+                arg1 = self._narrow_lowered_or_flag(arg1, hi_l, sel_l)
+                hi_l = None
+            states = self._partial_states(call, page, layout, arg1, sel_l, hi_l=hi_l)
+            for (sv, valid), st in zip(states, P._acc_types(call, src_types)):
+                out_cols.append(Column(st, sv, None if valid is None else ~valid, None))
+        return Page(out_cols, part_sel)
+
+    def _state_payloads(self, page: Page, k: int, what: str):
+        """The state columns after the ``k`` group keys as sort payloads
+        (values, then validity where a column has NULLs), and each
+        column's slot. Long-decimal two-limb states are refused."""
+        payload_arrays: List = []
+        state_slots: List = []
+        for c in page.columns[k:]:
+            if c.hi is not None:
+                raise NotImplementedError(
+                    f"{what} over long-decimal states beyond int64 (single-process "
+                    "paths support them)")
+            vi = len(payload_arrays)
+            payload_arrays.append(c.values)
+            hv = c.nulls is not None
+            if hv:
+                payload_arrays.append(~c.nulls)
+            state_slots.append((vi, hv, None))
+        return payload_arrays, state_slots
+
+    def aggregate_final(self, node: P.AggregationNode, page: Page) -> Page:
+        """Final aggregation over gathered partial-state pages."""
+        k = len(node.group_channels)
+        payload_arrays, state_slots = self._state_payloads(
+            page, k, "distributed final aggregation")
+        layout, out_sel, payloads_l, sel_l = self.group_structure(
+            list(range(k)), page, payload_arrays)
+        out_cols: List[Column] = []
+        if k:
+            out_cols.extend(self._gathered_key_cols(page, list(range(k)), layout))
+        ci = 0
+        for call in node.aggregates:
+            n_states = P._acc_state_count(call)
+            states = [self._slot_arg(payloads_l, state_slots[ci + j]) for j in range(n_states)]
+            ci += n_states
+            out_cols.append(self._combine_state(call, states, sel_l, layout))
+        return Page(out_cols, out_sel)
+
+    # aggregates whose partial states merge into states of the same dtypes
+    # by plain sum/min/max reductions: what the streaming consumer's
+    # intermediate fold supports
+    MERGEABLE_STATE_FNS = {"count", "sum", "avg", "min", "max", "count_if"}
+
+    def aggregate_intermediate(self, node: P.AggregationNode, page: Page) -> Page:
+        """Merge partial-state pages into one partial-state page of the same
+        schema (the fold step of the streaming consumer: its memory stays
+        the groups plus one batch)."""
+        k = len(node.group_channels)
+        payload_arrays, state_slots = self._state_payloads(page, k, "intermediate merge")
+        layout, out_sel, payloads_l, sel_l = self.group_structure(
+            list(range(k)), page, payload_arrays)
+        out_cols: List[Column] = []
+        if k:
+            out_cols.extend(self._gathered_key_cols(page, list(range(k)), layout))
+        ci = 0
+        for call in node.aggregates:
+            n_states = P._acc_state_count(call)
+            states = [self._slot_arg(payloads_l, state_slots[ci + j]) for j in range(n_states)]
+            types = [page.columns[k + ci + j].type for j in range(n_states)]
+            ci += n_states
+            fn = call.function
+            if fn not in self.MERGEABLE_STATE_FNS or call.distinct:
+                raise NotImplementedError(f"intermediate merge of {fn}")
+            if fn in ("count", "count_if"):
+                merged = [agg_ops.agg_sum(layout, states[0], sel_l, torch.int64)]
+            elif fn == "sum" and n_states == 2:
+                lo_vals, lo_valid = states[0]
+                hi_vals, _ = states[1]
+                (m_hi, m_lo), nonempty = agg_ops.agg_sum_128(
+                    layout, lo_vals, hi_vals, lo_valid, sel_l)
+                merged = [(m_lo, nonempty), (m_hi, None)]
+            elif fn == "sum":
+                merged = [agg_ops.agg_sum(layout, states[0], sel_l,
+                                          torch_dtype(types[0].np_dtype))]
+            elif fn == "avg":
+                merged = [
+                    agg_ops.agg_sum(layout, states[0], sel_l, torch_dtype(types[0].np_dtype)),
+                    agg_ops.agg_sum(layout, states[1], sel_l, torch.int64),
+                ]
+            elif fn == "min":
+                merged = [agg_ops.agg_min(layout, states[0], sel_l)]
+            else:  # max
+                merged = [agg_ops.agg_max(layout, states[0], sel_l)]
+            for (sv, valid), st in zip(merged, types):
+                out_cols.append(Column(st, sv, None if valid is None else ~valid, None))
+        return Page(out_cols, out_sel)
+
+    def _partial_states(self, call: P.AggregateCall, page, layout, arg_l, sel_l, hi_l=None):
+        """State arrays of one aggregate, [(values, valid)], as
+        ``plan._acc_types`` lays them out; ``arg_l``/``sel_l`` in layout
+        space."""
+        if call.distinct:
+            raise NotImplementedError(
+                "DISTINCT aggregates cannot be split partial/final (the planner "
+                "routes them through a gather exchange instead)")
+        fn = call.function
+        sel = sel_l
+        if fn == "count" and call.arg_channel is None:
+            v, _ = agg_ops.agg_count_star(layout, sel)
+            return [(v, None)]
+        arg = arg_l
+        if fn == "count":
+            v, _ = agg_ops.agg_count(layout, arg, sel)
+            return [(v, None)]
+        if fn == "sum":
+            if P._is_long_decimal(call.output_type):
+                # a two-limb running state: exact across the split over p38
+                vals_l, valid_l = arg
+                (s_hi, s_lo), nonempty = agg_ops.agg_sum_128(layout, vals_l, hi_l, valid_l, sel)
+                return [(s_lo, nonempty), (s_hi, None)]
+            return [agg_ops.agg_sum(layout, arg, sel, torch_dtype(call.output_type.np_dtype))]
+        if fn == "avg":
+            base = (torch_dtype(call.output_type.np_dtype) if call.output_type.is_decimal
+                    else torch.float64)
+            s, s_valid = agg_ops.agg_sum(layout, arg, sel, base)
+            cnt, _ = agg_ops.agg_count(layout, arg, sel)
+            return [(s, s_valid), (cnt, None)]
+        if fn == "min":
+            return [agg_ops.agg_min(layout, arg, sel)]
+        if fn == "max":
+            return [agg_ops.agg_max(layout, arg, sel)]
+        if fn in P._VAR_FAMILY:
+            t = page.columns[call.arg_channel].type
+            cnt, mean, m2 = agg_ops.var_states(layout, arg, sel, t.scale if t.is_decimal else 0)
+            return [(cnt, None), (mean, None), (m2, None)]
+        if fn == "approx_percentile":
+            vals_l, valid_l = arg
+            return hll.percentile_states(layout, vals_l, agg_ops._live(sel, valid_l))
+        if fn in ("bool_and", "bool_or"):
+            red = agg_ops.agg_min if fn == "bool_and" else agg_ops.agg_max
+            v, valid = red(layout, arg, sel)
+            return [(v.to(torch.bool), valid)]
+        if fn == "count_if":
+            vals_l, valid_l = arg
+            m = vals_l if valid_l is None else (vals_l & valid_l)
+            v, _ = agg_ops.agg_count_star(layout, m if sel is None else m & sel)
+            return [(v, None)]
+        raise NotImplementedError(fn)
+
+    def _combine_state(self, call: P.AggregateCall, states, sel, layout) -> Column:
+        """One aggregate's result from its gathered states; ``states`` are
+        (values, valid) pairs in layout space, as is ``sel``."""
+        fn = call.function
+        out_t = call.output_type
+
+        def col(v, valid, t=out_t):
+            return Column(t, v, None if valid is None else ~valid, None)
+
+        if fn in ("count", "count_if"):
+            v, _ = agg_ops.agg_sum(layout, states[0], sel, torch.int64)
+            return Column(T.BIGINT, v, None, None)
+        if fn == "sum":
+            if P._is_long_decimal(out_t):
+                lo_v, lo_valid = states[0]
+                hi_v, _ = states[1]
+                (s_hi, s_lo), nonempty = agg_ops.agg_sum_128(layout, lo_v, hi_v, lo_valid, sel)
+                return Column(out_t, s_lo, ~nonempty, None, hi=s_hi)
+            return col(*agg_ops.agg_sum(layout, states[0], sel, torch_dtype(out_t.np_dtype)))
+        if fn == "avg":
+            base = torch_dtype(out_t.np_dtype) if out_t.is_decimal else torch.float64
+            s, _ = agg_ops.agg_sum(layout, states[0], sel, base)
+            cnt, _ = agg_ops.agg_sum(layout, states[1], sel, torch.int64)
+            return col(*agg_ops.finish_avg(s, cnt, out_t))
+        if fn == "min":
+            return col(*agg_ops.agg_min(layout, states[0], sel))
+        if fn == "max":
+            return col(*agg_ops.agg_max(layout, states[0], sel))
+        if fn in P._VAR_FAMILY:
+            cnt_i, m = states[0]
+            if sel is not None:
+                m = sel if m is None else (m & sel)
+            cnt, mean, m2 = agg_ops.combine_var_states(
+                layout, cnt_i, states[1][0], states[2][0], m)
+            return col(*agg_ops.finish_var(cnt, mean, m2, fn))
+        if fn == "approx_percentile":
+            cnt_state = states[-1]
+            if sel is not None:
+                cv, cm = cnt_state
+                cnt_state = (torch.where(sel, cv, torch.zeros_like(cv)), cm)
+            return col(*hll.percentile_merge(layout, states[:-1], cnt_state, call.param))
+        if fn in ("bool_and", "bool_or"):
+            red = agg_ops.agg_min if fn == "bool_and" else agg_ops.agg_max
+            v, valid = red(layout, states[0], sel)
+            return col(v.to(torch.bool), valid, T.BOOLEAN)
+        raise NotImplementedError(fn)
 
     def group_structure(self, group_channels: List[int], page: Page, payloads=(),
                         force_sort: bool = False):

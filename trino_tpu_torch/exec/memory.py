@@ -116,26 +116,30 @@ def _mix64_np(x):
         return x ^ (x >> np.uint64(31))
 
 
-def partition_page_host(page, key_channels, parts: int):
+def partition_page_host(page, key_channels, parts: int, pid=None):
     """Split a page into ``parts`` hash partitions by its key columns, on
-    the host (the spill write path): equal keys co-locate, dead rows are
-    dropped. Returns ``parts`` compacted Pages on the page's device (a
-    1-row all-dead page where a partition is empty)."""
+    the host (the spill write path; a distributed producer passes its own
+    partition ids, ``pid``): equal keys co-locate, dead rows are dropped.
+    Returns ``parts`` compacted Pages on the page's device (a 1-row
+    all-dead page where a partition is empty)."""
     from trino_tpu_torch.data.page import Page, host_take, to_numpy
 
     n = page.num_rows
     live = np.ones(n, bool) if page.sel is None else to_numpy(page.sel)
-    h = np.zeros(n, np.uint64)
-    for ch in key_channels:
-        col = page.columns[ch]
-        # the low limb only: equal values always share it, while a column's
-        # high limb is present on one join side and not the other
-        # depending on the data
-        k = _mix64_np(to_numpy(col.values).astype(np.int64))
-        if col.nulls is not None:
-            k = np.where(to_numpy(col.nulls), np.uint64(_NULL_HASH), k)
-        h = _mix64_np(h ^ k)
-    pid = (h % np.uint64(parts)).astype(np.int64)
+    if pid is None:
+        h = np.zeros(n, np.uint64)
+        for ch in key_channels:
+            col = page.columns[ch]
+            # the low limb only: equal values always share it, while a
+            # column's high limb is present on one join side and not the
+            # other depending on the data
+            k = _mix64_np(to_numpy(col.values).astype(np.int64))
+            if col.nulls is not None:
+                k = np.where(to_numpy(col.nulls), np.uint64(_NULL_HASH), k)
+            h = _mix64_np(h ^ k)
+        pid = (h % np.uint64(parts)).astype(np.int64)
+    else:
+        pid = np.asarray(pid)
     out = []
     for p in range(parts):
         idx = np.nonzero(live & (pid == p))[0]

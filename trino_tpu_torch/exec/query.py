@@ -214,11 +214,12 @@ def explain_query(session, sql, mode: str = "logical", stmt=None) -> str:
         if isinstance(stmt, ast.Explain):
             mode = stmt.mode
             stmt = stmt.statement
+    root = _plan(session, stmt)
     if mode == "distributed":
-        raise NotImplementedError(
-            "EXPLAIN (TYPE DISTRIBUTED) is not ported: it waits for plan "
-            "fragments, sql/planner/fragmenter.py (ROADMAP queue 1, item 5)")
-    return format_plan(_plan(session, stmt))
+        from trino_tpu_torch.sql.planner.fragmenter import fragment_plan, format_fragments
+
+        return format_fragments(fragment_plan(root, session))
+    return format_plan(root)
 
 
 def explain_analyze(session, stmt, verbose: bool = False) -> str:

@@ -91,3 +91,18 @@ DEVICE_SECONDS = Counter("device_seconds_total")
 # capacity hints the compiled tier repriced from the staged pages
 # (adaptive/reseed.py), by rule
 ADAPTIVE_ADAPTATIONS = Counter("adaptive_adaptations_total")
+
+# the distributed path (data/serde.py, server/): wire bytes by direction
+# (encode | decode) and codec (zlib | none | logical, the uncompressed
+# block bytes); host seconds of the serde by step (encode and decode in
+# whole, device<->host copies included; compress and decompress, zlib's
+# share of them) and of the producers' hash partitioning; exchange bytes
+# pulled; tasks created on workers
+SERDE_BYTES = Counter("serde_bytes_total")
+SERDE_SECONDS = Counter("serde_seconds_total")
+PARTITION_SECONDS = Counter("partition_seconds_total")
+EXCHANGE_BYTES = Counter("exchange_bytes_total")
+TASKS_TOTAL = Counter("tasks_total")
+# the keep-alive pool of server/wire.py
+HTTP_CONNECTIONS_OPENED = Counter("http_connections_opened_total")
+HTTP_CONNECTION_REUSES = Counter("http_connection_reuses_total")

@@ -8,15 +8,16 @@ over its pair, and two monotonic segment sums per outer group give the
 harmonic sum over present buckets and their count (an absent bucket adds
 2^0). The estimate is alpha_m m^2 / denominator with the linear-counting
 correction below 2.5 m. approx_percentile reads the nearest rank of a
-(group, value) sort: exact, not a sketch.
+(group, value) sort: exact, not a sketch. Split over the distributed
+path's partial and final steps, it ships a mergeable summary instead
+(``percentile_states``: QUANTILE_SAMPLES values at evenly spaced local
+ranks and the live count a group; ``percentile_merge``: a weighted
+quantile over every producer's summary).
 
 Torch has no full uint64 arithmetic, so the 64-bit hash words live in
 int64 tensors: a wrapping multiply is the same bit pattern modulo 2^64,
 right shifts are logical (``_lsr``) and the one unsigned comparison (in
 ``_rho``) treats a word with its top bit set as the largest.
-
-The partial-step states of the distributed path (``percentile_states``,
-``percentile_merge``) are not ported.
 """
 from __future__ import annotations
 
@@ -118,18 +119,7 @@ def approx_percentile(layout: seg.GroupLayout, vals_l: torch.Tensor, m_l,
                       p: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-group percentile by nearest rank over a (group, value) sort.
     ``vals_l``/``m_l`` are in layout space (group_structure payloads)."""
-    if vals_l.dtype.is_floating_point:
-        sentinel = float("inf")
-    else:
-        sentinel = torch.iinfo(vals_l.dtype).max
-    x = vals_l if m_l is None else torch.where(m_l, vals_l, torch.full_like(vals_l, sentinel))
-    if layout.is_direct:
-        (_, x_by_group), _ = ranks.lex_sort([layout.gids, x])
-        starts, cnt = _direct_ranges(layout, m_l)
-    else:
-        (_, x_by_group), _ = ranks.lex_sort([layout.gid_sorted, x])
-        starts = layout.starts
-        cnt = seg.seg_count(layout, m_l)
+    x_by_group, starts, cnt = _by_group(layout, vals_l, m_l)
     nn = x_by_group.shape[0]
     rank = (torch.ceil(p * cnt.to(torch.float64)).to(torch.int64) - 1).clamp(min=0)
     pos = (starts.to(torch.int64) + rank).clamp(0, nn - 1)
@@ -143,3 +133,83 @@ def _direct_ranges(layout: seg.GroupLayout, m_l):
     starts = torch.cat([torch.zeros((1,), dtype=torch.int64, device=cnt_all.device),
                         torch.cumsum(cnt_all, 0)[:-1]]).to(torch.int32)
     return starts, seg.seg_count(layout, m_l)
+
+
+# Mergeable quantile-summary width (the reference's QUANTILE_SAMPLES: 64
+# rank intervals, a worst-case rank error of about 1/128 after merging)
+QUANTILE_SAMPLES = 65
+
+
+def _by_group(layout: seg.GroupLayout, vals_l: torch.Tensor, m_l):
+    """(values sorted by (group, value) with dead rows as the largest
+    value, each slot's start, each slot's live count)."""
+    if vals_l.dtype.is_floating_point:
+        sentinel = float("inf")
+    else:
+        sentinel = torch.iinfo(vals_l.dtype).max
+    x = vals_l if m_l is None else torch.where(m_l, vals_l, torch.full_like(vals_l, sentinel))
+    if layout.is_direct:
+        (_, x_by_group), _ = ranks.lex_sort([layout.gids, x])
+        starts, cnt = _direct_ranges(layout, m_l)
+    else:
+        (_, x_by_group), _ = ranks.lex_sort([layout.gid_sorted, x])
+        starts = layout.starts
+        cnt = seg.seg_count(layout, m_l)
+    return x_by_group, starts, cnt
+
+
+def percentile_states(layout: seg.GroupLayout, vals_l: torch.Tensor, m_l):
+    """Partial approx_percentile state: per group, QUANTILE_SAMPLES values
+    at evenly spaced local ranks (each marked live where the group has a
+    live row) and the live count. ``vals_l``/``m_l`` are in layout space."""
+    x_by_group, starts, cnt = _by_group(layout, vals_l, m_l)
+    nn = x_by_group.shape[0]
+    device = vals_l.device
+    j = torch.arange(QUANTILE_SAMPLES, dtype=torch.float64, device=device) / (QUANTILE_SAMPLES - 1)
+    ranks_ = torch.round(
+        j[None, :] * (cnt - 1).clamp(min=0).to(torch.float64)[:, None]).to(torch.int64)
+    pos = (starts.to(torch.int64)[:, None] + ranks_).clamp(0, max(nn - 1, 0))
+    samples = x_by_group[pos]  # [capacity, SAMPLES]
+    live = cnt > 0
+    out = [(samples[:, k], live) for k in range(QUANTILE_SAMPLES)]
+    out.append((cnt, None))
+    return out
+
+
+def percentile_merge(layout: seg.GroupLayout, samples, cnt_state, p: float):
+    """Final approx_percentile: the lower weighted percentile over every
+    producer's summary. Each partial row spreads its SAMPLES values at
+    weight count/SAMPLES; one stable (group, value) sort and a
+    cumulative-weight search a group slot. ``samples``/``cnt_state`` are
+    layout-space payloads of the final grouping."""
+    S = len(samples)
+    cnt_l, _ = cnt_state
+    vals = torch.stack([v for v, _ in samples], dim=1)  # [n_l, S]
+    valid0 = samples[0][1]
+    live_row = cnt_l > 0
+    if valid0 is not None:
+        live_row = live_row & valid0
+    w_row = torch.where(live_row, cnt_l.to(torch.float64) / S,
+                        torch.zeros(cnt_l.shape, dtype=torch.float64, device=cnt_l.device))
+    if layout.is_direct:
+        gid_l = layout.gids
+        starts_l, _ = _direct_ranges(layout, None)
+        ends_l = starts_l.to(torch.int64) + seg.seg_count(layout, None)
+    else:
+        gid_l = layout.gid_sorted
+        starts_l = layout.starts
+        ends_l = layout.ends
+    gid2 = torch.repeat_interleave(gid_l, S)
+    x2 = vals.reshape(-1)
+    w2 = torch.repeat_interleave(w_row, S)
+    (_, x_s), (w_s,) = ranks.lex_sort([gid2, x2], [w2])
+    c = torch.cumsum(w_s, 0)
+    c0 = torch.cat([torch.zeros((1,), dtype=c.dtype, device=c.device), c])
+    e_start = starts_l.to(torch.int64) * S
+    e_end = ends_l.to(torch.int64) * S
+    w_group = c0[e_end] - c0[e_start]
+    target = c0[e_start] + p * w_group
+    pos = torch.searchsorted(c, target, side="left")
+    pos = torch.minimum(torch.maximum(pos, e_start), torch.maximum(e_end - 1, e_start))
+    out = x_s[pos.clamp(0, max(x_s.shape[0] - 1, 0))]
+    return out, w_group > 0

@@ -42,6 +42,9 @@ launches = 0
 # when the graph is replayed, so they are not launches (exec/compiled.py
 # reads this to know what its graph holds)
 captured = 0
+# the counts are read-modify-writes from every thread that launches (the
+# tasks of a worker run in threads of one process)
+_count_lock = threading.Lock()
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "merge_unique_sorted.cu"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -177,7 +180,6 @@ def merge_unique_sorted(build_sorted: torch.Tensor, probe_sorted: torch.Tensor,
     combined check (the detailed one runs only to name a failure), the
     launch function resolved once, the current stream read as a raw handle,
     and a device switch only when the tensors are not on the current one."""
-    global launches, captured
     b, p = build_sorted, probe_sorted
     if not (b.is_cuda and p.is_cuda and b.dtype is torch.int32 and p.dtype is torch.int32
             and b.dim() == 1 and p.dim() == 1 and b.is_contiguous() and p.is_contiguous()
@@ -206,8 +208,15 @@ def merge_unique_sorted(build_sorted: torch.Tensor, probe_sorted: torch.Tensor,
             err = fn(b.data_ptr(), nb, p.data_ptr(), np_, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"merge_unique_sorted kernel launch failed: CUDA error {err}")
-    if torch.cuda.is_current_stream_capturing():
-        captured += 1
-    else:
-        launches += 1
+    _count_launch(torch.cuda.is_current_stream_capturing())
     return out
+
+
+def _count_launch(capturing: bool) -> None:
+    """One launch into ``captured`` (recorded into a graph) or ``launches``."""
+    global launches, captured
+    with _count_lock:
+        if capturing:
+            captured += 1
+        else:
+            launches += 1

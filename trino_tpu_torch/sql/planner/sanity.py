@@ -340,6 +340,70 @@ _NODE_CHECKS = {
 
 
 def validate_fragments(fragments: List, phase: str = "fragmentation") -> None:
-    """Fragment-level invariants (trino_tpu/sql/planner/sanity.py). The
-    port runs the local path only and has no fragmenter."""
-    raise NotImplementedError("plan fragments are not ported")
+    """Fragment-level invariants over the whole fragment list: per-root
+    tree validation (with sharing caught across fragments), unique ids,
+    RemoteSourceNode.types consistency with the producing fragment, and
+    fragment-DAG acyclicity."""
+    from trino_tpu_torch.sql.planner.fragmenter import RemoteSourceNode
+
+    by_id: Dict[int, object] = {}
+    for f in fragments:
+        if f.id in by_id:
+            _fail(f.root, "duplicate-fragment-id", phase,
+                  f"fragment id {f.id} appears more than once")
+        by_id[f.id] = f
+    seen: Dict[int, P.PlanNode] = {}
+    edges: Dict[int, List[int]] = {}
+    for f in fragments:
+        validate_plan(f.root, phase=phase, _seen=seen)
+        deps = []
+        for node in P.walk_plan(f.root):
+            if not isinstance(node, RemoteSourceNode):
+                continue
+            producer = by_id.get(node.fragment_id)
+            if producer is None:
+                _fail(node, "unknown-fragment", phase,
+                      f"consumes fragment {node.fragment_id}, which does "
+                      "not exist")
+            if list(node.types) != producer.root.output_types:
+                _fail(node, "stale-remote-source", phase,
+                      f"declares types {node.types} but fragment "
+                      f"{node.fragment_id} produces "
+                      f"{producer.root.output_types}")
+            deps.append(node.fragment_id)
+        edges[f.id] = deps
+    # acyclicity: iterative DFS with a WHITE/GRAY/BLACK coloring
+    color: Dict[int, int] = {}
+    for start in edges:
+        if color.get(start):
+            continue
+        stack = [(start, iter(edges.get(start, ())))]
+        color[start] = 1
+        while stack:
+            fid, it = stack[-1]
+            nxt = next(it, None)
+            if nxt is None:
+                color[fid] = 2
+                stack.pop()
+                continue
+            c = color.get(nxt, 0)
+            if c == 1:
+                _fail(by_id[nxt].root, "fragment-cycle", phase,
+                      f"fragment {nxt} reachable from itself through the "
+                      "exchange graph")
+            if c == 0:
+                color[nxt] = 1
+                stack.append((nxt, iter(edges.get(nxt, ()))))
+
+
+def validate_adapted(frag, new_fragments: List, by_id: Dict[int, object],
+                     phase: str) -> None:
+    """Validation entry point for the adaptive re-planner: validate the
+    full post-rewrite fragment graph (the adapted consumer, the new
+    producers, and everything else still registered) so a bad runtime
+    rewrite is caught BEFORE any task is created from it."""
+    frags = dict(by_id)
+    frags[frag.id] = frag
+    for f in new_fragments:
+        frags[f.id] = f
+    validate_fragments(list(frags.values()), phase=phase)
