@@ -185,7 +185,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``python -m trino_tpu_torch.server.worker --device cuda:0``, each with
    its own CUDA context and tables) runs Q1, Q17 and Q18: rows checked, and
    the tasks must have run on both processes. ``distributed_total`` sums
-   the walls beside phase tpch's eager walls.
+   the walls beside phase tpch's eager walls. On the same in-process
+   cluster, before the subprocesses, the repeat-query path: Q1 and Q18 with
+   ``result_cache_enabled`` twice each (a MISS, then a HIT read from the
+   X-Trino-Tpu-Cache header that creates no task; rows as expected), a
+   SELECT over a memory table that misses after an INSERT, a repeated Q6
+   served from the plan cache (no optimize span), a materialized view of
+   the Q3 shape below whose refresh runs distributed and a SELECT that
+   reads it (rows as phase matview's reference), Q6 and Q17 through a
+   dbapi cursor with ? and the result cache on (binding A twice, binding B
+   twice: MISS, HIT, MISS, HIT, each warm EXECUTE a plan-cache hit), arrays
+   and maps of decimals and dates through the protocol (the flat columns'
+   strings), and 32 concurrent Q6 of which one executes and 31 are
+   answered from its result (``distributed_caches``).
+
+14. matview (after phase distributed, before phase mainpath): in a cached
+   session at SF1, Q3's join and aggregate of microbench/matview.py with
+   its ORDER BY and LIMIT 10, cold and warm; then CREATE MATERIALIZED VIEW
+   q3rev over the join and aggregate (storage in the memory catalog): its
+   refresh must warm every stored row onto the card (``MV_WARM_ROWS``, 0
+   ``MV_WARM_FAILURES``), the next two runs must substitute the view with
+   rows bit for bit the base runs', the first a device-cache hit staging 0
+   rows and 0 host-to-device bytes, EXPLAIN must equal the reference's
+   (``[mv: tpch.sf1.q3rev]`` under its substitution header), and with
+   ``materialized_view_substitution`` off the base plan must run. In an
+   uncached session, a view of Q18's join and aggregate without its ORDER
+   BY and LIMIT, whose refresh runs eager Q18's plan: its join tiers and
+   row count must equal the reference's and its merge launches are the
+   path's (inputs to phase mainpath); Q18 then reads it with the expected
+   rows. Last, the staleness matrix of microbench/matview.py at tiny on
+   the card (``staleness_matrix``): 0 incorrect substitutions. The answers
+   come from trino_tpu_torch/testdata/matview_sf1_expected.json (written
+   by the JAX package: tests/test_torch_matview.py --write-expected).
 
 With ``--profile`` it also runs each query once more (warm) in each of the
 five sessions (tpch, cache, analytics, scalar, nested) under
@@ -1078,12 +1109,165 @@ def stop_workers(procs):
         log.close()
 
 
-def phase_distributed(device, expected, dist, cap, eager, card):
+def dist_timed(client, sql, device):
+    """(rows, wall, tasks created) of one statement through ``client``."""
+    from trino_tpu_torch.obs import metrics as M
+
+    t0 = M.TASKS_TOTAL.value()
+    sync(device)
+    t = time.perf_counter()
+    _cols, rows = client.execute(sql, timeout=600.0)
+    sync(device)
+    return rows, time.perf_counter() - t, M.TASKS_TOTAL.value() - t0
+
+
+def dist_caches(coord, device, expected, mvexp, card):
+    """The repeat-query path on the coordinator and its two workers: the
+    result cache (Q1 and Q18 MISS then HIT, the hit creating no task; a
+    memory table's SELECT missing after an INSERT; 32 concurrent Q6 with
+    one execution), the plan cache on a repeat, a view whose refresh runs
+    distributed and a SELECT reading it, Q6 and Q17 through a dbapi
+    cursor with ? (a warm EXECUTE a plan-cache hit; a new binding a MISS,
+    a repeated one a HIT), and arrays and maps of decimals and dates
+    through the protocol."""
+    import threading
+
+    from trino_tpu_torch.client import dbapi
+    from trino_tpu_torch.client.remote import StatementClient
+    from trino_tpu_torch.obs import metrics as M
+
+    props = {k: str(v) for k, v in DIST_PROPS.items()}
+    out = {"card": card}
+    rc = StatementClient(coord.base_url, {**props, "result_cache_enabled": "true"})
+    for q in (1, 18):
+        runs = []
+        for want in ("MISS", "HIT"):
+            rows, wall, tasks = dist_timed(rc, expected[str(q)]["sql"], device)
+            check_rows(f"Q{q} (result cache, {want})", rows, expected[str(q)]["rows"],
+                       rel_tol=DIST_REL_TOL)
+            if rc.cache_status != want or (tasks == 0) != (want == "HIT"):
+                raise AssertionError(f"Q{q} (result cache): {rc.cache_status} creating {tasks} "
+                                     f"tasks, want {want}")
+            runs.append({"status": rc.cache_status, "wall_s": wall, "tasks": tasks})
+        out[f"Q{q}"] = runs
+    pc = StatementClient(coord.base_url, props)
+    h0 = M.PLAN_CACHE_HITS.value()
+    for _ in range(2):
+        rows, wall, _t = dist_timed(pc, expected["6"]["sql"], device)
+        check_rows("Q6 (plan cache)", rows, expected["6"]["rows"], rel_tol=DIST_REL_TOL)
+    spans = {sp["name"] for sp in coord.get_query(pc.query_id).tracer.to_dicts()}
+    if M.PLAN_CACHE_HITS.value() - h0 < 1 or "plan-cache/hit" not in spans or "optimize" in spans:
+        raise AssertionError(f"Q6 repeated: no plan-cache hit ({sorted(spans)})")
+    out["plan_cache_hits"] = M.PLAN_CACHE_HITS.value() - h0
+    mc = StatementClient(coord.base_url, {"catalog": "memory", "schema": "default",
+                                          "result_cache_enabled": "true"})
+    mc.execute("create table dist_rc as select o_orderkey, o_totalprice from tpch.tiny.orders")
+    sel = "select count(*), sum(o_totalprice) from dist_rc"
+    seen = []
+    for stmt in (sel, sel, "insert into dist_rc values (0, 1.00)", sel, sel):
+        _c, rows = mc.execute(stmt, timeout=600.0)
+        if stmt == sel:
+            seen.append((mc.cache_status, rows[0][0]))
+    mc.execute("drop table dist_rc")
+    if seen != [("MISS", 15000), ("HIT", 15000), ("MISS", 15001), ("HIT", 15001)]:
+        raise AssertionError(f"memory table under the result cache: {seen}")
+    # a view whose refresh runs distributed, then a SELECT reading it
+    vc = StatementClient(coord.base_url, props)
+    created, refresh_s, tasks = dist_timed(vc, "create materialized view q3dist as " + mv_q3(),
+                                           device)
+    base = mv_q3() + MV_Q3_TAIL
+    rows, wall, _t = dist_timed(vc, base, device)
+    check_rows("Q3 from q3dist", rows, mvexp["q3"]["rows"])
+    if tasks == 0 or vc.stats.get("mvNames") != [f"tpch.{DIST_PROPS['schema']}.q3dist"]:
+        raise AssertionError(f"q3dist: refresh created {tasks} tasks, the SELECT read "
+                             f"{vc.stats.get('mvNames')}")
+    vc.execute("drop materialized view q3dist")
+    out["q3dist"] = {"create_s": refresh_s, "refresh_tasks": tasks,
+                     "substituted_wall_s": wall}
+    # Q6 and Q17 with ? through a dbapi cursor, the result cache on
+    conn = dbapi.connect(coord.base_url, catalog="tpch", schema=DIST_PROPS["schema"],
+                         fused_join_pallas="True", result_cache_enabled="true")
+    cur = conn.cursor()
+    import datetime
+    import decimal
+
+    bindings = {6: [(datetime.date(1994, 1, 1), decimal.Decimal("0.05"),
+                     decimal.Decimal("0.07"), 24),
+                    (datetime.date(1995, 1, 1), decimal.Decimal("0.05"),
+                     decimal.Decimal("0.07"), 24)],
+                17: [("Brand#23", "MED BOX"), ("Brand#12", "MED BOX")]}
+    for q, (literals, marks, _params) in DIST_PARAMS.items():
+        sql = expected[str(q)]["sql"]
+        for lit, mark in zip(literals, marks):
+            sql = sql.replace(lit, mark, 1)
+        runs = []
+        for i, binding in enumerate((bindings[q][0], bindings[q][0], bindings[q][1],
+                                     bindings[q][1])):
+            h0 = M.PLAN_CACHE_HITS.value()
+            t0 = time.perf_counter()
+            cur.execute(sql, binding)
+            runs.append({"status": cur.cache_status, "wall_s": time.perf_counter() - t0,
+                         "plan_cache_hits": M.PLAN_CACHE_HITS.value() - h0})
+            got = jsonable_rows(cur.fetchall())
+            if i < 2:
+                check_rows(f"Q{q} (dbapi, result cache)", got, expected[str(q)]["rows"],
+                           rel_tol=DIST_REL_TOL)
+            elif i == 2:
+                new_rows = got
+            elif got != new_rows:
+                raise AssertionError(f"Q{q} (dbapi): a repeated binding gave other rows")
+        if [r["status"] for r in runs] != ["MISS", "HIT", "MISS", "HIT"] or \
+                runs[1]["plan_cache_hits"] != 1 or runs[2]["plan_cache_hits"] != 1:
+            raise AssertionError(f"Q{q} (dbapi): {runs}")
+        out[f"dbapi_Q{q}"] = runs
+    # arrays and maps of decimals and dates through the protocol
+    _c, flat = pc.execute("select o_orderkey, o_totalprice, o_orderdate from orders "
+                          "where o_custkey = 1", timeout=600.0)
+    _c, nested = pc.execute("select array_agg(o_totalprice), array_agg(o_orderdate), "
+                            "map_agg(o_orderkey, o_totalprice) from orders where o_custkey = 1",
+                            timeout=600.0)
+    (prices, dates, by_key), = nested
+    if sorted(prices) != sorted(r[1] for r in flat) or \
+            sorted(dates) != sorted(r[2] for r in flat) or \
+            by_key != {str(r[0]): r[1] for r in flat}:
+        raise AssertionError(f"nested values through the protocol: {nested[0]} vs {flat}")
+    # 32 identical queries at once: one execution, 31 answered from it
+    results = []
+    m0 = (M.RESULT_CACHE_MISSES.value(), M.RESULT_CACHE_HITS.value(),
+          M.RESULT_CACHE_SINGLE_FLIGHT_WAITS.value())
+    sql6 = expected["6"]["sql"]
+
+    def run_one():
+        client = StatementClient(coord.base_url, {**props, "result_cache_enabled": "true"})
+        _cols, rows = client.execute(sql6, timeout=600.0)
+        results.append((client.cache_status, rows))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run_one) for _ in range(32)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600.0)
+    flight = {"wall_s": time.perf_counter() - t0,
+              "misses": M.RESULT_CACHE_MISSES.value() - m0[0],
+              "hits": M.RESULT_CACHE_HITS.value() - m0[1],
+              "waits": M.RESULT_CACHE_SINGLE_FLIGHT_WAITS.value() - m0[2]}
+    if len(results) != 32 or sorted(s for s, _ in results) != ["HIT"] * 31 + ["MISS"] or \
+            (flight["misses"], flight["hits"]) != (1, 31):
+        raise AssertionError(f"32 concurrent Q6: {flight}, {[s for s, _ in results]}")
+    for _s, rows in results:
+        check_rows("Q6 (32 at once)", rows, expected["6"]["rows"], rel_tol=DIST_REL_TOL)
+    out["single_flight"] = flight
+    print("distributed_caches", json.dumps(out), flush=True)
+    return out
+
+
+def phase_distributed(device, expected, dist, mvexp, cap, eager, card):
     """The coordinator and two in-process workers on the card: the 22
     TPC-H queries' distributed plans against the reference's, their rows
     cold and warm through the statement protocol, Q6 and Q17 through a
-    dbapi cursor with ? parameters; then Q1, Q17 and Q18 through two
-    worker subprocesses."""
+    dbapi cursor with ? parameters, the caches and views (``dist_caches``);
+    then Q1, Q17 and Q18 through two worker subprocesses."""
     from trino_tpu_torch.client import dbapi
     from trino_tpu_torch.client.remote import StatementClient
     from trino_tpu_torch.server.coordinator import CoordinatorServer
@@ -1155,6 +1339,9 @@ def phase_distributed(device, expected, dist, cap, eager, card):
                        expected[str(q)]["rows"], rel_tol=DIST_REL_TOL)
             print("distributed_dbapi", json.dumps({"query": f"Q{q}", "wall_s": wall}),
                   flush=True)
+        t0 = time.perf_counter()
+        caches = dist_caches(coord, device, expected, mvexp, card)
+        caches_s = time.perf_counter() - t0
     finally:
         cap.now = None
         for w in workers:
@@ -1209,10 +1396,229 @@ def phase_distributed(device, expected, dist, cap, eager, card):
            for k in ("wire_bytes", "logical_bytes", "raw_bytes", "encode_s", "compress_s",
                      "decode_s", "decompress_s", "partition_s", "tasks")},
         "in_process_phase_s": in_process_s,
+        "caches_s": caches_s,
+        "result_cache_hit_wall_s": {q: caches[q][1]["wall_s"] for q in ("Q1", "Q18")},
         "processes_start_s": start_s,
         "processes_phase_s": time.perf_counter() - t0,
         "card": card}
     print("distributed_total", json.dumps(summary), flush=True)
+    return out
+
+
+# phase matview: the Q3 join and aggregate of microbench/matview.py (about
+# 11.6K groups at SF1), its base query's ORDER BY and LIMIT, and Q18's join
+# and aggregate without its ORDER BY and LIMIT (its sum aliased: a view's
+# columns are named)
+MV_PROPS = {"catalog": "tpch", "schema": "sf1", "fused_join_pallas": True}
+MV_Q3_AGG = """
+select l_orderkey, o_orderdate, o_shippriority,
+       sum(l_extendedprice * (1 - l_discount)) as revenue
+from {customer}, {orders}, {lineitem}
+where c_mktsegment = 'BUILDING' and c_custkey = o_custkey
+  and l_orderkey = o_orderkey and o_orderdate < date '1995-03-15'
+  and l_shipdate > date '1995-03-15'
+group by l_orderkey, o_orderdate, o_shippriority
+"""
+MV_Q3_TAIL = " order by revenue desc, o_orderdate, l_orderkey limit 10"
+MV_Q18_AGG = """
+select c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice, sum(l_quantity) as sum_qty
+from customer, orders, lineitem
+where o_orderkey in (
+        select l_orderkey from lineitem
+        group by l_orderkey
+        having sum(l_quantity) > 300)
+    and c_custkey = o_custkey
+    and o_orderkey = l_orderkey
+group by c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
+"""
+
+
+def mv_q3(**tables):
+    names = {t: tables.get(t, t) for t in ("customer", "orders", "lineitem")}
+    return MV_Q3_AGG.format(**names)
+
+
+def mv_hits(session):
+    return sum(mv.hits for mv in session.matviews.snapshot())
+
+
+def staleness_matrix(device, source_schema="tiny"):
+    """The staleness matrix of microbench/matview.py over memory copies of
+    customer, orders and lineitem in a cached session on ``device``: after
+    each of INSERT, UPDATE, DELETE and DROP + recreate on a base table the
+    view must not substitute and the rows must equal, bit for bit, the base
+    query's with substitution off; a REFRESH must make it substitute again.
+    A substitution while stale counts in
+    ``incorrect_freshness_substitutions``; any step that fails raises."""
+    from trino_tpu_torch import Session
+
+    s = Session({"catalog": "memory", "schema": "default", "device_cache_enabled": True},
+                device=device)
+    for t in ("customer", "orders", "lineitem"):
+        s.execute(f"create table {t} as select * from tpch.{source_schema}.{t}")
+    sql = mv_q3() + MV_Q3_TAIL
+    s.execute("create materialized view q3m as " + mv_q3())
+
+    def base_truth():
+        s.properties["materialized_view_substitution"] = False
+        try:
+            return s.execute(sql).rows
+        finally:
+            s.properties["materialized_view_substitution"] = True
+
+    incorrect = 0
+    steps = []
+
+    def check_substituted(expect, step):
+        nonlocal incorrect
+        before = mv_hits(s)
+        rows = s.execute(sql).rows
+        substituted = mv_hits(s) > before
+        identical = rows == base_truth()
+        if substituted and not expect:
+            incorrect += 1
+        if not identical:
+            raise AssertionError(f"staleness matrix {step}: rows differ from the base query's")
+        if substituted != expect:
+            raise AssertionError(f"staleness matrix {step}: substituted={substituted}, "
+                                 f"want {expect}")
+        steps.append({"step": step, "substituted": substituted, "bit_identical": identical})
+
+    check_substituted(True, "fresh")
+    mutations = [
+        ("insert", "insert into orders select * from orders limit 1"),
+        ("update", "update lineitem set l_quantity = l_quantity + 1 where l_orderkey = 1"),
+        ("delete", "delete from customer where c_custkey = 1"),
+        ("drop", None),
+    ]
+    for name, stmt in mutations:
+        if name == "drop":
+            s.execute("drop table customer")
+            s.execute(f"create table customer as select * from tpch.{source_schema}.customer")
+        else:
+            s.execute(stmt)
+        check_substituted(False, f"{name}-stale")
+        s.execute("refresh materialized view q3m")
+        check_substituted(True, f"{name}-refreshed")
+    s.execute("drop materialized view q3m")
+    return {"steps": steps, "incorrect_freshness_substitutions": incorrect,
+            "stale_fallback_ok": all(st["bit_identical"] for st in steps)}
+
+
+def refresh_counters():
+    """(MV_REFRESH_SECONDS' sum, its count, warmed rows, warm failures)."""
+    from trino_tpu_torch.obs import metrics as M
+
+    _, total, n = M.MV_REFRESH_SECONDS.snapshot()
+    return total, n, M.MV_WARM_ROWS.value(), M.MV_WARM_FAILURES.value()
+
+
+def phase_matview(device, mvexp, expected, cap, card, schema="sf1"):
+    """Materialized views on the card. In a cached session at SF1 (storage
+    in the memory catalog): Q3's base query without and with its view,
+    the view's refresh warming its storage onto the card, EXPLAIN, the
+    substitution switched off; in an uncached one, a view of Q18's join and
+    aggregate whose refresh runs eager Q18's plan, then Q18 read from it;
+    then the staleness matrix at tiny. ``schema``: the tpch scale (the
+    tests run the phase at tiny on the CPU)."""
+    from trino_tpu_torch import Session
+    from trino_tpu_torch.obs import metrics as M
+    from trino_tpu_torch.ops import merge
+
+    out = {"card": card}
+    props = {**MV_PROPS, "schema": schema}
+    session = Session(properties={**props, "device_cache_enabled": True}, device=device)
+    base_sql = mv_q3() + MV_Q3_TAIL
+    want = mvexp["q3"]["rows"]
+    walls = {}
+    for label in ("cold", "warm"):
+        res, walls[f"base_{label}_s"], _c = timed_execute(session, base_sql, device)
+        check_rows(f"matview Q3 base ({label})", jsonable_rows(res.rows), want)
+    base_rows = res.rows
+    r0 = refresh_counters()
+    res, walls["create_s"], _c = timed_execute(
+        session, "create materialized view q3rev as " + mv_q3(), device)
+    r1 = refresh_counters()
+    mv = session.matviews.get("tpch", schema, "q3rev")
+    view_rows = session.catalogs[mv.storage_catalog].table_row_count(
+        mv.storage_schema, mv.storage_table)
+    refresh = {"refresh_s": r1[0] - r0[0], "refreshes": r1[1] - r0[1],
+               "warmed_rows": r1[2] - r0[2], "warm_failures": r1[3] - r0[3],
+               "view_rows": view_rows}
+    if refresh["refreshes"] != 1 or refresh["warm_failures"] != 0:
+        raise AssertionError(f"matview: the refresh of q3rev {refresh}")
+    if view_rows != mvexp["q3"]["view_rows"] or refresh["warmed_rows"] != view_rows:
+        raise AssertionError(f"matview: q3rev holds {view_rows} rows and its refresh warmed "
+                             f"{refresh['warmed_rows']}, the reference's view "
+                             f"{mvexp['q3']['view_rows']}")
+    for label in ("cold", "warm"):
+        h0 = mv_hits(session)
+        res, walls[f"substituted_{label}_s"], c = timed_execute(session, base_sql, device)
+        if mv_hits(session) != h0 + 1:
+            raise AssertionError(f"matview: Q3 ({label}) did not substitute q3rev")
+        if res.rows != base_rows:
+            raise AssertionError(f"matview: substituted Q3 ({label}) rows differ from the "
+                                 f"base rows")
+        if label == "cold" and ((c["staged_rows"], c["h2d_bytes"], c["misses"]) != (0, 0, 0)
+                                or c["hits"] < 1):
+            raise AssertionError(f"matview: the first substituted run staged {c}: the refresh "
+                                 f"did not warm its storage")
+        refresh[f"substituted_{label}_cache"] = {k: c[k] for k in ("hits", "misses",
+                                                                  "staged_rows", "h2d_bytes")}
+    text = session.explain(base_sql)
+    lines = text.split("\n")
+    if lines != mvexp["q3"]["explain"] or f"[mv: tpch.{schema}.q3rev]" not in text:
+        raise AssertionError(f"matview: EXPLAIN differs from the reference's: {lines[:4]}")
+    session.properties["materialized_view_substitution"] = False
+    h0 = mv_hits(session)
+    res, walls["substitution_off_s"], _c = timed_execute(session, base_sql, device)
+    session.properties["materialized_view_substitution"] = True
+    if res.rows != base_rows or mv_hits(session) != h0:
+        raise AssertionError("matview: with substitution off Q3 read the view or other rows")
+    session.execute("drop materialized view q3rev")
+    out["q3"] = {**walls, **refresh, "hits": mv.hits}
+    print("matview", json.dumps({"view": "q3rev", **out["q3"], "card": card}), flush=True)
+
+    # Q18's join and aggregate: its refresh runs eager Q18's plan
+    eager = Session(properties=dict(props), device=device)
+    want18 = mvexp["q18"]
+    t0_tiers = tier_counts(M.FUSED_JOIN_SELECTIONS, TIERS)
+    merge.launches = 0
+    cap.now = ("matview", "Q18view", "cold")
+    r0 = refresh_counters()
+    _res, create18_s, _c = timed_execute(eager, "create materialized view q18agg as "
+                                         + MV_Q18_AGG, device)
+    r1 = refresh_counters()
+    cap.now = None
+    launches = merge.launches
+    tiers = {t: v - t0_tiers[t] for t, v in tier_counts(M.FUSED_JOIN_SELECTIONS, TIERS).items()}
+    mv18 = eager.matviews.get("tpch", schema, "q18agg")
+    rows18 = eager.catalogs[mv18.storage_catalog].table_row_count(
+        mv18.storage_schema, mv18.storage_table)
+    if tiers != want18["tiers"] or rows18 != want18["view_rows"]:
+        raise AssertionError(f"matview: q18agg's refresh took tiers {tiers} into {rows18} rows, "
+                             f"the reference's {want18['tiers']} into {want18['view_rows']}")
+    if want18["tiers"].get("merge-pallas", 0) >= 1 and launches < 1:
+        raise AssertionError("matview: q18agg's refresh selected merge-pallas but did not "
+                             "launch the merge kernel")
+    h0 = mv_hits(eager)
+    res, q18_s, _c = timed_execute(eager, expected["18"]["sql"], device)
+    check_rows("matview Q18 from q18agg", jsonable_rows(res.rows), expected["18"]["rows"])
+    if mv_hits(eager) != h0 + 1:
+        raise AssertionError("matview: Q18 did not substitute q18agg")
+    eager.execute("drop materialized view q18agg")
+    out["q18"] = {"create_s": create18_s, "refresh_s": r1[0] - r0[0], "view_rows": rows18,
+                  "tiers": tiers, "merge_launches": launches, "substituted_q18_s": q18_s}
+    print("matview", json.dumps({"view": "q18agg", **out["q18"], "card": card}), flush=True)
+
+    t0 = time.perf_counter()
+    matrix = staleness_matrix(device)
+    if matrix["incorrect_freshness_substitutions"] != 0 or not matrix["stale_fallback_ok"]:
+        raise AssertionError(f"matview: staleness matrix {matrix}")
+    out["staleness"] = {"steps": len(matrix["steps"]), "incorrect_freshness_substitutions":
+                        matrix["incorrect_freshness_substitutions"],
+                        "wall_s": time.perf_counter() - t0}
+    print("matview_staleness", json.dumps(out["staleness"]), flush=True)
     return out
 
 
@@ -1760,18 +2166,21 @@ def main() -> int:
                        **{name: runs[1]["wall_s"] for name, runs in analytics_runs.items()}}
         compiled_runs = phase_compiled(device, expected, compiled, analytics, eager_walls,
                                        cap, card)
+        mvexp = testdata("matview_sf1_expected.json")
         dist_runs = phase_distributed(
-            device, expected, testdata("distributed_sf1_expected.json"), cap,
+            device, expected, testdata("distributed_sf1_expected.json"), mvexp, cap,
             {q: (runs[0]["wall_s"], runs[1]["wall_s"]) for q, runs in tpch.items()}, card)
+        matview = phase_matview(device, mvexp, expected, cap, card)
     eager_merge = sorted(int(q) for q, e in expected.items()
                          if e["tiers"].get("merge-pallas", 0) >= 1)
     compiled_merge = sorted(f"Q{q}" for q, e in compiled["queries"].items()
                             if e["tiers"].get("merge-pallas", 0) >= 1)
     dist_merge = sorted(q for q, runs in dist_runs.items() if runs[0]["merge_launches"])
+    matview_merge = ["Q18view"] if mvexp["q18"]["tiers"].get("merge-pallas", 0) >= 1 else []
     rows += phase_mainpath(cap.captured, {
         "tpch": eager_merge, "cache": eager_merge,
         "compiled_uncached": compiled_merge, "compiled_cached": compiled_merge,
-        "distributed": dist_merge})
+        "distributed": dist_merge, "matview": matview_merge})
     if profiling:
         tpch_sql = [(f"Q{q}", expected[str(q)]["sql"]) for q in range(1, 23)]
         phase_profile(session, tpch_sql, "uncached")
@@ -1809,9 +2218,10 @@ def main() -> int:
         "compiled": sum(rec["merge_launches"] + rec.get("warm_build", {}).get("merge_launches", 0)
                         for rec in compiled_runs),
         "distributed": sum(run["merge_launches"] for runs in dist_runs.values()
-                           for run in runs)}
+                           for run in runs),
+        "matview": matview["q18"]["merge_launches"]}
     for path, n in launches_by_path.items():
-        if n < 1 and path not in ("analytics", "scalar", "nested", "distributed"):
+        if n < 1 and path not in ("analytics", "scalar", "nested", "distributed", "matview"):
             raise AssertionError(f"the 22 queries of path {path} launched the merge kernel "
                                  f"no time")
     # as since the first slice: the launches of the uncached session's cold

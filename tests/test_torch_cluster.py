@@ -416,7 +416,7 @@ def test_unported_tiers_are_refused(cluster):
     from trino_tpu_torch.client.remote import RemoteQueryError
 
     for prop, value in (("retry_policy", "TASK"), ("adaptive_execution_enabled", "true"),
-                        ("spooled_results_enabled", "true"), ("result_cache_enabled", "true")):
+                        ("spooled_results_enabled", "true")):
         with pytest.raises(RemoteQueryError, match="not ported"):
             run(coord, "select count(*) from region", {**TINY, prop: value})
     with pytest.raises(RemoteQueryError, match="EXPLAIN ANALYZE"):
@@ -424,6 +424,32 @@ def test_unported_tiers_are_refused(cluster):
     for path in ("/ui", "/v1/query/x/trace", "/v1/segment/x"):
         status, _, _ = wire.http_request("GET", coord.base_url + path, timeout=10.0)
         assert status == 501, path
+
+
+def test_nested_decimals_and_dates_cross_the_protocol(cluster):
+    """Arrays and maps holding decimals and dates come back through the
+    statement protocol with the strings their flat columns get: the
+    elements of array_agg(o_totalprice) and array_agg(o_orderdate) are the
+    flat columns' strings (those ``client/remote.py``
+    ``_normalized_slow_values`` gives on the segment path), and
+    map_agg(o_orderkey, o_totalprice) maps each key (a JSON object key, so
+    a string) to its price's string. The reference's cluster drops the
+    connection on these (its ``_jsonable`` does not recurse, so
+    ``json.dumps`` raises inside the HTTP handler); the port's repairs it."""
+    coord, _ = cluster
+    _cols, flat = run(coord, "select o_orderkey, o_totalprice, o_orderdate from orders "
+                             "where o_custkey = 1")
+    _cols, nested = run(coord, "select array_agg(o_totalprice), array_agg(o_orderdate), "
+                               "map_agg(o_orderkey, o_totalprice) from orders "
+                               "where o_custkey = 1")
+    assert len(flat) == 8 and all(isinstance(v, str) for r in flat for v in r[1:])
+    (prices, dates, by_key), = nested
+    assert sorted(prices) == sorted(r[1] for r in flat)
+    assert sorted(dates) == sorted(r[2] for r in flat)
+    assert by_key == {str(r[0]): r[1] for r in flat}
+    want = jax_rows("select o_totalprice, o_orderdate from orders where o_custkey = 1")
+    assert sorted(prices) == sorted(str(p) for p, _ in want)
+    assert sorted(dates) == sorted(d.isoformat() for _, d in want)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="this machine has a GPU")

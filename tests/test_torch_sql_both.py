@@ -132,7 +132,12 @@ NAMED_MODULES = (
     "trino_tpu_torch.server.buffer", "trino_tpu_torch.server.exchange_client",
     "trino_tpu_torch.server.task", "trino_tpu_torch.server.worker",
     "trino_tpu_torch.server.fastpath", "trino_tpu_torch.server.coordinator",
-    "trino_tpu_torch.client.remote", "trino_tpu_torch.client.dbapi")
+    "trino_tpu_torch.client.remote", "trino_tpu_torch.client.dbapi",
+    # the repeat-query path
+    "trino_tpu_torch.cache", "trino_tpu_torch.cache.plan_key",
+    "trino_tpu_torch.cache.determinism", "trino_tpu_torch.cache.result_cache",
+    "trino_tpu_torch.matview", "trino_tpu_torch.matview.registry",
+    "trino_tpu_torch.matview.substitute", "trino_tpu_torch.matview.lifecycle")
 
 
 def test_port_loads_neither_jax_nor_the_jax_package():
@@ -157,7 +162,7 @@ print(json.dumps({"modules": names, "loaded": bad}))
     assert out.returncode == 0, out.stderr[-2000:]
     seen = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(seen["modules"]) > 50  # the whole package, not an empty walk
-    # the statement surface, its connectors and the nested-type modules
-    # are in the walk
+    # the statement surface, its connectors, the nested-type modules, the
+    # distributed path and the caches and views are in the walk
     assert set(NAMED_MODULES) <= set(seen["modules"])
     assert seen["loaded"] == [], f"the port loaded {seen['loaded']}"

@@ -643,17 +643,19 @@ def test_explain_shows_constraint_and_dynamic_filters():
 def test_explain_distributed_and_matviews_not_ported():
     """EXPLAIN (TYPE DISTRIBUTED) is ported since the fragmenter came
     (its text equals the reference's); the materialized-view statements
-    still raise."""
+    used to raise and now run, with the reference's answers
+    (tests/test_torch_matview.py holds them in full)."""
     s = torch_session()
     sql = "select n_regionkey, count(*) from nation group by n_regionkey"
     assert s.execute(f"explain (type distributed) {sql}").rows == \
         jax_session().execute(f"explain (type distributed) {sql}").rows
     assert s.explain(sql, mode="distributed") == jax_session().explain(sql, mode="distributed")
     assert "Fragment 0 [source]" in s.explain(sql, mode="distributed")
+    js = jax_session()
     for sql in ("create materialized view mv as select 1 a",
                 "refresh materialized view mv", "drop materialized view mv"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            s.execute(sql)
+        assert s.execute(sql).rows == js.execute(sql).rows
+    assert s.matviews.empty() and js.matviews.empty()
 
 
 SESSION_SQL = ["set session dynamic_filtering_enabled = false", "show session",

@@ -90,6 +90,10 @@ class Cursor:
         self._conn = conn
         self.description = None  # 7-tuples per PEP 249
         self.rowcount = -1
+        # result-cache disposition of the last execute() against a remote
+        # coordinator: "HIT" | "MISS" | "BYPASS" (None for embedded
+        # sessions, which have no coordinator cache in front of them)
+        self.cache_status: Optional[str] = None
         # final query stats of the last execute() against a remote
         # coordinator (the StatementStats analog: elapsedMs, splits, rows,
         # bytes, peakBytes); None for embedded sessions
@@ -116,10 +120,12 @@ class Cursor:
         return self._run(sql)
 
     def _run(self, sql: str):
+        self.cache_status = None
         self.stats = None
         try:
             if self._conn._client is not None:
                 columns, rows = self._conn._client.execute(sql)
+                self.cache_status = self._conn._client.cache_status
                 self.stats = self._conn._client.stats
             else:
                 res = self._conn._session.execute(sql)

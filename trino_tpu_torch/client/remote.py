@@ -4,7 +4,8 @@ The port of trino_tpu/client/remote.py (reference:
 ``client/trino-client/.../StatementClientV1.java:70``): submit with
 ``POST /v1/statement``, then follow ``nextUri`` until the query is
 terminal, gathering the result pages; SET/RESET SESSION and
-PREPARE/DEALLOCATE round-trip into the client's later requests. The value
+PREPARE/DEALLOCATE round-trip into the client's later requests, and the
+``X-Trino-Tpu-Cache`` header gives the result-cache disposition. The value
 decoders turn framed serde pages into the inline protocol's JSON values.
 A coordinator answering with a spooled segment manifest is refused: the
 spooled result protocol is not ported.
@@ -35,6 +36,10 @@ class StatementClient:
         self.stats: Optional[Dict] = None
         self.query_id: Optional[str] = None
         self.response_bytes = 0
+        # the last statement's result-cache disposition (HIT | MISS |
+        # BYPASS) from the X-Trino-Tpu-Cache header; None before the
+        # coordinator decided
+        self.cache_status: Optional[str] = None
         # prepared statements live on the server (name -> statement text)
         self.prepared_statements: Dict[str, str] = {}
 
@@ -46,13 +51,15 @@ class StatementClient:
         headers = {f"X-Trino-Session-{k}": str(v) for k, v in self.session_properties.items()}
         if self.user:
             headers["X-Trino-User"] = self.user
+        self.cache_status = None
         self.stats = None
         self.query_id = None
         self.response_bytes = 0
         deadline = time.monotonic() + timeout
-        status, body, _ = wire.http_request(
+        status, body, resp_headers = wire.http_request(
             "POST", f"{self.coordinator_url}/v1/statement", sql.encode(), "text/plain",
             timeout=min(timeout, 60.0), headers=headers)
+        self._note_cache_header(resp_headers)
         if status >= 400:
             raise RemoteQueryError(f"submit failed: {body[:500].decode(errors='replace')}")
         columns: List[str] = []
@@ -89,9 +96,15 @@ class StatementClient:
                 except Exception:  # noqa: BLE001
                     pass
                 raise RemoteQueryError(f"client timeout after {timeout} s")
-            status, body, _ = wire.http_request("GET", next_uri, timeout=60.0)
+            status, body, resp_headers = wire.http_request("GET", next_uri, timeout=60.0)
+            self._note_cache_header(resp_headers)
             if status >= 400:
                 raise RemoteQueryError(f"poll failed: {body[:500].decode(errors='replace')}")
+
+    def _note_cache_header(self, resp_headers: Dict[str, str]) -> None:
+        for k, v in (resp_headers or {}).items():
+            if k.lower() == "x-trino-tpu-cache":
+                self.cache_status = v
 
 
 def decode_pages(body: bytes) -> list:

@@ -8,8 +8,9 @@ elsewhere. The session owns the generator ``random()`` draws from, on
 its device. ``catalogs`` and ``udfs`` share one connector map and one
 routine registry between sessions (the reference's server mode), so
 tables written through the memory catalog and functions made by CREATE
-FUNCTION persist from statement to statement and session to session. An
-explicit transaction (exec/transaction.py) gives its session a private
+FUNCTION persist from statement to statement and session to session;
+``matviews`` does the same for the materialized-view registry (a private
+one when none is passed). An explicit transaction (exec/transaction.py) gives its session a private
 map over the shared catalogs for as long as it runs.
 """
 from __future__ import annotations
@@ -19,11 +20,12 @@ from typing import Any, Dict, Optional
 
 class Session:
     """A query session: catalogs, session properties, identity and access
-    control, SQL routines, prepared statements, the active transaction and
-    the device."""
+    control, SQL routines, prepared statements, materialized views, the
+    active transaction and the device."""
 
     def __init__(self, properties: Optional[Dict[str, Any]] = None, device=None,
-                 catalogs=None, identity=None, access_control=None, udfs=None):
+                 catalogs=None, identity=None, access_control=None, udfs=None,
+                 matviews=None):
         import torch
 
         from trino_tpu_torch.client.properties import defaulted
@@ -44,6 +46,13 @@ class Session:
         self.access_control = access_control or AccessControl()
         # name -> UdfDef (sql/routines.py)
         self.udfs = udfs if udfs is not None else {}
+        # the materialized-view registry (matview/): server mode shares one
+        # across sessions, like ``catalogs``; an embedded session gets its own
+        if matviews is None:
+            from trino_tpu_torch.matview.registry import MaterializedViewRegistry
+
+            matviews = MaterializedViewRegistry()
+        self.matviews = matviews
         # name -> parsed statement (PREPARE / EXECUTE / DEALLOCATE)
         self.prepared_statements: Dict[str, Any] = {}
         # the active explicit transaction (exec/transaction.py), or None;

@@ -1,6 +1,6 @@
-"""Single-flight holder shared by the device and host cache tiers: the
-port's copy of trino_tpu/cache/result_cache.py ``_Flight`` (the result
-cache itself is not ported)."""
+"""Single-flight holder shared by the result cache (cache/result_cache.py)
+and the device and host cache tiers: the port's one copy of
+trino_tpu/cache/result_cache.py ``_Flight``."""
 from __future__ import annotations
 
 import threading

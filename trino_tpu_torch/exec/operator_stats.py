@@ -11,8 +11,8 @@ per split ADDS, never overwrites), so a rollup is a plain sum/max.
 
 Not ported: the task -> stage -> query rollups
 (``rollup_tasks_to_stage``, ``rollup_stages_to_query``) and
-``merge_kernel_lists``, which wait for the distributed worker and the
-device profiler (ROADMAP queue 1, items 6 and 8).
+``merge_kernel_lists``, which wait for the device profiler and the
+stats rollups (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 

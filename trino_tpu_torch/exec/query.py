@@ -7,9 +7,13 @@ TABLE (the DML runs its rewrite SELECT on the session's device and writes
 the rows through the connector, which bumps the table's data_version);
 CREATE and DROP FUNCTION; PREPARE, EXECUTE and DEALLOCATE; CALL; START
 TRANSACTION, COMMIT and ROLLBACK; SET, RESET and SHOW SESSION; SHOW
-TABLES, SCHEMAS and COLUMNS. ``EXPLAIN (TYPE DISTRIBUTED)`` and the
-materialized-view statements raise NotImplementedError: they wait for
-plan fragments and ``matview/`` (ROADMAP queue 1, items 5 and 8).
+TABLES, SCHEMAS and COLUMNS; EXPLAIN (TYPE DISTRIBUTED) (the fragments of
+sql/planner/fragmenter.py); CREATE [OR REPLACE], REFRESH and DROP
+MATERIALIZED VIEW (matview/lifecycle.py, the refresh's defining query
+running on the session's device). Every SELECT, EXPLAIN and EXPLAIN
+ANALYZE goes through the materialized-view substitution pass
+(matview/substitute.py) after ``optimize``: a fresh view whose definition
+matches a plan subtree is read from its storage table instead.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ from trino_tpu_torch.sql.planner.optimizer import optimize
 from trino_tpu_torch.sql.planner.plan import format_plan
 from trino_tpu_torch.sql.planner.planner import Planner
 
-_MATVIEW_STATEMENTS = (ast.CreateMaterializedView, ast.RefreshMaterializedView,
+MATVIEW_STATEMENTS = (ast.CreateMaterializedView, ast.RefreshMaterializedView,
                        ast.DropMaterializedView)
 
 
@@ -43,17 +47,40 @@ def _plan(session, query):
 
 def plan_sql(session, sql: str):
     """The optimized plan of a ``Query`` statement; any other statement
-    comes back parsed (``run_query`` dispatches it)."""
-    stmt = parse_statement(sql)
+    comes back parsed (``run_query`` dispatches it). Parsing, planning and
+    optimizing each record a span into the ambient tracer, when there is
+    one (the coordinator's per-query tracer)."""
+    from trino_tpu_torch.obs import trace as tracing
+
+    with tracing.span("parse"):
+        stmt = parse_statement(sql)
     if isinstance(stmt, ast.Explain):
         raise ValueError("use explain_query")
     if not isinstance(stmt, ast.Query):
         return stmt
-    return _plan(session, stmt)
+    stmt = _expand_udfs(session, stmt)
+    with tracing.span("analyze/plan"):
+        root = Planner(session).plan(stmt)
+    with tracing.span("optimize"):
+        return optimize(root, session)
+
+
+def _plan_substituted(session, query):
+    """``_plan`` then the materialized-view substitution pass: (the plan to
+    run, the substitution notes)."""
+    from trino_tpu_torch.matview.substitute import substitute_plan
+
+    return substitute_plan(session, _plan(session, query))
 
 
 def run_query(session, sql: str) -> QueryResult:
-    return _dispatch_statement(session, parse_statement(sql))
+    return _dispatch_statement(session, parse_statement(sql), sql=sql)
+
+
+def dispatch_statement(session, stmt) -> QueryResult:
+    """Run an already-parsed statement (the coordinator's EXECUTE path
+    dispatches the bound prepared AST without parsing again)."""
+    return _dispatch_statement(session, stmt)
 
 
 def _execute_rows(session, query):
@@ -97,7 +124,7 @@ def _result(word):
     return QueryResult(["result"], [], [(word,)])
 
 
-def _dispatch_statement(session, stmt) -> QueryResult:
+def _dispatch_statement(session, stmt, sql=None) -> QueryResult:
     if isinstance(stmt, ast.Explain):
         if stmt.analyze:
             text = explain_analyze(session, stmt.statement, verbose=stmt.verbose)
@@ -112,10 +139,14 @@ def _dispatch_statement(session, stmt) -> QueryResult:
         return _insert(session, stmt)
     if isinstance(stmt, ast.DropTable):
         return _drop_table(session, stmt)
-    if isinstance(stmt, _MATVIEW_STATEMENTS):
-        raise NotImplementedError(
-            f"{type(stmt).__name__} is not ported: materialized views wait for "
-            "matview/ (ROADMAP queue 1, item 8)")
+    if isinstance(stmt, MATVIEW_STATEMENTS):
+        # the embedded path runs the REFRESH's defining query on the local
+        # executor; the coordinator takes these statements earlier, to run
+        # the refresh through its distributed path
+        from trino_tpu_torch.matview import lifecycle as mv_lifecycle
+
+        columns, rows = mv_lifecycle.dispatch_mv_statement(session, stmt, sql=sql)
+        return QueryResult(columns, [], rows)
     if isinstance(stmt, ast.Delete):
         return _delete(session, stmt)
     if isinstance(stmt, ast.Update):
@@ -201,25 +232,43 @@ def _dispatch_statement(session, stmt) -> QueryResult:
         return _show_columns(session, stmt)
     if not isinstance(stmt, ast.Query):
         raise ValueError(f"unsupported statement {type(stmt).__name__}")
-    root = _plan(session, stmt)
+    root, _mv_notes = _plan_substituted(session, stmt)
     page = Executor(session).execute_checked(root)
     return QueryResult(root.column_names, page.columns, page.to_pylist())
 
 
+def mv_notes_header(notes) -> str:
+    """EXPLAIN header lines for the materialized-view substitution
+    decisions: the scan annotation shows where a view substituted; these
+    lines show the freshness verdict (fallbacks included, which leave no
+    mark on the plan)."""
+    lines = []
+    for n in notes or ():
+        if n["result"] == "substituted":
+            extra = f" (prefix {n['prefix']} columns)" if n.get("prefix") else ""
+            lines.append(f"Materialized view {n['view']}: substituted{extra}")
+        else:
+            lines.append(f"Materialized view {n['view']}: fallback "
+                         f"({n['result']}: {n['reason']})")
+    return "\n".join(lines) + "\n" if lines else ""
+
+
 def explain_query(session, sql, mode: str = "logical", stmt=None) -> str:
     """EXPLAIN: the optimized plan's text (sql/planner/plan.py
-    ``format_plan``)."""
+    ``format_plan``), after the materialized-view substitution pass, under
+    a header line for each substitution decision."""
     if stmt is None:
         stmt = parse_statement(sql)
         if isinstance(stmt, ast.Explain):
             mode = stmt.mode
             stmt = stmt.statement
-    root = _plan(session, stmt)
+    root, mv_notes = _plan_substituted(session, stmt)
+    header = mv_notes_header(mv_notes)
     if mode == "distributed":
         from trino_tpu_torch.sql.planner.fragmenter import fragment_plan, format_fragments
 
-        return format_fragments(fragment_plan(root, session))
-    return format_plan(root)
+        return header + format_fragments(fragment_plan(root, session))
+    return header + format_plan(root)
 
 
 def explain_analyze(session, stmt, verbose: bool = False) -> str:
@@ -228,15 +277,17 @@ def explain_analyze(session, stmt, verbose: bool = False) -> str:
     PlanPrinter stats injection). The header's wall time covers planning
     and execution. ``verbose`` adds per-node bytes, peaks and dispatch
     ledger, and a device line: rows staged, the compiled tier's
-    compile-cache hits and misses over the run, and the host seconds of
-    dynamic filtering. The port has no compiled tier yet (ROADMAP queue 1,
-    item 4), so its compile-cache hits and misses always read 0/0."""
+    compile-cache hits and misses over the run (process-wide: the eager
+    run itself moves neither), and the host seconds of dynamic filtering.
+    A fresh materialized view substitutes first, under its header line."""
     from trino_tpu_torch.exec.operator_stats import wall_time_header
+    from trino_tpu_torch.obs import metrics as M
 
     t_plan = time.perf_counter()
-    root = _plan(session, stmt)
+    root, mv_notes = _plan_substituted(session, stmt)
     plan_s = time.perf_counter() - t_plan
     ex = Executor(session, collect_stats=True)
+    hits0, misses0 = M.COMPILE_CACHE_HITS.value(), M.COMPILE_CACHE_MISSES.value()
     t0 = time.perf_counter()
     ex.execute_checked(root)
     exec_s = time.perf_counter() - t0
@@ -252,9 +303,12 @@ def explain_analyze(session, stmt, verbose: bool = False) -> str:
         staged = sum(ex.scan_stats.values())
         header.append(
             f"Device detail: staged rows={staged},"
-            f" compile cache hits/misses (process-wide during run)=0/0,"
+            f" compile cache hits/misses (process-wide during run)="
+            f"{int(M.COMPILE_CACHE_HITS.value() - hits0)}/"
+            f"{int(M.COMPILE_CACHE_MISSES.value() - misses0)},"
             f" dynamic-filter host seconds={ex.df_apply_s * 1e3:.1f}ms")
-    return "\n".join(header) + "\n" + format_plan(root, executor=ex, verbose=verbose)
+    return (mv_notes_header(mv_notes) + "\n".join(header) + "\n"
+            + format_plan(root, executor=ex, verbose=verbose))
 
 
 def _default_parts(session, parts):

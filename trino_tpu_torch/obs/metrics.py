@@ -2,14 +2,21 @@
 
 A small stand-in for the reference's metrics registry
 (trino_tpu/obs/metrics.py): plain labelled counters with the same
-``inc(amount, *labels)`` / ``value(*labels)`` surface, and no exposition
-format. The tests and ``chip_smoke.py`` read them to show which join tier a
-query took, and what the staging and device-cache plane moved.
+``inc(amount, *labels)`` / ``value(*labels)`` surface, histograms with its
+``observe`` / ``snapshot``, and no exposition format. The tests and
+``chip_smoke.py`` read them to show which join tier a query took, what the
+staging and device-cache plane moved, and what the result cache, the plan
+cache and the materialized views decided.
 """
 from __future__ import annotations
 
 import threading
 from typing import Dict, Tuple
+
+
+# the reference's latency buckets, in seconds
+LATENCY_BUCKETS_S = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+                     60.0, 120.0, 300.0)
 
 
 class Counter:
@@ -35,6 +42,31 @@ class Gauge(Counter):
         key = tuple(str(v) for v in labelvalues)
         with self._lock:
             self._children[key] = value
+
+
+class Histogram:
+    """Cumulative fixed-bucket histogram: ``observe(value, *labels)`` and
+    ``snapshot(*labels) -> (bucket counts, sum, count)``, as the
+    reference's."""
+
+    def __init__(self, name: str, buckets=LATENCY_BUCKETS_S):
+        self.name = name
+        self.buckets = tuple(sorted(buckets))
+        self._lock = threading.Lock()
+        self._children: Dict[Tuple[str, ...], tuple] = {}
+
+    def observe(self, value: float, *labelvalues) -> None:
+        key = tuple(str(v) for v in labelvalues)
+        with self._lock:
+            counts, total, n = self._children.get(key, ([0] * len(self.buckets), 0.0, 0))
+            counts = [c + (value <= b) for c, b in zip(counts, self.buckets)]
+            self._children[key] = (counts, total + value, n + 1)
+
+    def snapshot(self, *labelvalues):
+        with self._lock:
+            counts, total, n = self._children.get(
+                tuple(str(v) for v in labelvalues), ([0] * len(self.buckets), 0.0, 0))
+            return list(counts), total, n
 
 
 PLAN_VALIDATION_FAILURES = Counter("plan_validation_failures_total")
@@ -106,3 +138,30 @@ TASKS_TOTAL = Counter("tasks_total")
 # the keep-alive pool of server/wire.py
 HTTP_CONNECTIONS_OPENED = Counter("http_connections_opened_total")
 HTTP_CONNECTION_REUSES = Counter("http_connection_reuses_total")
+
+# the query caching subsystem (cache/): the coordinator's result cache
+# (hits include single-flight followers served by a concurrent leader;
+# bypasses are cache-enabled queries that may not use it: DML/DDL,
+# non-deterministic functions, table functions, unversioned tables) and
+# its logical-plan cache
+RESULT_CACHE_HITS = Counter("result_cache_hits_total")
+RESULT_CACHE_MISSES = Counter("result_cache_misses_total")
+RESULT_CACHE_BYPASSES = Counter("result_cache_bypasses_total")
+RESULT_CACHE_EVICTIONS = Counter("result_cache_evictions_total")
+RESULT_CACHE_BYTES = Gauge("result_cache_bytes")
+RESULT_CACHE_SINGLE_FLIGHT_WAITS = Counter("result_cache_single_flight_waits_total")
+PLAN_CACHE_HITS = Counter("plan_cache_hits_total")
+PLAN_CACHE_MISSES = Counter("plan_cache_misses_total")
+# prepared statements (server/prepared.py): the registry's size and the
+# per-EXECUTE bind seconds (constant folding plus the plan substitution)
+PREPARED_STATEMENTS = Gauge("prepared_statements")
+EXECUTE_BIND_SECONDS = Histogram("execute_bind_seconds")
+# materialized views (matview/): substitution decisions by result
+# (substituted | stale | access-denied | invalid), the REFRESH wall (plan,
+# execute, storage swap and the device-cache warm), and the warm's rows
+# staged onto the session's device and the warms that failed (a failed
+# warm never fails its REFRESH, so it is counted here instead)
+MV_SUBSTITUTIONS = Counter("mv_substitutions_total")
+MV_REFRESH_SECONDS = Histogram("mv_refresh_seconds")
+MV_WARM_ROWS = Counter("mv_warm_rows_total")
+MV_WARM_FAILURES = Counter("mv_warm_failures_total")

@@ -16,14 +16,25 @@ the protocol's JSON. Statements other than SELECT, scans of process-local
 catalogs (memory) and, with ``short_query_fast_path``, single-stage plans
 run on the coordinator alone.
 
+A SELECT goes through the server's logical-plan cache (on by default,
+``logical_plan_cache_enabled``), then the materialized-view substitution
+pass (matview/substitute.py, on a copy: the cached plan is never written),
+then the result cache (``result_cache_enabled``), whose disposition
+(HIT, MISS or BYPASS) rides the ``X-Trino-Tpu-Cache`` response header. An
+EXECUTE of a prepared SELECT plans once per parameter-type signature and
+binds its values into the cached parameterized plan
+(server/prepared.py). CREATE, REFRESH and DROP MATERIALIZED VIEW run
+against the server's view registry, the refresh's defining query through
+the distributed path.
+
 The coordinator runs on one torch device: CUDA unless it is given another
 (``device="cpu"`` in the tests); asked for CUDA without a usable GPU it
 raises.
 
 Not ported (each refused, never ignored): ``retry_policy=TASK`` (the
-fault-tolerant tier), spooled result segments, adaptive re-planning, the
-result cache, materialized views, distributed EXPLAIN ANALYZE, resource
-groups and the dispatch plane, cluster memory, the ledgers, and the
+fault-tolerant tier), spooled result segments, adaptive re-planning,
+distributed EXPLAIN ANALYZE, resource groups and the dispatch plane,
+cluster memory, the ledgers, the system catalog, and the
 ``/v1/query/{id}/trace|profile|flows``, ``/ui`` and ``/v1/segment`` routes
 (501).
 
@@ -40,14 +51,18 @@ import threading
 import time
 import traceback
 import uuid
+import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional
 
+from trino_tpu_torch.exec.query import MATVIEW_STATEMENTS
+from trino_tpu_torch.obs import trace as tracing
 from trino_tpu_torch.server import wire
 from trino_tpu_torch.server.exchange_client import ExchangeClient, TaskLocation
 from trino_tpu_torch.server.statemachine import StateMachine, query_state_machine
 from trino_tpu_torch.server.task import TaskRequest
 from trino_tpu_torch.server.worker import resolve_device
+from trino_tpu_torch.sql.parser import ast
 from trino_tpu_torch.sql.planner import plan as P
 from trino_tpu_torch.sql.planner.fragmenter import RemoteSourceNode, fragment_plan
 
@@ -57,6 +72,10 @@ _QUERY_RE = re.compile(r"^/v1/query/([^/]+)$")
 _NOT_PORTED_RE = re.compile(r"^(/v1/query/[^/]+/(trace|profile|flows)|/ui/?|/v1/segment/[^/]+)$")
 
 RESULT_PAGE_ROWS = 10_000
+# the result-cache disposition header (HIT | MISS | BYPASS)
+CACHE_HEADER = "X-Trino-Tpu-Cache"
+# _consult_result_cache's answer when the rows came from the cache
+_SERVED_FROM_CACHE = "__served_from_cache__"
 
 
 def _truthy(v) -> bool:
@@ -71,7 +90,6 @@ _REFUSED_PROPERTIES = (
      "speculative execution)"),
     ("spooled_results_enabled", _truthy, "spooled result segments"),
     ("adaptive_execution_enabled", _truthy, "adaptive re-planning and skew salting"),
-    ("result_cache_enabled", _truthy, "the result cache"),
 )
 
 
@@ -113,33 +131,12 @@ class NodeRegistry:
         return False
 
 
-class PreparedStatements:
-    """PREPAREd statements of the server, keyed (user, name): the
-    per-query sessions are thrown away, so the registry outlives them."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._entries: Dict[tuple, tuple] = {}
-
-    def put(self, user: str, name: str, statement, sql: str) -> None:
-        with self._lock:
-            self._entries[(user, name)] = (statement, sql)
-
-    def get(self, user: str, name: str):
-        with self._lock:
-            return self._entries.get((user, name))
-
-    def remove(self, user: str, name: str) -> bool:
-        with self._lock:
-            return self._entries.pop((user, name), None) is not None
-
-
 class QueryExecution:
     """One query's lifecycle on the coordinator."""
 
     def __init__(self, query_id: str, sql: str, session_properties: dict,
                  registry: NodeRegistry, session_factory, user: str = "anonymous",
-                 prepared: Optional[PreparedStatements] = None):
+                 query_cache=None, prepared_registry=None, prepared_meta=None):
         self.query_id = query_id
         self.sql = sql
         self.user = user
@@ -147,10 +144,25 @@ class QueryExecution:
         self.state: StateMachine[str] = query_state_machine()
         self.registry = registry
         self.session_factory = session_factory
-        self.prepared = prepared
+        # the server's QueryCache (cache/) or None (caching off), its
+        # PreparedStatementRegistry (server/prepared.py), and its store of
+        # per-plan consult metadata for prepared EXECUTEs
+        self.query_cache = query_cache
+        self.prepared_registry = prepared_registry
+        self.prepared_meta = prepared_meta
         # which path ran the SELECT: "distributed", "fast-path",
-        # "local-catalog", or None (another statement)
+        # "local-catalog", or None (another statement, or a cache hit)
         self.fast_path: Optional[str] = None
+        # the result-cache disposition, sent as X-Trino-Tpu-Cache: HIT
+        # (served from the cache or a concurrent leader), MISS (executed,
+        # filled the cache), BYPASS (not eligible, or the cache is off)
+        self.cache_status: Optional[str] = None
+        self.result_cache_key: Optional[str] = None
+        # the materialized views substituted into this query's plan, and
+        # every substitution decision (queryStats.mvHits / mvNames)
+        self.mv_substitutions: List[str] = []
+        self.mv_notes: List[dict] = []
+        self.tracer = tracing.Tracer()
         self.failure: Optional[str] = None
         self.columns: List[str] = []
         self.rows: List[tuple] = []
@@ -182,84 +194,348 @@ class QueryExecution:
 
     # ------------------------------------------------------------ lifecycle
     def run(self) -> None:
+        root_span = self.tracer.start_span("query", query_id=self.query_id, user=self.user)
         try:
-            self._run_lifecycle()
+            with tracing.activate(self.tracer, root_span.span_id):
+                self._run_lifecycle()
+            self.tracer.end_span(root_span)
             self.ended_at = time.time()
             self.state.set("FINISHED")
         except Exception as e:  # noqa: BLE001 — reported through query info
             self.ended_at = self.ended_at or time.time()
             if self.failure is None:
                 self.failure = f"{type(e).__name__}: {e}\n{traceback.format_exc()}"
+            root_span.set("error", str(e).split("\n")[0][:300])
+            self.tracer.end_span(root_span)
             self._cancel_tasks()
             self.state.set("FAILED")
 
     def _run_lifecycle(self) -> None:
-        from trino_tpu_torch.exec.query import _plan, run_query
+        from trino_tpu_torch.exec.query import run_query
         from trino_tpu_torch.server.security import Identity
-        from trino_tpu_torch.sql.parser import ast
         from trino_tpu_torch.sql.parser.parser import parse_statement
 
         self.state.set("PLANNING")
         refuse_unported(self.session_properties)
         session = self.session_factory(self.session_properties)
         session.identity = Identity(self.user)
+        # statement-kind probe, unspanned: plan_sql parses again under its
+        # own "parse" span
         stmt = parse_statement(self.sql)
         if (isinstance(stmt, ast.Explain) and stmt.analyze
                 and isinstance(stmt.statement, ast.Query)):
+            self.cache_status = "BYPASS"
             raise NotImplementedError(
                 "distributed EXPLAIN ANALYZE is not ported to the PyTorch coordinator")
-        if isinstance(stmt, (ast.CreateMaterializedView, ast.RefreshMaterializedView,
-                             ast.DropMaterializedView)):
-            raise NotImplementedError("materialized views are not ported")
         if isinstance(stmt, (ast.Prepare, ast.ExecutePrepared, ast.Deallocate)):
             self._run_prepared_statement(session, stmt)
             return
+        if isinstance(stmt, MATVIEW_STATEMENTS):
+            self._run_mv_statement(session, stmt, self.sql)
+            return
         if not isinstance(stmt, ast.Query):
             # metadata statements, EXPLAIN, CALL, DML and DDL run on the
-            # coordinator alone
+            # coordinator alone and bypass the result cache: the mutation
+            # itself moves the data versions that invalidate cached SELECTs
+            self.cache_status = "BYPASS"
             self.state.set("RUNNING")
-            result = run_query(session, self.sql)
+            with self.tracer.span("execute/coordinator-local"):
+                result = run_query(session, self.sql)
             self.columns, self.rows = result.column_names, result.rows
             if isinstance(stmt, ast.SetSession):
                 self.set_session[stmt.name] = session.properties[stmt.name]
             elif isinstance(stmt, ast.ResetSession):
                 self.reset_session.append(stmt.name)
             return
-        self._execute_query(session, _plan(session, stmt))
+        root, versions = self._plan_query(session, stmt)
+        root, versions = self._substitute_matviews(session, root, versions)
+        key = self._consult_result_cache(session, stmt, root, versions)
+        self._finish_with_result_cache(session, root, key)
 
-    def _run_prepared_statement(self, session, stmt) -> None:
-        """PREPARE / EXECUTE / DEALLOCATE against the server's registry; an
-        EXECUTE of a query runs the bound query through the distributed
-        path."""
-        from trino_tpu_torch.exec.query import _dispatch_statement, _plan, bind_parameters
-        from trino_tpu_torch.sql.parser import ast
+    # ------------------------------------------------- materialized views
+    def _run_mv_statement(self, session, stmt, sql) -> None:
+        """CREATE / REFRESH / DROP MATERIALIZED VIEW against the server's
+        registry. The refresh's defining query runs through
+        ``_execute_query``, so a large definition fragments and schedules
+        across the workers like a user SELECT; the rows then swap into the
+        storage table (matview/lifecycle.py keeps the versions). ``sql`` is
+        the CREATE statement's own text (the prepared path passes the
+        registered inner text, or None when bound parameters made that text
+        no longer describe the bound statement)."""
+        from trino_tpu_torch.matview import lifecycle as mv_lifecycle
 
-        reg = self.prepared
-        if isinstance(stmt, ast.Prepare):
+        self.cache_status = "BYPASS"
+
+        def execute_fn(root):
+            self._execute_query(session, root)
+            rows, self.rows = self.rows, []
+            return rows
+
+        columns, rows = mv_lifecycle.dispatch_mv_statement(
+            session, stmt, sql=sql, execute_fn=execute_fn)
+        if self.state.get() in ("QUEUED", "PLANNING", "STARTING"):
             self.state.set("RUNNING")
+        self.columns, self.rows = columns, rows
+
+    def _substitute_matviews(self, session, root, versions):
+        """The view substitution pass, after the plan cache (a cached plan
+        stays substitution-free: freshness varies per execution, and the
+        pass copies on write). A substituted plan's versions for the
+        result-cache key are its own scans' (storage and any base scans
+        left) and the views' recorded base versions, so a REFRESH and a
+        base-table DML both invalidate cached results."""
+        from trino_tpu_torch.matview.substitute import substitute_plan, substitution_versions
+
+        new_root, notes = substitute_plan(session, root)
+        self.mv_notes = notes
+        self.mv_substitutions = [n["view"] for n in notes if n["result"] == "substituted"]
+        if not self.mv_substitutions:
+            return root, versions
+        return new_root, substitution_versions(session, new_root, notes)
+
+    # --------------------------------------------------------- the caches
+    def _through_plan_cache(self, session, stmt, key_sql, plan_fn):
+        """Serve a still-valid plan-cache entry, else plan through
+        ``plan_fn`` and admit it. Statements with a table function never
+        cache (their rows freeze into the plan). Returns ``(root,
+        versions)``, versions None when the cache is off."""
+        from trino_tpu_torch.cache.determinism import contains_table_function
+        from trino_tpu_torch.cache.plan_key import capture_versions
+        from trino_tpu_torch.obs import metrics as M
+
+        cache = self.query_cache
+        use_plan_cache = (cache is not None and bool(
+            session.properties.get("logical_plan_cache_enabled", True))
+            and not contains_table_function(stmt))
+        if use_plan_cache:
+            hit = cache.plans.get(session, key_sql)
+            if hit is not None:
+                M.PLAN_CACHE_HITS.inc()
+                with self.tracer.span("plan-cache/hit"):
+                    pass
+                return hit
+            M.PLAN_CACHE_MISSES.inc()
+        root = plan_fn()
+        versions = None
+        if use_plan_cache:
+            versions = capture_versions(session, root)
+            cache.plans.put(session, key_sql, root, versions)
+        return root, versions
+
+    def _plan_query(self, session, stmt):
+        """The optimized plan of this SELECT through the plan cache (keyed
+        by the SQL text, the user, the session properties and the routine
+        store; revalidated against the data versions)."""
+        from trino_tpu_torch.exec.query import plan_sql
+
+        return self._through_plan_cache(session, stmt, self.sql,
+                                        lambda: plan_sql(session, self.sql))
+
+    def _consult_result_cache(self, session, stmt, root, versions=None,
+                              prepared_meta=None, binding=None):
+        """One admission pass against the result cache. Returns
+        ``_SERVED_FROM_CACHE`` (columns and rows filled), a key (this query
+        leads the flight and must complete or abandon it), or None (bypass,
+        or a follower whose leader failed: execute, do not store).
+        ``prepared_meta`` is (reason, canonical of the parameterized plan)
+        from the EXECUTE path, ``binding`` the bound values in the key."""
+        from trino_tpu_torch.cache.determinism import uncachable_reason
+        from trino_tpu_torch.cache.plan_key import (
+            capture_versions, fingerprint_from_canonical, plan_fingerprint)
+        from trino_tpu_torch.cache.result_cache import session_user
+        from trino_tpu_torch.obs import metrics as M
+
+        cache = self.query_cache
+        if cache is None or not bool(session.properties.get("result_cache_enabled", False)):
+            self.cache_status = "BYPASS"
+            return None
+        canonical = None
+        if prepared_meta is not None:
+            reason, canonical = prepared_meta
+        else:
+            reason = uncachable_reason(stmt, root)
+        if reason is None:
+            if versions is None:
+                versions = capture_versions(session, root)
+            if versions is None:
+                reason = "unversioned table"
+        with self.tracer.span("cache/lookup") as sp:
+            if reason is not None:
+                self.cache_status = "BYPASS"
+                M.RESULT_CACHE_BYPASSES.inc()
+                sp.set("disposition", "BYPASS")
+                sp.set("reason", reason)
+                return None
+            # the user partitions the key: plan-time access control must
+            # fire again for each principal, never be skipped through a hit
+            extra = (f"user={session_user(session)}",) + ((binding,) if binding else ())
+            key = (fingerprint_from_canonical(canonical, versions, extra)
+                   if canonical is not None
+                   else plan_fingerprint(root, versions, extra=extra))
+            sp.set("key", key[:16])
+            self.result_cache_key = key
+            kind, payload = cache.results.begin(key)
+            if kind == "wait":
+                # single flight: an identical query is already executing
+                sp.set("single_flight", True)
+                M.RESULT_CACHE_SINGLE_FLIGHT_WAITS.inc()
+                done = payload.wait(timeout=600.0)
+                if done and payload.ok:
+                    kind, payload = "hit", payload.value
+                else:
+                    # the leader failed or timed out: execute, uncached
+                    self.cache_status = "MISS"
+                    M.RESULT_CACHE_MISSES.inc()
+                    sp.set("disposition", "MISS")
+                    return None
+            if kind == "hit":
+                columns, rows = payload
+                self.cache_status = "HIT"
+                M.RESULT_CACHE_HITS.inc()
+                sp.set("disposition", "HIT")
+                sp.set("rows", len(rows))
+                self.columns, self.rows = list(columns), list(rows)
+                return _SERVED_FROM_CACHE
+            self.cache_status = "MISS"
+            M.RESULT_CACHE_MISSES.inc()
+            sp.set("disposition", "MISS")
+            return key
+
+    def _finish_with_result_cache(self, session, root, key) -> None:
+        """Serve, lead or bypass against the result cache, executing
+        through ``_execute_query`` otherwise. A leader that fails abandons
+        its flight (the waiters execute themselves)."""
+        if key == _SERVED_FROM_CACHE:
+            self.state.set("FINISHING")
+            return
+        if key is None:
+            self._execute_query(session, root)
+            return
+        try:
+            self._execute_query(session, root)
+        except BaseException:
+            self.query_cache.results.abandon(key)
+            raise
+        self.query_cache.results.complete(
+            key, self.columns, self.rows,
+            ttl_ms=session.properties.get("result_cache_ttl_ms", 60_000),
+            max_bytes=session.properties.get("result_cache_max_bytes"))
+
+    # ------------------------------------------------- prepared statements
+    def _run_prepared_statement(self, session, stmt) -> None:
+        """PREPARE / EXECUTE / DEALLOCATE against the server's registry."""
+        reg = self.prepared_registry
+        if isinstance(stmt, ast.Prepare):
+            self.cache_status = "BYPASS"
+            self.state.set("RUNNING")
+            inner = stmt.statement
+            if isinstance(inner, (ast.Prepare, ast.ExecutePrepared, ast.Deallocate)):
+                raise ValueError(
+                    "cannot PREPARE another prepared-statement control statement")
+            # the inner statement's text: the PREPARE grammar is rigid, so
+            # stripping its one fixed prefix is exact
             m = re.match(r"(?is)^\s*prepare\s+\S+\s+from\s+(.*)$", self.sql.strip())
             sql_text = (m.group(1) if m else self.sql).strip()
-            reg.put(self.user, stmt.name, stmt.statement, sql_text)
+            reg.put(self.user, stmt.name, inner, sql_text)
             self.add_prepared[stmt.name] = sql_text
             self.columns, self.rows = ["result"], [("PREPARE",)]
             return
         if isinstance(stmt, ast.Deallocate):
+            self.cache_status = "BYPASS"
             self.state.set("RUNNING")
             if not reg.remove(self.user, stmt.name):
                 raise ValueError(f"prepared statement not found: {stmt.name}")
             self.deallocated_prepared.append(stmt.name)
             self.columns, self.rows = ["result"], [("DEALLOCATE",)]
             return
-        entry = reg.get(self.user, stmt.name)
-        if entry is None:
+        self._run_execute_prepared(session, stmt)
+
+    def _run_execute_prepared(self, session, stmt) -> None:
+        """EXECUTE name [USING ...]: fold the bindings to constants, reuse
+        (or plan) the one cached parameterized plan of this statement and
+        type signature, bind the constants into a copy, and run it through
+        the result cache and the executor. A warm EXECUTE does no parse,
+        analyze, plan or optimize work: only the bind pass."""
+        from trino_tpu_torch.obs import metrics as M
+        from trino_tpu_torch.server import prepared as prep
+
+        ps = self.prepared_registry.get(self.user, stmt.name)
+        if ps is None:
             raise ValueError(f"prepared statement not found: {stmt.name}")
-        bound = bind_parameters(entry[0], stmt.params)
-        if not isinstance(bound, ast.Query):
+        inner = ps.statement
+        t0 = time.perf_counter()
+        with self.tracer.span("prepare/bind") as sp:
+            sp.set("statement", stmt.name)
+            sp.set("step", "fold")
+            values = prep.fold_execute_args(stmt.params)
+            prep.check_arity(ps, values)
+            sp.set("parameters", len(values))
+        fold_s = time.perf_counter() - t0
+        self.prepared_registry.touch(self.user, stmt.name)
+        if not isinstance(inner, ast.Query):
+            # prepared DML, DDL and metadata statements bind at the AST
+            # level and run on the coordinator, like their plain spelling
+            from trino_tpu_torch.exec.query import bind_parameters, dispatch_statement
+
+            self.cache_status = "BYPASS"
+            bound = bind_parameters(inner, stmt.params)
+            M.EXECUTE_BIND_SECONDS.observe(fold_s)
+            if isinstance(bound, MATVIEW_STATEMENTS):
+                # the registered inner text is the definition SQL, unless
+                # bound parameters changed what it describes
+                self._run_mv_statement(session, bound, ps.sql if not stmt.params else None)
+                return
             self.state.set("RUNNING")
-            result = _dispatch_statement(session, bound)
+            with self.tracer.span("execute/coordinator-local"):
+                result = dispatch_statement(session, bound)
             self.columns, self.rows = result.column_names, result.rows
             return
-        self._execute_query(session, _plan(session, bound))
+        ptypes = tuple(c.type for c in values)
+        root, versions = self._plan_prepared(session, ps, ptypes)
+        t1 = time.perf_counter()
+        with self.tracer.span("prepare/bind") as sp:
+            sp.set("step", "substitute")
+            bound_root = prep.bind_plan_parameters(root, values)
+        M.EXECUTE_BIND_SECONDS.observe(fold_s + (time.perf_counter() - t1))
+        # the determinism verdict and the canonical text do not depend on
+        # the binding: computed once per parameterized plan object and kept
+        # beside it (never written into the cached tree)
+        meta = self.prepared_meta.get(root) if self.prepared_meta is not None else None
+        if meta is None:
+            from trino_tpu_torch.cache.determinism import uncachable_reason
+            from trino_tpu_torch.cache.plan_key import canonicalize_plan
+
+            reason = uncachable_reason(inner, root)
+            meta = (reason, canonicalize_plan(root) if reason is None else None)
+            if self.prepared_meta is not None:
+                self.prepared_meta.put(root, meta)
+        binding = "params=" + repr([(str(c.type), repr(c.value)) for c in values])
+        bound_root, versions = self._substitute_matviews(session, bound_root, versions)
+        key = self._consult_result_cache(session, inner, bound_root, versions,
+                                         prepared_meta=meta, binding=binding)
+        self._finish_with_result_cache(session, bound_root, key)
+
+    def _plan_prepared(self, session, ps, ptypes):
+        """The parameterized plan of one prepared statement and binding
+        type signature through the plan cache: one entry serves every
+        binding of that signature (the plan keeps symbolic
+        ``ir.Parameter`` placeholders)."""
+        from trino_tpu_torch.sql.analyzer.expr_analyzer import parameter_types
+
+        def plan_fn():
+            from trino_tpu_torch.exec.query import _expand_udfs
+            from trino_tpu_torch.sql.planner.optimizer import optimize
+            from trino_tpu_torch.sql.planner.planner import Planner
+
+            inner = _expand_udfs(session, ps.statement)
+            with parameter_types(ptypes):
+                with tracing.span("analyze/plan"):
+                    root = Planner(session).plan(inner)
+                with tracing.span("optimize"):
+                    return optimize(root, session)
+
+        return self._through_plan_cache(session, ps.statement, ps.plan_cache_sql(ptypes),
+                                        plan_fn)
 
     def _execute_query(self, session, root) -> None:
         """Run an optimized SELECT plan: on the coordinator for
@@ -276,14 +552,19 @@ class QueryExecution:
             self._run_local(session, root, "fast-path")
             return
         self.fast_path = "distributed"
-        fragments = self.fragments = fragment_plan(root, session)
-        self.state.set("STARTING")
-        workers = self.registry.alive()
-        if not workers:
-            raise RuntimeError("no alive workers")
-        self._schedule(session, fragments, workers)
-        self.state.set("RUNNING")
-        result_page = self._run_root_fragment(session, fragments)
+        with self.tracer.span("fragment") as sp:
+            fragments = self.fragments = fragment_plan(root, session)
+            sp.set("fragments", len(fragments))
+        with self.tracer.span("schedule") as sp:
+            self.state.set("STARTING")
+            workers = self.registry.alive()
+            if not workers:
+                raise RuntimeError("no alive workers")
+            sp.set("workers", len(workers))
+            self._schedule(session, fragments, workers)
+            self.state.set("RUNNING")
+        with self.tracer.span("execute/root-fragment"):
+            result_page = self._run_root_fragment(session, fragments)
         self._sweep_task_status()
         self.state.set("FINISHING")
         self.columns = fragments[-1].root.column_names
@@ -294,9 +575,18 @@ class QueryExecution:
 
         self.fast_path = path
         self.state.set("RUNNING")
-        page = Executor(session).execute_checked(root)
+        with self.tracer.span("execute/coordinator-local"):
+            ex = Executor(session)
+            page = ex.execute_checked(root)
         self.columns = list(root.column_names)
         self._materialize_result(session, page)
+        # the coordinator-local run as one task of the query's stats
+        cache = ex.scan_cache.values()
+        self._note_task_status(f"{self.query_id}.0.local.a0", {"state": "FINISHED", "stats": {
+            "completedSplits": 1, "totalSplits": 1,
+            "inputRows": int(sum(ex.scan_stats.values())),
+            "deviceCacheHits": sum(1 for d in cache if d == "hit"),
+            "deviceCacheMisses": sum(1 for d in cache if d == "miss")}})
 
     def _materialize_result(self, session, page) -> None:
         """The result page as Python rows, refusing one over
@@ -479,6 +769,11 @@ class QueryExecution:
             "completedSplits": sum(int(s.get("completedSplits", 0)) for s in st),
             "totalSplits": sum(int(s.get("totalSplits", 0)) for s in st),
             "processedRows": sum(int(s.get("inputRows", 0)) for s in st),
+            "deviceCacheHits": sum(int(s.get("deviceCacheHits", 0)) for s in st),
+            "deviceCacheMisses": sum(int(s.get("deviceCacheMisses", 0)) for s in st),
+            # the materialized views substituted into this query's plan
+            "mvHits": len(self.mv_substitutions),
+            **({"mvNames": list(self.mv_substitutions)} if self.mv_substitutions else {}),
         }
 
     def info(self) -> dict:
@@ -491,12 +786,37 @@ class QueryExecution:
             "user": self.user,
             "query": self.sql,
             "failure": (self.failure or "").split("\n")[0] or None,
+            "cacheStatus": self.cache_status,
             "fastPath": self.fast_path,
             "fragments": {str(fid): [loc.task_id for loc in locs]
                           for fid, locs in self.fragment_tasks.items()},
             "tasks": tasks,
             "queryStats": self.stats(),
         }
+
+
+class PlanMetaStore:
+    """Per-plan-object metadata kept beside cached plans, never written
+    into them: the prepared EXECUTE path's (determinism verdict, canonical
+    text) of a parameterized plan. An entry lives as long as its plan
+    object; a replanned or evicted plan is a new object, so an entry can
+    never serve another plan's canonical."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._entries: Dict[int, tuple] = {}
+
+    def get(self, root):
+        with self._lock:
+            ent = self._entries.get(id(root))
+        return ent[1] if ent is not None and ent[0]() is root else None
+
+    def put(self, root, meta) -> None:
+        with self._lock:
+            self._entries[id(root)] = (weakref.ref(root), meta)
+            if len(self._entries) > 1024:
+                self._entries = {k: v for k, v in self._entries.items()
+                                 if v[0]() is not None}
 
 
 class CoordinatorServer:
@@ -513,15 +833,28 @@ class CoordinatorServer:
         # runs: memory-catalog DDL and CREATE FUNCTION persist
         self.catalogs = default_catalogs()
         self.udfs: Dict[str, object] = {}
+        # the materialized-view registry every session of this server shares
+        from trino_tpu_torch.matview.registry import MaterializedViewRegistry
+
+        self.matviews = MaterializedViewRegistry()
 
         def _shared_catalog_session(properties):
             from trino_tpu_torch.client.session import Session
 
             return Session(properties, device=self.device, catalogs=self.catalogs,
-                           udfs=self.udfs)
+                           udfs=self.udfs, matviews=self.matviews)
 
         self.session_factory = session_factory or _shared_catalog_session
-        self.prepared = PreparedStatements()
+        # the logical-plan cache and the result cache every query of this
+        # server goes through (the result cache per query, by
+        # ``result_cache_enabled``), and the prepared statements keyed
+        # (user, name): the per-query sessions are thrown away
+        from trino_tpu_torch.cache import QueryCache
+        from trino_tpu_torch.server.prepared import PreparedStatementRegistry
+
+        self.query_cache = QueryCache()
+        self.prepared = PreparedStatementRegistry()
+        self.prepared_meta = PlanMetaStore()
         self.queries: Dict[str, QueryExecution] = {}
         self._qlock = threading.Lock()
         self._qid = itertools.count(1)
@@ -541,7 +874,10 @@ class CoordinatorServer:
                user: str = "anonymous") -> QueryExecution:
         query_id = f"q{time.strftime('%Y%m%d')}_{next(self._qid):05d}_{uuid.uuid4().hex[:5]}"
         execution = QueryExecution(query_id, sql, properties or {}, self.registry,
-                                   self.session_factory, user=user, prepared=self.prepared)
+                                   self.session_factory, user=user,
+                                   query_cache=self.query_cache,
+                                   prepared_registry=self.prepared,
+                                   prepared_meta=self.prepared_meta)
         with self._qlock:
             if len(self.queries) > self.MAX_QUERY_HISTORY:
                 terminal = [qid for qid, q in self.queries.items() if q.state.is_terminal()]
@@ -570,6 +906,10 @@ class CoordinatorServer:
 
 
 def _jsonable(v):
+    """A result value in the protocol's JSON vocabulary: dates and
+    timestamps as ISO strings and decimals as ``str(Decimal)``, inside
+    arrays, maps and rows too (the strings a flat column of the same type
+    gets)."""
     import datetime
     import decimal
 
@@ -577,7 +917,16 @@ def _jsonable(v):
         return v.isoformat()
     if isinstance(v, decimal.Decimal):
         return str(v)
+    if isinstance(v, (list, tuple)):
+        return [_jsonable(x) for x in v]
+    if isinstance(v, dict):
+        return {_jsonable(k): _jsonable(x) for k, x in v.items()}
     return v
+
+
+def _cache_header(q: QueryExecution) -> Optional[dict]:
+    """The result-cache disposition header, once the query decided it."""
+    return {CACHE_HEADER: q.cache_status} if q.cache_status else None
 
 
 def _result_payload(server: CoordinatorServer, q: QueryExecution, token: int) -> dict:
@@ -664,7 +1013,8 @@ def _make_handler(server: CoordinatorServer):
                 # a short query finishes inside this wait: one round trip
                 if not q.state.is_terminal():
                     q.state.wait_for_terminal(0.5)
-                self._send(200, json.dumps(_result_payload(server, q, 0)).encode())
+                self._send(200, json.dumps(_result_payload(server, q, 0)).encode(),
+                           headers=_cache_header(q))
                 return
             self._send(404)
 
@@ -680,7 +1030,8 @@ def _make_handler(server: CoordinatorServer):
                 if not q.state.is_terminal():
                     q.state.wait_for_terminal(0.5)
                 self._send(200, json.dumps(
-                    _result_payload(server, q, int(m.group(2)))).encode())
+                    _result_payload(server, q, int(m.group(2)))).encode(),
+                    headers=_cache_header(q))
                 return
             m = _QUERY_RE.match(self.path)
             if m:
