@@ -197,7 +197,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    twice: MISS, HIT, MISS, HIT, each warm EXECUTE a plan-cache hit), arrays
    and maps of decimals and dates through the protocol (the flat columns'
    strings), and 32 concurrent Q6 of which one executes and 31 are
-   answered from its result (``distributed_caches``).
+   answered from its result (``distributed_caches``). Adaptive execution
+   is on by default: each query's line carries its plan changes and the
+   task-status reads its coordinator made, a query whose ``plan/adapt``
+   span carries an error fails the phase, and Q9, Q18, Q21 and every query
+   whose default run changed its plan run once more with
+   ``adaptive_execution_enabled=false`` (rows checked, walls beside the
+   default run's).
 
 14. matview (after phase distributed, before phase mainpath): in a cached
    session at SF1, Q3's join and aggregate of microbench/matview.py with
@@ -217,6 +223,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the card (``staleness_matrix``): 0 incorrect substitutions. The answers
    come from trino_tpu_torch/testdata/matview_sf1_expected.json (written
    by the JAX package: tests/test_torch_matview.py --write-expected).
+
+15. adaptive (after phase matview, before phase mainpath): a port
+   CoordinatorServer and two in-process WorkerServers on the card at SF1.
+   Both join flips under a lie about customer's row count (10 with
+   ``join_max_broadcast_rows=20000``: broadcast->partitioned with buildRows
+   150000; 10^9 with 200000: partitioned->broadcast), each run's rows equal
+   to the adaptation-off run's and the eager session's, the superseded
+   tasks canceled; ``adaptive_capacity_reseed`` on Q3 and Q18 (a
+   capacity-reseed change, the expected rows); the hot-key join (90% of
+   lineitem's rows on one key) run with adaptation off, a real
+   AdaptivePlanner over its stage stats, and the salted producers it makes
+   run through the coordinator's task seam (the unsalted rows; the hot
+   partition's probe rows more than 4x the others' before, and spread
+   after); distributed EXPLAIN ANALYZE of Q1 and Q18, plain and VERBOSE with
+   ``device_profiling`` (``[tasks=2`` on every scheduled fragment, each
+   scan's ``rows=`` its table's count or, under dynamic filters, the same
+   rows in both runs, the outermost aggregation's ``rows=`` the result's row
+   count, ``launches=``/``dispatch_overhead=`` on the scan lines from
+   measured kernel rows); last, one CompiledQuery of Q17 run twice: the
+   compile ledger records a miss then a hit under one fingerprint, the
+   CompiledBody row counts both runs and the graph holds the merge kernel,
+   whose warm-up inputs join phase mainpath (path ``adaptive``). No
+   ``plan/adapt`` span of the phase may carry an error.
 
 With ``--profile`` it also runs each query once more (warm) in each of the
 five sessions (tpch, cache, analytics, scalar, nested) under
@@ -1033,6 +1062,9 @@ def phase_profile_compiled(device, expected, compiled, card):
 DIST_PROPS = {"catalog": "tpch", "schema": "sf1", "fused_join_pallas": True}
 DIST_REL_TOL = 1e-8  # doubles at SF1: partial and final sums add in another order
 DIST_PROCESS_QUERIES = (1, 17, 18)
+# run once more with adaptive_execution_enabled=false, beside the default,
+# with every query whose default run changed its plan
+DIST_ADAPTIVE_OFF = (9, 18, 21)
 # Q6 and Q17 with ? for their constants, and the bindings
 DIST_PARAMS = {
     6: (("date '1994-01-01'", "0.06 - 0.01", "0.06 + 0.01", "< 24"),
@@ -1072,8 +1104,20 @@ def dist_execute(coord, client, sql, device, what):
     c1 = dist_counters()
     delta = {k: c1[k] - c0[k] for k in c0}
     delta["merge_launches"] = merge.launches
-    info = coord.get_query(client.query_id).info()
-    return rows, wall, delta, info
+    q = coord.get_query(client.query_id)
+    adapt_failures(q, what)
+    delta["status_polls"] = q.status_polls
+    return rows, wall, delta, q.info()
+
+
+def adapt_failures(q, what):
+    """Raise when a rule of the adaptive re-planner failed in query ``q``:
+    the coordinator swallows a rule's error by design and records it on an
+    errored ``plan/adapt`` span."""
+    errors = [sp.attributes["error"] for sp in q.tracer.spans()
+              if sp.name == "plan/adapt" and "error" in sp.attributes]
+    if errors:
+        raise AssertionError(f"{what}: the adaptive re-planner failed: {errors}")
 
 
 def start_workers(coord_url, n, device):
@@ -1313,7 +1357,22 @@ def phase_distributed(device, expected, dist, mvexp, cap, eager, card):
                              "fragments": len(info["fragments"]) + 1,
                              "tasks": sum(len(t) for t in info["fragments"].values()),
                              **{k: v for k, v in d.items() if not k.startswith("tier_")},
-                             "tiers": {t: d[f"tier_{t}"] for t in TIERS if d[f"tier_{t}"]}})
+                             "tiers": {t: d[f"tier_{t}"] for t in TIERS if d[f"tier_{t}"]},
+                             # adaptive execution is on by default
+                             "plan_changes": [f"{c['rule']}: {c['description']}"
+                                              for c in info["planVersions"]]})
+            if q in DIST_ADAPTIVE_OFF or runs[0]["plan_changes"]:
+                rows, wall, d, info = dist_execute(
+                    coord, StatementClient(coord.base_url, {
+                        **{k: str(v) for k, v in DIST_PROPS.items()},
+                        "adaptive_execution_enabled": "false"}),
+                    entry["sql"], device, f"Q{q} (adaptation off)")
+                check_rows(f"Q{q} (distributed, adaptation off)", rows, entry["rows"],
+                           rel_tol=DIST_REL_TOL)
+                runs.append({"run": "adaptation_off", "wall_s": wall,
+                             "status_polls": d["status_polls"],
+                             "merge_launches": d["merge_launches"],
+                             "plan_changes": info["planVersions"]})
             out[q] = runs
             print("distributed", json.dumps({
                 "query": f"Q{q}", "rows": len(entry["rows"]),
@@ -1390,7 +1449,14 @@ def phase_distributed(device, expected, dist, mvexp, cap, eager, card):
         "eager_warm_wall_s": sum(w[1] for w in eager.values()),
         "hash_queries": [f"Q{q}" for q in hashed],
         "merge_queries": sorted(f"Q{q}" for q, r in out.items()
-                                if any(x["merge_launches"] for x in r)),
+                                if any(x.get("merge_launches") for x in r)),
+        "plan_changes": {f"Q{q}": r[0]["plan_changes"] + r[1]["plan_changes"]
+                         for q, r in out.items() if r[0]["plan_changes"] + r[1]["plan_changes"]},
+        "status_polls": {label: sum(r[i]["status_polls"] for r in out.values())
+                         for i, label in ((0, "cold"), (1, "warm"))},
+        "adaptation_off_wall_s": {f"Q{q}": r[2]["wall_s"] for q, r in out.items() if len(r) > 2},
+        "adaptation_on_warm_wall_s": {f"Q{q}": r[1]["wall_s"] for q, r in out.items()
+                                      if len(r) > 2},
         **{f"{label}_{k}": sum(r[i][k] for r in out.values())
            for i, label in ((0, "cold"), (1, "warm"))
            for k in ("wire_bytes", "logical_bytes", "raw_bytes", "encode_s", "compress_s",
@@ -1619,6 +1685,350 @@ def phase_matview(device, mvexp, expected, cap, card, schema="sf1"):
                         matrix["incorrect_freshness_substitutions"],
                         "wall_s": time.perf_counter() - t0}
     print("matview_staleness", json.dumps(out["staleness"]), flush=True)
+    return out
+
+
+# phase adaptive: the adaptive distributed path on a coordinator and two
+# in-process workers. The join flips under a lie about customer's row count
+# (the lie, join_max_broadcast_rows and the direction, by schema), the hot-key
+# join (90% of lineitem's rows on key 1, projected in a subquery so the join
+# is an equi-join on a column), and the plan of every statement
+ADAPTIVE_FLIP_SQL = ("select c_mktsegment, count(*) c from customer, orders "
+                     "where c_custkey = o_custkey group by c_mktsegment order by 1")
+ADAPTIVE_FLIPS = {
+    "sf1": ((10, 20_000, "broadcast->partitioned"), (10**9, 200_000, "partitioned->broadcast")),
+    "tiny": ((10, 200, "broadcast->partitioned"), (10**6, 2_000, "partitioned->broadcast")),
+}
+ADAPTIVE_SKEW_SQL = ("select count(*) c, sum(p.v) s from (select case when l_orderkey % 10 < 9 "
+                     "then cast(1 as bigint) else l_orderkey end as k, l_orderkey as v "
+                     "from lineitem) p, orders o where p.k = o.o_orderkey")
+ADAPTIVE_SKEW_PROPS = {"join_max_broadcast_rows": "100", "adaptive_skew_threshold": "4"}
+ADAPTIVE_RESEED_QUERIES = (3, 18)
+ADAPTIVE_EXPLAIN_QUERIES = (1, 18)
+
+
+class lying_row_count:
+    """Within the block, the port's TPC-H connector claims ``rows`` for
+    ``table`` (the planner's estimate; the data stays as it is)."""
+
+    def __init__(self, table, rows):
+        self.table, self.rows = table, rows
+
+    def __enter__(self):
+        from trino_tpu_torch.connector.tpch.connector import TpchConnector
+
+        self.orig = orig = TpchConnector.table_row_count
+        table, rows = self.table, self.rows
+
+        def lying(conn, schema, t):
+            return rows if t == table else orig(conn, schema, t)
+
+        TpchConnector.table_row_count = lying
+        return self
+
+    def __exit__(self, *exc):
+        from trino_tpu_torch.connector.tpch.connector import TpchConnector
+
+        TpchConnector.table_row_count = self.orig
+
+
+def adaptive_execute(coord, props, sql, device, what):
+    """(rows, wall, query) of one statement through the coordinator; fails
+    when a rule of the re-planner failed."""
+    from trino_tpu_torch.client.remote import StatementClient
+
+    client = StatementClient(coord.base_url, {k: str(v) for k, v in props.items()})
+    sync(device)
+    t0 = time.perf_counter()
+    _cols, rows = client.execute(sql, timeout=600.0)
+    sync(device)
+    wall = time.perf_counter() - t0
+    q = coord.get_query(client.query_id)
+    adapt_failures(q, what)
+    return rows, wall, q
+
+
+def run_fragments(coord, props, fragments):
+    """Schedule ``fragments`` as given, one task a worker each through the
+    coordinator's ``_create_task`` (the task seam the cluster tests use),
+    and run the root fragment on the coordinator: (rows, the query whose
+    slot records hold the tasks' stats)."""
+    from trino_tpu_torch.server.coordinator import QueryExecution
+    from trino_tpu_torch.sql.planner import plan as P
+    from trino_tpu_torch.sql.planner.fragmenter import RemoteSourceNode
+
+    q = QueryExecution(f"salted{time.time_ns() & 0xFFFFFF:x}", "", dict(props), coord.registry,
+                       coord.session_factory)
+    session = coord.session_factory(dict(props))
+    workers = coord.registry.alive()
+    counts = {}
+    for frag in fragments:
+        for node in P.walk_plan(frag.root):
+            if isinstance(node, RemoteSourceNode):
+                counts[node.fragment_id] = (len(workers) if frag.partitioning in ("source", "hash")
+                                            else 1)
+    q.fragments = fragments
+    try:
+        for frag in fragments:
+            q._schedule_fragment(session, frag, workers, counts)
+        rows = q._run_root_fragment(session, fragments).to_pylist()
+        q._sweep_task_stats()
+    finally:
+        q._cancel_tasks()
+    return jsonable_rows(rows), q
+
+
+def adaptive_flips(coord, device, schema, eager):
+    """Both join flips under the lie: the change recorded with the actual
+    build rows, rows equal the adaptation-off run's and the eager session's,
+    the superseded tasks canceled (their workers answer 404)."""
+    from trino_tpu_torch.server import wire
+
+    props = {"catalog": "tpch", "schema": schema}
+    want = jsonable_rows(eager.execute(ADAPTIVE_FLIP_SQL).rows)
+    customers = eager.execute("select count(*) from customer").rows[0][0]
+    out = []
+    for lie, limit, direction in ADAPTIVE_FLIPS[schema]:
+        p = {**props, "join_max_broadcast_rows": limit}
+        with lying_row_count("customer", lie):
+            off, off_s, _q = adaptive_execute(coord, {**p, "adaptive_execution_enabled": "false"},
+                                              ADAPTIVE_FLIP_SQL, device, direction)
+            rows, wall, q = adaptive_execute(coord, p, ADAPTIVE_FLIP_SQL, device, direction)
+        check_rows(f"{direction} (adaptation off)", off, want)
+        check_rows(direction, rows, want)
+        changes = [c for c in q.plan_versions if c["rule"] == "join-distribution"]
+        if [c["description"] for c in changes] != [direction] or \
+                changes[0]["detail"]["buildRows"] != customers:
+            raise AssertionError(f"{direction}: plan changes {q.plan_versions}, want one flip "
+                                 f"with buildRows {customers}")
+        for fid in changes[0]["supersedes"]:
+            for loc in q.fragment_tasks[fid]:
+                status, _b, _h = wire.http_request(
+                    "GET", f"{loc.base_url}/v1/task/{loc.task_id}/status", timeout=10.0)
+                if status != 404:
+                    raise AssertionError(f"{direction}: superseded task {loc.task_id} still "
+                                         f"answers {status}")
+        out.append({"direction": direction, "lie": lie, "limit": limit, "wall_s": wall,
+                    "off_wall_s": off_s, "change": changes[0],
+                    "tasks": sum(len(t) for t in q.fragment_tasks.values())})
+    return out
+
+
+def adaptive_reseed(coord, device, schema, expected):
+    """adaptive_capacity_reseed on Q3 and Q18: a capacity-reseed change, and
+    the expected rows."""
+    out = []
+    for qn in ADAPTIVE_RESEED_QUERIES:
+        entry = expected[str(qn)]
+        rows, wall, q = adaptive_execute(
+            coord, {"catalog": "tpch", "schema": schema, "fused_join_pallas": "true",
+                    "adaptive_capacity_reseed": "true"}, entry["sql"], device, f"Q{qn} reseed")
+        check_rows(f"Q{qn} (capacity reseed)", rows, entry["rows"], rel_tol=DIST_REL_TOL)
+        reseeds = [c for c in q.plan_versions if c["rule"] == "capacity-reseed"]
+        if not reseeds:
+            raise AssertionError(f"Q{qn}: no capacity-reseed change: {q.plan_versions}")
+        out.append({"query": f"Q{qn}", "wall_s": wall, "changes": [
+            {"fragment": c["fragment"], "runtimeRows": c["detail"]["runtimeRows"]}
+            for c in reseeds]})
+    return out
+
+
+def adaptive_salted(coord, device, schema, eager):
+    """The hot-key join: its stage stats from a finished run with adaptation
+    off (on the pipelined path the rule never sees a flushed probe), a real
+    AdaptivePlanner over them, and its salted producers run through the
+    task seam: the unsalted rows, the hot partition more than 4x the other
+    probe rows before, and spread after."""
+    import copy
+
+    from trino_tpu_torch.adaptive import AdaptivePlanner, RuntimeStatsProvider
+    from trino_tpu_torch.sql.planner.fragmenter import fresh_fragment_ids
+
+    props = {"catalog": "tpch", "schema": schema, **ADAPTIVE_SKEW_PROPS}
+    want = jsonable_rows(eager.execute(ADAPTIVE_SKEW_SQL).rows)
+    rows, wall, q = adaptive_execute(coord, {**props, "adaptive_execution_enabled": "false"},
+                                     ADAPTIVE_SKEW_SQL, device, "hot-key join")
+    check_rows("hot-key join (unsalted)", rows, want)
+    frags = copy.deepcopy(q.fragments)
+    by_id = {f.id: f for f in frags}
+    entries = [dict(e) for e in q.task_stats.values()]
+    planner = AdaptivePlanner(coord.session_factory(props), RuntimeStatsProvider(lambda: entries),
+                              len(coord.registry.alive()), fresh_fragment_ids(frags))
+    join_frag = next(f for f in frags if f.partitioning == "hash")
+    new, changes, errors = planner.adapt_fragment(join_frag, by_id)
+    if errors or [c.rule for c in changes] != ["skew-mitigation"]:
+        raise AssertionError(f"hot-key join: the re-planner gave {changes}, errors {errors}")
+    detail = changes[0].detail
+    probe, hot = detail["probePartitionRows"], detail["hotPartitions"]
+    others = sum(probe) - sum(probe[h] for h in hot)
+    if len(hot) != 1 or probe[hot[0]] <= 4 * others:
+        raise AssertionError(f"hot-key join: hot partitions {hot} of probe rows {probe}")
+    salted = [f for f in frags if f.id not in changes[0].supersedes]
+    for nf in new:
+        salted.insert(salted.index(join_frag), nf)
+    t0 = time.perf_counter()
+    salted_rows, sq = run_fragments(coord, props, salted)
+    salted_s = time.perf_counter() - t0
+    check_rows("hot-key join (salted)", salted_rows, want)
+    spread = [sum(col) for col in zip(*(e["stats"]["partitionRows"]
+                                        for e in sq.task_stats.values()
+                                        if e["fragment"] == new[0].id))]
+    if sum(spread) != sum(probe) or max(spread) > 2 * min(spread):
+        raise AssertionError(f"hot-key join: salted probe partition rows {spread}")
+    return {"unsalted_wall_s": wall, "salted_wall_s": salted_s, "hot": hot,
+            "probe_partition_rows": probe, "build_partition_rows": detail["buildPartitionRows"],
+            "salted_probe_partition_rows": spread}
+
+
+def adaptive_explain(coord, device, schema, expected, eager):
+    """Distributed EXPLAIN ANALYZE of Q1 and Q18, plain and VERBOSE with
+    device_profiling: two tasks a scheduled fragment, each scan's rows= its
+    table's rows (a scan with dynamic filters: the rows they keep, at most
+    the table's, equal in both runs), the outermost aggregation's rows= the
+    result's row count;
+    VERBOSE puts launches= and dispatch_overhead= on the scan lines, from
+    measured kernel rows (device seconds within the wall)."""
+    import re
+
+    counts, scan_rows = {}, {}
+    out = []
+    for qn in ADAPTIVE_EXPLAIN_QUERIES:
+        entry = expected[str(qn)]
+        for verbose in (False, True):
+            props = {"catalog": "tpch", "schema": schema, "fused_join_pallas": "true",
+                     **({"device_profiling": "true"} if verbose else {})}
+            what = f"EXPLAIN ANALYZE {'VERBOSE ' if verbose else ''}Q{qn}"
+            plan, wall, q = adaptive_execute(
+                coord, props, f"explain analyze {'verbose ' if verbose else ''}{entry['sql']}",
+                device, what)
+            lines = [r[0] for r in plan]
+            heads = [ln for ln in lines if ln.startswith("Fragment ") and "[single]" not in ln]
+            if not heads or not all("[tasks=2," in ln for ln in heads):
+                raise AssertionError(f"{what}: fragment headers {heads}")
+            scans = [ln for ln in lines if "- TableScan tpch." in ln]
+            for i, ln in enumerate(scans):
+                table = re.search(r"TableScan tpch\.\w+\.(\w+)", ln).group(1)
+                rows = int(re.search(r" rows=(\d+)\]", ln).group(1))
+                if table not in counts:
+                    counts[table] = eager.execute(f"select count(*) from {table}").rows[0][0]
+                # a scan with dynamic filters reads the rows their domains
+                # keep: fewer, and the same in both runs of the query
+                pruned = "dynamic_filters=" in ln
+                if (rows != counts[table] and not pruned) or not 0 < rows <= counts[table] or \
+                        scan_rows.setdefault((qn, i), rows) != rows:
+                    raise AssertionError(f"{what}: {table} has {counts[table]} rows: {ln}")
+                if verbose and not ("launches=" in ln and "dispatch_overhead=" in ln):
+                    raise AssertionError(f"{what}: no kernel annotation on {ln}")
+            agg = next(ln for ln in lines if "- Aggregation [final]" in ln
+                       or "- Aggregation [single]" in ln)
+            if f" rows={len(entry['rows'])}]" not in agg:
+                raise AssertionError(f"{what}: {len(entry['rows'])} result rows, {agg}")
+            kernels = q.kernel_rows_live()
+            if verbose and (not kernels or any(
+                    r["estimated"] or r["deviceS"] > r["wallS"] for r in kernels)):
+                raise AssertionError(f"{what}: kernel rows {kernels[:3]}")
+            out.append({"query": f"Q{qn}", "verbose": verbose, "wall_s": wall,
+                        "header": lines[0], "scans": len(scans),
+                        "kernel_rows": len(kernels),
+                        "device_s": sum(r["deviceS"] for r in kernels),
+                        "kernel_wall_s": sum(r["wallS"] for r in kernels)})
+    return out
+
+
+def adaptive_compile_ledger(device, expected, compiled, cap, schema):
+    """One CompiledQuery of Q17 run twice: the compile ledger records a miss
+    then a hit under one fingerprint, the CompiledBody row counts both runs,
+    and on the card the graph holds the merge kernel (the warm-up's inputs
+    go to phase mainpath)."""
+    from trino_tpu_torch import Session
+    from trino_tpu_torch.exec.compiled import CompiledQuery
+    from trino_tpu_torch.exec.query import plan_sql
+    from trino_tpu_torch.obs.devprofiler import DEVICE_PROFILER
+    from trino_tpu_torch.ops import merge
+
+    session = Session({"catalog": "tpch", "schema": schema, "fused_join_pallas": True},
+                      device=device)
+    entry = expected["17"]
+    cq = CompiledQuery.build(session, plan_sql(session, entry["sql"]))
+    merge.launches = 0
+    events, walls = [], []
+    for run in ("cold", "warm"):
+        # the compile ring is bounded (earlier phases may have filled it):
+        # this run's events are the ones stamped after it began
+        ts0 = time.time()
+        cap.now = ("adaptive", "Q17", run)
+        sync(device)
+        t0 = time.perf_counter()
+        page = cq.run()
+        sync(device)
+        walls.append(time.perf_counter() - t0)
+        cap.now = None
+        check_rows(f"Q17 (compile ledger, {run})", jsonable_rows(page.to_pylist()),
+                   entry["rows"], rel_tol=DIST_REL_TOL)
+        events += [e for e in DEVICE_PROFILER.compile_rows() if e["ts"] >= ts0]
+    launches = merge.launches
+    if [e["cache"] for e in events] != ["miss", "hit"] or \
+            events[0]["fingerprint"] != events[1]["fingerprint"] or events[1]["compileS"] != 0:
+        raise AssertionError(f"Q17 compile ledger: {events}")
+    (row,) = cq.kernel_stats.values()
+    if row["operator"] != "CompiledBody" or row["launches"] != 2:
+        raise AssertionError(f"Q17 CompiledBody row: {row}")
+    in_graph = cq.captures[-1]["merge_launches"] if cq.captures else 0
+    want_merge = compiled["queries"]["17"]["tiers"].get("merge-pallas", 0) >= 1 \
+        if compiled is not None else False
+    if device.type == "cuda" and want_merge and in_graph < 1:
+        raise AssertionError(f"Q17: its graph holds no merge launch: {cq.captures}")
+    replayed = sum(c["merge_launches"] * c["replays"] for c in cq.captures)
+    cq.close()
+    return {"events": [{k: e[k] for k in ("cache", "compileS", "shapeSig")} for e in events],
+            "fingerprint": events[0]["fingerprint"][:16], "body_row": row, "walls_s": walls,
+            "merge_in_graph": in_graph, "merge_launches": launches + replayed}
+
+
+def phase_adaptive(device, expected, compiled, cap, card, schema="sf1"):
+    """The adaptive distributed path on a port coordinator and two
+    in-process workers: both join flips, capacity reseeding of Q3 and Q18,
+    the salted hot-key join, distributed EXPLAIN ANALYZE [VERBOSE] of Q1 and
+    Q18; then the compile ledger over Q17's CompiledQuery. Every query of
+    the phase fails it when a plan/adapt span carries an error."""
+    from trino_tpu_torch import Session
+    from trino_tpu_torch.server.coordinator import CoordinatorServer
+    from trino_tpu_torch.server.worker import WorkerServer
+
+    t_phase = time.perf_counter()
+    eager = Session({"catalog": "tpch", "schema": schema}, device=device)
+    coord = CoordinatorServer(device=device)
+    coord.start()
+    workers = [WorkerServer(coordinator_url=coord.base_url, node_id=f"aw{i}", device=device)
+               for i in range(2)]
+    out = {"card": card}
+    try:
+        for w in workers:
+            w.start()
+        if not coord.registry.wait_for_workers(2, timeout=30.0):
+            raise AssertionError("adaptive: the in-process workers did not announce")
+        for name, step in (("flips", lambda: adaptive_flips(coord, device, schema, eager)),
+                           ("reseed", lambda: adaptive_reseed(coord, device, schema, expected)),
+                           ("salted", lambda: adaptive_salted(coord, device, schema, eager)),
+                           ("explain", lambda: adaptive_explain(coord, device, schema, expected,
+                                                                eager))):
+            t0 = time.perf_counter()
+            out[name] = step()
+            out[f"{name}_s"] = time.perf_counter() - t0
+            print("adaptive", json.dumps({"step": name, "seconds": out[f"{name}_s"],
+                                          "result": out[name]}), flush=True)
+    finally:
+        for w in workers:
+            w.stop()
+        coord.stop()
+    t0 = time.perf_counter()
+    out["compile_ledger"] = adaptive_compile_ledger(device, expected, compiled, cap, schema)
+    out["compile_ledger_s"] = time.perf_counter() - t0
+    print("adaptive", json.dumps({"step": "compile_ledger", "seconds": out["compile_ledger_s"],
+                                  "result": out["compile_ledger"]}), flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("adaptive_total", json.dumps({k: v for k, v in out.items()
+                                        if k.endswith("_s") or k in ("card",)}), flush=True)
     return out
 
 
@@ -2171,6 +2581,7 @@ def main() -> int:
             device, expected, testdata("distributed_sf1_expected.json"), mvexp, cap,
             {q: (runs[0]["wall_s"], runs[1]["wall_s"]) for q, runs in tpch.items()}, card)
         matview = phase_matview(device, mvexp, expected, cap, card)
+        adaptive = phase_adaptive(device, expected, compiled, cap, card)
     eager_merge = sorted(int(q) for q, e in expected.items()
                          if e["tiers"].get("merge-pallas", 0) >= 1)
     compiled_merge = sorted(f"Q{q}" for q, e in compiled["queries"].items()
@@ -2180,7 +2591,8 @@ def main() -> int:
     rows += phase_mainpath(cap.captured, {
         "tpch": eager_merge, "cache": eager_merge,
         "compiled_uncached": compiled_merge, "compiled_cached": compiled_merge,
-        "distributed": dist_merge, "matview": matview_merge})
+        "distributed": dist_merge, "matview": matview_merge,
+        "adaptive": ["Q17"] if "Q17" in compiled_merge else []})
     if profiling:
         tpch_sql = [(f"Q{q}", expected[str(q)]["sql"]) for q in range(1, 23)]
         phase_profile(session, tpch_sql, "uncached")
@@ -2219,7 +2631,8 @@ def main() -> int:
                         for rec in compiled_runs),
         "distributed": sum(run["merge_launches"] for runs in dist_runs.values()
                            for run in runs),
-        "matview": matview["q18"]["merge_launches"]}
+        "matview": matview["q18"]["merge_launches"],
+        "adaptive": adaptive["compile_ledger"]["merge_launches"]}
     for path, n in launches_by_path.items():
         if n < 1 and path not in ("analytics", "scalar", "nested", "distributed", "matview"):
             raise AssertionError(f"the 22 queries of path {path} launched the merge kernel "

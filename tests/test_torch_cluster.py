@@ -412,15 +412,23 @@ def test_dbapi_qmark_parameters(cluster):
 
 
 def test_unported_tiers_are_refused(cluster):
+    """The fault-tolerant tier and spooled results are refused, and their
+    routes answer 501. Adaptive execution and distributed EXPLAIN ANALYZE
+    are ported: a request setting ``adaptive_execution_enabled`` runs, and
+    EXPLAIN ANALYZE answers with the annotated fragments."""
     coord, _ = cluster
     from trino_tpu_torch.client.remote import RemoteQueryError
 
-    for prop, value in (("retry_policy", "TASK"), ("adaptive_execution_enabled", "true"),
-                        ("spooled_results_enabled", "true")):
+    for prop, value in (("retry_policy", "TASK"), ("spooled_results_enabled", "true")):
         with pytest.raises(RemoteQueryError, match="not ported"):
             run(coord, "select count(*) from region", {**TINY, prop: value})
-    with pytest.raises(RemoteQueryError, match="EXPLAIN ANALYZE"):
-        run(coord, "explain analyze select count(*) from region")
+    for value in ("true", "false"):
+        _cols, rows = run(coord, "select count(*) from region",
+                          {**TINY, "adaptive_execution_enabled": value})
+        assert rows == [[5]]
+    _cols, plan = run(coord, "explain analyze select count(*) from region")
+    text = "\n".join(r[0] for r in plan)
+    assert text.startswith("Query wall time: ") and "TableScan tpch.tiny.region" in text
     for path in ("/ui", "/v1/query/x/trace", "/v1/segment/x"):
         status, _, _ = wire.http_request("GET", coord.base_url + path, timeout=10.0)
         assert status == 501, path

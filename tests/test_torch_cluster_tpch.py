@@ -4,7 +4,10 @@ protocol over HTTP), held against the JAX package: rows equal the JAX
 Session's after the protocol's JSON rounding (tests/test_torch_cluster.py
 ``json_round``), and the join tiers the port's workers and root fragment
 select equal those of a JAX cluster (coordinator and two workers in this
-process) running the same query. ``gather_max_rows_per_device=1``
+process) running the same query, as do the plan changes of the adaptive
+re-planner, which both coordinators run by default (rules and
+descriptions: none on these queries' estimates).
+``gather_max_rows_per_device=1``
 hash-distributes every grouped final aggregation, as the estimates do at
 SF1. Q1-Q11 here, Q12-Q22 in ``_more.py``.
 """
@@ -65,10 +68,16 @@ def check_query(clusters, q):
     from trino_tpu.client.remote import StatementClient as JaxClient
 
     j0 = _tiers(jax_metrics.FUSED_JOIN_SELECTIONS)
-    _, jrows = JaxClient(jcoord.base_url, dict(PROPS)).execute(QUERIES[q], timeout=120.0)
+    jclient = JaxClient(jcoord.base_url, dict(PROPS))
+    _, jrows = jclient.execute(QUERIES[q], timeout=120.0)
     j1 = _tiers(jax_metrics.FUSED_JOIN_SELECTIONS)
     assert rounded(rows) == rounded(jrows)
     assert {t: t1[t] - t0[t] for t in TIERS} == {t: j1[t] - j0[t] for t in TIERS}
+    # adaptive execution is on by default in both: the same plan changes
+    # (none on correct estimates)
+    jversions = jcoord.get_query(jclient.query_id).plan_versions
+    assert [(c["rule"], c["description"]) for c in query.plan_versions] == \
+        [(c["rule"], c["description"]) for c in jversions]
 
 
 @pytest.mark.parametrize("q", [q for q in sorted(QUERIES) if q <= 11])

@@ -137,7 +137,10 @@ NAMED_MODULES = (
     "trino_tpu_torch.cache", "trino_tpu_torch.cache.plan_key",
     "trino_tpu_torch.cache.determinism", "trino_tpu_torch.cache.result_cache",
     "trino_tpu_torch.matview", "trino_tpu_torch.matview.registry",
-    "trino_tpu_torch.matview.substitute", "trino_tpu_torch.matview.lifecycle")
+    "trino_tpu_torch.matview.substitute", "trino_tpu_torch.matview.lifecycle",
+    # the adaptive distributed path
+    "trino_tpu_torch.obs.devprofiler", "trino_tpu_torch.parallel.exchange",
+    "trino_tpu_torch.adaptive.runtime_stats", "trino_tpu_torch.adaptive.replanner")
 
 
 def test_port_loads_neither_jax_nor_the_jax_package():

@@ -540,10 +540,17 @@ def test_operator_stats_accumulate_not_overwrite():
 
 
 def test_plain_executor_collects_no_stats():
+    """A plain query collects no per-operator stats. Its kernel ledger
+    holds zero-sync rows only: a launch count and the host wall a node,
+    the device time estimated as that wall, nothing read from the device
+    (test_plain_query_adds_no_host_reads counts the reads)."""
     s = torch_session()
     ex = TorchExecutor(s)
     ex.execute_checked(torch_plan_sql(s, "select count(*) from nation"))
-    assert ex.node_stats == {} and ex.kernel_stats == {}
+    assert ex.node_stats == {} and not ex.collect_stats
+    assert ex.kernel_stats and all(
+        r["estimated"] and r["deviceS"] == r["wallS"] and r["launches"] == 1
+        for r in ex.kernel_stats.values())
 
 
 def test_operator_stats_add_and_merge():

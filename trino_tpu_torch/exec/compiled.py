@@ -23,6 +23,12 @@ the staged row counts and ``estimate_capacity_hints`` (or, under
 run whose capacity flag fires doubles that hint and captures again
 (``recompiles``).
 
+Each run feeds the device profiler (obs/devprofiler.py): a compile event
+(a run that captured is a ``miss``, a replay a ``hit``) and the query's
+``CompiledBody`` kernel row, written after the replay; with
+``device_profiling`` the body's device seconds come from CUDA events
+around the replay.
+
 On the CPU, which only the tests ask for, nothing is captured: ``run``
 executes the same body eagerly each time. On CUDA a failed capture raises;
 it never falls back to eager execution. ``random()`` is refused here: the
@@ -43,6 +49,7 @@ from trino_tpu_torch.exec.executor import Executor, QueryError, fired_flags, rai
 from trino_tpu_torch.exec.page_tree import PageSpec, flatten_page, unflatten_page
 from trino_tpu_torch.obs import metrics as M
 from trino_tpu_torch.obs import trace as tracing
+from trino_tpu_torch.obs.devprofiler import DEVICE_PROFILER
 from trino_tpu_torch.sql import ir
 from trino_tpu_torch.sql.planner import plan as P
 
@@ -169,6 +176,11 @@ class CompiledQuery:
     # graph pool's bytes (device memory reserved by the capture), the
     # merge-kernel launches the graph holds and its replays
     captures: List[dict] = dataclasses.field(default_factory=list)
+    # kernel ledger (obs/devprofiler.py): one "CompiledBody" row over this
+    # query's runs of the body
+    kernel_stats: Dict[tuple, dict] = dataclasses.field(default_factory=dict)
+    # the compile ledger's identity, computed once on the first run
+    _fingerprint: str = ""
 
     MAX_RECOMPILES = 16  # doubling buckets: 2^16x headroom over the estimate
 
@@ -371,31 +383,85 @@ class CompiledQuery:
             "merge_launches": merge.captured - captured0, "replays": 0,
             "constants": len(self._store)})
 
-    def _run_once(self):
-        """(flat outputs, output spec, codes, fired flags as host bools)."""
+    def _run_once(self, events=None):
+        """(flat outputs, output spec, codes, fired flags as host bools).
+        ``events``: a pair of CUDA events recorded around the replay."""
         if self.session.device.type != "cuda":
             out_arrays, out_spec, codes, flags = self._execute_body(count_tiers=self._fresh)
             return out_arrays, out_spec, codes, fired_flags(flags)
         if self._graph is None:
             self._capture()
+        if events is not None:
+            events[0].record()
         self._graph.replay()
+        if events is not None:
+            events[1].record()
         self.captures[-1]["replays"] += 1
         fired = self._fired.tolist() if self._fired is not None else []  # one read
         return self._outputs, self._out_spec, self._codes, fired
+
+    def _profile_run(self, fresh: bool, dispatch_wall_s: float, body_device_s: float,
+                     estimated: bool) -> None:
+        """Feed the device profiler after a run: one compile-ledger event (a
+        miss on a run that captured, a hit on a replay) and the
+        ``CompiledBody`` kernel row. A capturing run's wall goes to the
+        compile ledger, not to the row, so the row's dispatch overhead
+        stays a steady-state signal."""
+        from trino_tpu_torch.cache.plan_key import plan_fingerprint
+        from trino_tpu_torch.obs.devprofiler import shape_signature
+
+        if not self._fingerprint:
+            self._fingerprint = plan_fingerprint(self.root)
+        DEVICE_PROFILER.record_compile(
+            "compiled", self._fingerprint, shape_signature(self.input_arrays),
+            dispatch_wall_s if fresh else 0.0, "miss" if fresh else "hit", started=fresh)
+        wall = body_device_s if fresh else dispatch_wall_s + (0.0 if estimated else body_device_s)
+        key = (str(self.root.id), "CompiledBody", "compiled")
+        ks = self.kernel_stats.get(key)
+        if ks is None:
+            ks = self.kernel_stats[key] = {
+                "planNodeId": key[0], "operator": key[1], "tier": "compiled", "launches": 0,
+                "wallS": 0.0, "deviceS": 0.0, "inputBytes": 0, "outputBytes": 0,
+                "estimated": estimated}
+        ks["launches"] += 1
+        ks["wallS"] += wall
+        ks["deviceS"] += body_device_s
+        ks["estimated"] = bool(ks["estimated"] or estimated)
+        DEVICE_PROFILER.count_launch(wall, 0.0 if estimated else body_device_s)
 
     def run(self) -> Page:
         """Replay the captured body (capturing it first when needed); on a
         capacity overflow, double the offending hint and capture again."""
         from trino_tpu_torch.sql.planner import stats
 
+        props = getattr(self.session, "properties", None) or {}
+        profiling = bool(props.get("device_profiling", False))
         for _ in range(self.MAX_RECOMPILES):
             fresh = self._fresh
+            events = None
+            if profiling and self.session.device.type == "cuda":
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            if fresh:
+                DEVICE_PROFILER.compile_started()
             with tracing.span("device/compile" if fresh else "device/execute") as sp:
                 t0 = time.perf_counter()
-                out_arrays, out_spec, codes, fired = self._run_once()
+                out_arrays, out_spec, codes, fired = self._run_once(events)
                 device_s = time.perf_counter() - t0
                 sp.set("device_seconds", round(device_s, 6))
                 sp.set("staged_rows", int(sum(self.scan_rows.values())))
+            # the body's device seconds: with device_profiling, the CUDA
+            # events around the replay (the flag read above waited for
+            # it), or on the CPU the body's own wall (it ran synchronously);
+            # otherwise estimated from the wall, 0 on a capturing run
+            if events is not None:
+                events[1].synchronize()
+                body_device_s, estimated = events[0].elapsed_time(events[1]) / 1e3, False
+            elif profiling:
+                body_device_s, estimated = device_s, False
+            else:
+                body_device_s, estimated = (0.0 if fresh else device_s), True
+            self._profile_run(fresh, device_s, body_device_s, estimated)
             self._fresh = False
             (M.COMPILE_CACHE_MISSES if fresh else M.COMPILE_CACHE_HITS).inc()
             (M.COMPILE_SECONDS if fresh else M.DEVICE_SECONDS).inc(device_s)

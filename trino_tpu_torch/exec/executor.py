@@ -55,6 +55,7 @@ from trino_tpu_torch.data.page import (Column, Page, column_data_from_python, co
 from trino_tpu_torch.exec import memory as _mem
 from trino_tpu_torch.exec.operator_stats import OperatorStats
 from trino_tpu_torch.obs import metrics as M
+from trino_tpu_torch.obs.devprofiler import DEVICE_PROFILER
 from trino_tpu_torch.ops import aggregate as agg_ops
 from trino_tpu_torch.ops import expr_lower as L
 from trino_tpu_torch.ops import fused_join as fused_ops
@@ -223,12 +224,17 @@ class Executor:
     """Eager plan interpreter on ``session.device``; ``execute_checked``
     runs the plan and raises deferred errors.
 
-    ``collect_stats`` turns on the per-operator stats EXPLAIN ANALYZE
-    prints (``node_stats``, ``kernel_stats``). It is off for every other
-    query: the reference always collects them, and its per-node live count
-    is a device-to-host read and sync per plan node. Here each node's live
-    count stays a device scalar, and ``execute_checked`` reads them all in
-    one batch when the plan has run.
+    Every eager execution keeps the kernel ledger (``kernel_stats``, the
+    reference's row shape, obs/devprofiler.py): launches, exclusive host
+    wall and bytes a plan node, with device seconds estimated as the wall
+    (``estimated``) unless ``device_profiling`` synchronizes after each
+    node. None of it reads the device. ``collect_stats`` adds the
+    per-operator stats EXPLAIN ANALYZE prints (``node_stats``); it is on
+    under EXPLAIN ANALYZE and ``device_profiling`` alone. The reference
+    always collects them, and its per-node live count is a device-to-host
+    read and sync per plan node. Here each node's live count stays a device
+    scalar, and ``execute_checked`` reads them all in one batch when the
+    plan has run.
 
     The class flags mark the tier. The eager tier reads the device where
     the host must decide (an expansion's exact total, dynamic-filter
@@ -248,8 +254,15 @@ class Executor:
     def __init__(self, session, collect_stats: Optional[bool] = None,
                  capacity_hints: Optional[Dict[str, int]] = None):
         self.session = session
+        self.props = getattr(session, "properties", None) or {}
+        # device_profiling: a torch.cuda.synchronize() after each node, so
+        # its device seconds are measured and not estimated from its wall
+        # (the eager tier only: a compiled body is never synchronized)
+        self.profile_sync = self.eager_tier and bool(self.props.get("device_profiling", False))
         if collect_stats is not None:
             self.collect_stats = collect_stats
+        elif self.profile_sync:
+            self.collect_stats = True
         self.device = session.device
         self.errors: List[Tuple[str, torch.Tensor]] = []
         # static output capacities by hint key ("cmp:<id>" for Compact,
@@ -259,7 +272,6 @@ class Executor:
         # build-side key domains by (join_id, key_index), consumed by probe
         # scans annotated by the optimizer
         self.dyn_domains: Dict[Tuple[int, int], object] = {}
-        self.props = getattr(session, "properties", None) or {}
         self.enable_dynamic_filtering = bool(
             self.props.get("dynamic_filtering_enabled", True))
         # per scan node: the device-cache disposition (hit | miss | bypass)
@@ -274,9 +286,9 @@ class Executor:
         # per-operator stats by plan-node id (collect_stats), accumulated
         # across repeated executions of a node
         self.node_stats: Dict[int, OperatorStats] = {}
-        # per-(node, operator) dispatch ledger: launches, wall and device
-        # seconds (EXPLAIN ANALYZE VERBOSE's launches= and
-        # dispatch_overhead=, in the reference's kernel-ledger row shape)
+        # per-(node, operator) kernel ledger: launches, wall and device
+        # seconds, input and output bytes (EXPLAIN ANALYZE VERBOSE's
+        # launches= and dispatch_overhead=; the task's kernelStats)
         self.kernel_stats: Dict[Tuple[int, str], dict] = {}
         # live rows a node produced on its latest execution (an int, or a
         # device scalar until read): parents charge them as their input
@@ -289,9 +301,9 @@ class Executor:
         self._child_wall: List[float] = [0.0]
         # (splits, scanned rows) of the scan that just ran, for its stats
         self._pending_scan: Dict[int, Tuple[int, int]] = {}
-        # device_profiling: a torch.cuda.synchronize() after each node, so
-        # its device seconds are measured and not estimated from its wall
-        self.profile_sync = bool(self.props.get("device_profiling", False))
+        # output bytes of each node's latest execution: parents charge them
+        # as their kernel rows' input bytes
+        self._last_output_bytes: Dict[int, int] = {}
 
     # ------------------------------------------------------------------ api
     def execute_checked(self, node: P.PlanNode) -> Page:
@@ -308,7 +320,9 @@ class Executor:
         method = getattr(self, f"_exec_{type(node).__name__}", None)
         if method is None:
             raise NotImplementedError(f"executor: {type(node).__name__} is not ported")
-        if not self.collect_stats:
+        if not self.eager_tier:
+            # a compiled body runs once and is replayed whole: its ledger
+            # row is the CompiledQuery's (exec/compiled.py)
             page = method(node)
             # each operator's output rolls into the query's peak (exact bytes)
             self.memory.observe(_mem.page_bytes(page))
@@ -336,28 +350,42 @@ class Executor:
             # the wait is elapsed inside this node's subtree: the parent's
             # exclusive wall stays exclusive of it
             self._child_wall[-1] += device_s
-        live = page.num_rows if page.sel is None else page.sel.sum()
         nbytes = _mem.page_bytes(page)
-        st = self.node_stats.get(node.id)
-        if st is None:
-            st = self.node_stats[node.id] = OperatorStats(
-                node.id, type(node).__name__.replace("Node", ""))
-        st.wall_s += excl_wall
-        st.output_bytes += nbytes
-        st.invocations += 1
-        st.peak_bytes = max(st.peak_bytes, nbytes)
-        self._row_terms.append((st, "output_rows", live))
-        for s in node.sources:
-            self._row_terms.append((st, "input_rows", self._last_output_rows.get(s.id, 0)))
-        splits, scanned = self._pending_scan.pop(node.id, (0, 0))
-        st.splits += splits
-        st.input_rows += scanned  # a scan's input is the connector's rows
-        ks = self.kernel_stats.setdefault((node.id, st.operator), {
-            "planNodeId": str(node.id), "launches": 0, "wallS": 0.0, "deviceS": 0.0})
+        operator = type(node).__name__.replace("Node", "")
+        # one launch a node execution (each _exec_ dispatches this node's
+        # device ops); the wall is exclusive, with the measured wait added
+        # back, so wall - device is the node's dispatch overhead
+        kwall = excl_wall + (0.0 if estimated else device_s)
+        ks = self.kernel_stats.get((node.id, operator))
+        if ks is None:
+            ks = self.kernel_stats[(node.id, operator)] = {
+                "planNodeId": str(node.id), "operator": operator, "tier": "eager",
+                "launches": 0, "wallS": 0.0, "deviceS": 0.0, "inputBytes": 0,
+                "outputBytes": 0, "estimated": estimated}
         ks["launches"] += 1
-        ks["wallS"] += excl_wall + (0.0 if estimated else device_s)
+        ks["wallS"] += kwall
         ks["deviceS"] += device_s
-        self._last_output_rows[node.id] = live
+        ks["inputBytes"] += sum(self._last_output_bytes.get(s.id, 0) for s in node.sources)
+        ks["outputBytes"] += nbytes
+        ks["estimated"] = bool(ks["estimated"] or estimated)
+        DEVICE_PROFILER.count_launch(kwall, 0.0 if estimated else device_s)
+        self._last_output_bytes[node.id] = nbytes
+        if self.collect_stats:
+            live = page.num_rows if page.sel is None else page.sel.sum()
+            st = self.node_stats.get(node.id)
+            if st is None:
+                st = self.node_stats[node.id] = OperatorStats(node.id, operator)
+            st.wall_s += excl_wall
+            st.output_bytes += nbytes
+            st.invocations += 1
+            st.peak_bytes = max(st.peak_bytes, nbytes)
+            self._row_terms.append((st, "output_rows", live))
+            for s in node.sources:
+                self._row_terms.append((st, "input_rows", self._last_output_rows.get(s.id, 0)))
+            splits, scanned = self._pending_scan.pop(node.id, (0, 0))
+            st.splits += splits
+            st.input_rows += scanned  # a scan's input is the connector's rows
+            self._last_output_rows[node.id] = live
         self.memory.observe(nbytes)
         return page
 

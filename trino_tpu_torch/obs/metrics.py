@@ -120,9 +120,24 @@ COMPILE_CACHE_MISSES = Counter("compile_cache_misses_total")
 COMPILE_CACHE_HITS = Counter("compile_cache_hits_total")
 COMPILE_SECONDS = Counter("compile_seconds_total")
 DEVICE_SECONDS = Counter("device_seconds_total")
-# capacity hints the compiled tier repriced from the staged pages
-# (adaptive/reseed.py), by rule
+# the device profiler (obs/devprofiler.py): launches and dispatch overhead
+# (wall minus device seconds) by operator, bumped when a query's kernel rows
+# fold, never per dispatch; compile seconds by tier and cache outcome, one
+# observation a compile event (a replay's is 0)
+KERNEL_LAUNCHES = Counter("kernel_launches_total")
+KERNEL_DISPATCH_OVERHEAD = Counter("kernel_dispatch_overhead_seconds")
+COMPILE_SECONDS_TIERED = Histogram("compile_seconds")
+
+# adaptive execution (adaptive/): plan changes by rule, applied at a stage
+# boundary by the re-planner (join-distribution | capacity-reseed |
+# skew-mitigation) and by the compiled tier's capacity reseeding
+# (adaptive/reseed.py, also "capacity-reseed"); join flips by direction
+# (to_partitioned | to_broadcast); exchange sources stamped with actual
+# stage rows; hot partitions salted
 ADAPTIVE_ADAPTATIONS = Counter("adaptive_adaptations_total")
+ADAPTIVE_JOIN_FLIPS = Counter("adaptive_join_flips_total")
+ADAPTIVE_RESEEDED_SOURCES = Counter("adaptive_reseeded_sources_total")
+ADAPTIVE_SKEW_HOT_PARTITIONS = Counter("adaptive_skew_hot_partitions_total")
 
 # the distributed path (data/serde.py, server/): wire bytes by direction
 # (encode | decode) and codec (zlib | none | logical, the uncompressed

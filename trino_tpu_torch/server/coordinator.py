@@ -27,16 +27,28 @@ binds its values into the cached parameterized plan
 against the server's view registry, the refresh's defining query through
 the distributed path.
 
+Adaptive execution is on by default (``adaptive_execution_enabled``): at
+every stage boundary, after the phased build waits and before a fragment's
+tasks exist, the re-planner (adaptive/replanner.py) may flip a join's
+distribution on the build's actual rows, stamp exchange sources with
+actual rows or salt hot partitions; each change is a versioned plan change
+(``planVersions``, ``[adapted: ...]`` in EXPLAIN ANALYZE, a ``plan/adapt``
+span). The stats it reads come from the tasks' status payloads, kept a
+task slot (``task_stats``) by a jittered background poller and a sweep at
+each boundary, and rolled up task -> stage -> query
+(exec/operator_stats.py). Distributed EXPLAIN ANALYZE [VERBOSE] runs the
+query through the same path with per-operator stats on and prints the
+fragments annotated with the rolled-up stats.
+
 The coordinator runs on one torch device: CUDA unless it is given another
 (``device="cpu"`` in the tests); asked for CUDA without a usable GPU it
 raises.
 
 Not ported (each refused, never ignored): ``retry_policy=TASK`` (the
-fault-tolerant tier), spooled result segments, adaptive re-planning,
-distributed EXPLAIN ANALYZE, resource groups and the dispatch plane,
-cluster memory, the ledgers, the system catalog, and the
-``/v1/query/{id}/trace|profile|flows``, ``/ui`` and ``/v1/segment`` routes
-(501).
+fault-tolerant tier), spooled result segments, resource groups and the
+dispatch plane, cluster memory, the flow and memory ledgers and the phase
+timeline, the system catalog, and the ``/v1/query/{id}/trace|profile|flows``,
+``/ui`` and ``/v1/segment`` routes (501).
 
     python -m trino_tpu_torch.server.coordinator [--port N] [--device cuda|cpu]
 
@@ -89,7 +101,6 @@ _REFUSED_PROPERTIES = (
      "retry_policy=TASK (the fault-tolerant tier: spooled exchange, retries, "
      "speculative execution)"),
     ("spooled_results_enabled", _truthy, "spooled result segments"),
-    ("adaptive_execution_enabled", _truthy, "adaptive re-planning and skew salting"),
 )
 
 
@@ -175,9 +186,22 @@ class QueryExecution:
         self.deallocated_prepared: List[str] = []
         self.fragments = None
         self.fragment_tasks: Dict[int, List[TaskLocation]] = {}
-        # the latest status payload of each task, by task id
-        self.task_info: Dict[str, dict] = {}
-        self._tinfo_lock = threading.Lock()
+        # the latest status record of each task slot ("<query>.<fragment>.
+        # <index>"): {"fragment", "taskId", "state", "stats"}; the
+        # stage and query rollups and the adaptive rules read it
+        self.task_stats: Dict[str, dict] = {}
+        self._tstats_lock = threading.Lock()
+        # task-status GETs this query made (poller, sweeps, build waits)
+        self.status_polls = 0
+        # versioned plan changes of the adaptive re-planner (dicts)
+        self.plan_versions: List[dict] = []
+        # EXPLAIN ANALYZE: every executor of the query collects
+        # per-operator stats; the coordinator's own executor is kept
+        self._collect_stats = False
+        self._root_executor = None
+        self._local_executor = None
+        self.fast_path_reason: Optional[str] = None
+        self._kernels_folded = False
         self.phase_waits: List[tuple] = []
         self.created_at = time.time()
         self.ended_at: Optional[float] = None
@@ -200,6 +224,7 @@ class QueryExecution:
                 self._run_lifecycle()
             self.tracer.end_span(root_span)
             self.ended_at = time.time()
+            self.fold_kernel_profile()
             self.state.set("FINISHED")
         except Exception as e:  # noqa: BLE001 — reported through query info
             self.ended_at = self.ended_at or time.time()
@@ -208,6 +233,7 @@ class QueryExecution:
             root_span.set("error", str(e).split("\n")[0][:300])
             self.tracer.end_span(root_span)
             self._cancel_tasks()
+            self.fold_kernel_profile()
             self.state.set("FAILED")
 
     def _run_lifecycle(self) -> None:
@@ -224,9 +250,14 @@ class QueryExecution:
         stmt = parse_statement(self.sql)
         if (isinstance(stmt, ast.Explain) and stmt.analyze
                 and isinstance(stmt.statement, ast.Query)):
+            # distributed EXPLAIN ANALYZE: the statement runs through the
+            # fragment/schedule/execute path, and the deliverable is the
+            # fragments annotated with the stats it ran under
             self.cache_status = "BYPASS"
-            raise NotImplementedError(
-                "distributed EXPLAIN ANALYZE is not ported to the PyTorch coordinator")
+            text = self._explain_analyze(session, stmt)
+            self.columns = ["Query Plan"]
+            self.rows = [(line,) for line in text.split("\n")]
+            return
         if isinstance(stmt, (ast.Prepare, ast.ExecutePrepared, ast.Deallocate)):
             self._run_prepared_statement(session, stmt)
             return
@@ -547,8 +578,9 @@ class QueryExecution:
             return
         from trino_tpu_torch.server import fastpath
 
-        take, _reason = fastpath.fast_path_decision(session, root)
+        take, reason = fastpath.fast_path_decision(session, root)
         if take:
+            self.fast_path_reason = reason
             self._run_local(session, root, "fast-path")
             return
         self.fast_path = "distributed"
@@ -563,9 +595,14 @@ class QueryExecution:
             sp.set("workers", len(workers))
             self._schedule(session, fragments, workers)
             self.state.set("RUNNING")
+            self._start_stats_poller()
         with self.tracer.span("execute/root-fragment"):
             result_page = self._run_root_fragment(session, fragments)
-        self._sweep_task_status()
+        # freeze the rollup on the tasks' final numbers before the query
+        # leaves RUNNING (every task is FLUSHING or later once the root
+        # fragment drained its buffers)
+        with self.tracer.span("stats/sweep") as sp:
+            sp.set("polled", self._sweep_task_stats())
         self.state.set("FINISHING")
         self.columns = fragments[-1].root.column_names
         self._materialize_result(session, result_page)
@@ -575,18 +612,36 @@ class QueryExecution:
 
         self.fast_path = path
         self.state.set("RUNNING")
+        t0 = time.perf_counter()
         with self.tracer.span("execute/coordinator-local"):
-            ex = Executor(session)
+            ex = Executor(session, collect_stats=self._collect_stats or None)
             page = ex.execute_checked(root)
+        self._local_executor = ex  # EXPLAIN ANALYZE's annotation source
         self.columns = list(root.column_names)
         self._materialize_result(session, page)
-        # the coordinator-local run as one task of the query's stats
+        self._note_local_stats(ex, time.perf_counter() - t0)
+
+    def _note_local_stats(self, ex, elapsed_s: float) -> None:
+        """A coordinator-local execution as one synthetic task slot of
+        fragment 0, so the rollups and the protocol's stats block cover it
+        as they cover a distributed query."""
         cache = ex.scan_cache.values()
-        self._note_task_status(f"{self.query_id}.0.local.a0", {"state": "FINISHED", "stats": {
-            "completedSplits": 1, "totalSplits": 1,
+        stats = {
+            "elapsedS": round(elapsed_s, 6),
+            "deviceS": round(sum(st.device_s for st in ex.node_stats.values()), 6),
+            "completedSplits": max(1, len(ex.scan_stats)),
+            "totalSplits": max(1, len(ex.scan_stats)),
             "inputRows": int(sum(ex.scan_stats.values())),
+            "outputRows": len(self.rows),
+            "outputBytes": sum(st.output_bytes for st in ex.node_stats.values()),
+            "peakBytes": int(ex.memory.peak),
+            "spills": len(ex.memory.spills),
             "deviceCacheHits": sum(1 for d in cache if d == "hit"),
-            "deviceCacheMisses": sum(1 for d in cache if d == "miss")}})
+            "deviceCacheMisses": sum(1 for d in cache if d == "miss"),
+            "operatorStats": [st.to_dict() for st in ex.node_stats.values()],
+        }
+        self._note_task_status(f"{self.query_id}.0.local.a0",
+                               {"state": "FINISHED", "stats": stats})
 
     def _materialize_result(self, session, page) -> None:
         """The result page as Python rows, refusing one over
@@ -627,11 +682,109 @@ class QueryExecution:
                         deps.append(dep.id)
             if deps:
                 build_deps[frag.id] = deps
-        for frag in fragments:
+        # the stage-boundary hook of adaptive execution: after the phased
+        # build waits, a fragment whose tasks do not exist yet may be
+        # rewritten from the completed stages' actual numbers
+        adaptive = self._make_adaptive_planner(session, fragments, workers)
+        for frag in list(fragments):
             if phased and frag.id in build_deps:
                 self._await_build_fragments(build_deps[frag.id])
                 self.phase_waits.append((frag.id, build_deps[frag.id]))
+            if adaptive is not None and frag.partitioning != "single":
+                for nf in self._adapt_fragment(adaptive, frag, by_id, fragments,
+                                               consumer_counts, workers):
+                    self._schedule_fragment(session, nf, workers, consumer_counts)
             self._schedule_fragment(session, frag, workers, consumer_counts)
+
+    # --------------------------------------------------- adaptive execution
+    def _make_adaptive_planner(self, session, fragments, workers):
+        """The query's AdaptivePlanner, or None when
+        ``adaptive_execution_enabled`` is off."""
+        if not _truthy(session.properties.get("adaptive_execution_enabled", True)):
+            return None
+        from trino_tpu_torch.adaptive import AdaptivePlanner, RuntimeStatsProvider
+        from trino_tpu_torch.sql.planner.fragmenter import fresh_fragment_ids
+
+        def entries():
+            with self._tstats_lock:
+                return [dict(e) for e in self.task_stats.values()]
+
+        provider = RuntimeStatsProvider(
+            entries, sweep_fn=self._sweep_task_stats,
+            expected_tasks_fn=lambda fid: len(self.fragment_tasks.get(fid, ())))
+        return AdaptivePlanner(session, provider, len(workers), fresh_fragment_ids(fragments))
+
+    def _adapt_fragment(self, planner, frag, by_id, fragments, consumer_counts, workers):
+        """Run the adaptive rules on one not-yet-scheduled fragment: record
+        each applied change (planVersions, a ``plan/adapt`` span, the
+        adaptive metrics), cancel the producers it superseded, and return
+        the new producer fragments to schedule first. A rule's failure is
+        recorded on an errored ``plan/adapt`` span and swallowed: a
+        stats-driven rewrite never fails a query that runs unadapted."""
+        from trino_tpu_torch.obs import metrics as M
+
+        try:
+            new_frags, changes, errors = planner.adapt_fragment(frag, by_id)
+        except Exception as e:  # noqa: BLE001 — adaptivity is best-effort
+            new_frags, changes, errors = [], [], [str(e)]
+        for err in errors:
+            with self.tracer.span("plan/adapt", fragment=frag.id) as sp:
+                sp.set("error", str(err)[:300])
+        for ch in changes:
+            self.plan_versions.append(ch.to_dict())
+            with self.tracer.span("plan/adapt", fragment=ch.fragment) as sp:
+                sp.set("rule", ch.rule)
+                sp.set("version", ch.version)
+                sp.set("description", ch.description)
+            M.ADAPTIVE_ADAPTATIONS.inc(1, ch.rule)
+            if ch.rule == "join-distribution":
+                M.ADAPTIVE_JOIN_FLIPS.inc(1, "to_partitioned" if ch.description.endswith(
+                    "partitioned") else "to_broadcast")
+            elif ch.rule == "capacity-reseed":
+                M.ADAPTIVE_RESEEDED_SOURCES.inc(len(ch.detail.get("runtimeRows", {})))
+            elif ch.rule == "skew-mitigation":
+                M.ADAPTIVE_SKEW_HOT_PARTITIONS.inc(len(ch.detail.get("hotPartitions", ())))
+            # the superseded producers' buffers will never be pulled
+            for fid in ch.supersedes:
+                for loc in self.fragment_tasks.get(fid, ()):
+                    self._cancel_superseded(loc)
+        for nf in new_frags:
+            consumer_counts[nf.id] = len(workers)
+            fragments.insert(fragments.index(frag), nf)
+        return new_frags
+
+    def _cancel_superseded(self, loc: TaskLocation) -> None:
+        """Cancel a superseded producer task, and mark its slot CANCELED
+        (its last numbers kept): the worker drops a canceled task, so a
+        later status read could only fail."""
+        self._cancel_attempt(loc)
+        with self._tstats_lock:
+            have = self.task_stats.get(loc.task_id.rsplit(".a", 1)[0])
+            if have is not None and have["taskId"] == loc.task_id and \
+                    have["state"] not in ("FINISHED", "FAILED"):
+                have["state"] = "CANCELED"
+
+    @staticmethod
+    def _cancel_attempt(loc: Optional[TaskLocation]) -> None:
+        """Best-effort cancel of one task."""
+        if loc is None:
+            return
+        try:
+            wire.http_request("DELETE", f"{loc.base_url}/v1/task/{loc.task_id}", timeout=5.0)
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _adapted_notes(self) -> Dict[int, str]:
+        """fragment id -> change description, for EXPLAIN ANALYZE's
+        ``[adapted: ...]`` annotations."""
+        notes: Dict[int, str] = {}
+        for ch in self.plan_versions:
+            notes[ch["fragment"]] = ch["description"]
+            for fid in ch.get("newFragments", ()):
+                notes.setdefault(fid, ch["description"])
+            for fid in ch.get("supersedes", ()):
+                notes[fid] = "superseded"
+        return notes
 
     def _schedule_fragment(self, session, frag, workers, consumer_counts) -> None:
         """Create the tasks of one source or hash fragment (the root single
@@ -673,24 +826,63 @@ class QueryExecution:
             splits=splits, upstream=self._upstream_for(frag.root, consumer_index=wi),
             session_properties=self.session_properties,
             consumer_count=consumer_counts.get(frag.id, 1),
-            output_partition_channels=frag.output_partition_channels)
+            output_partition_channels=frag.output_partition_channels,
+            skew_spread_partitions=frag.skew_spread_partitions,
+            skew_replicate_partitions=frag.skew_replicate_partitions,
+            collect_stats=self._collect_stats)
         status, resp, _ = wire.http_request(
             "POST", f"{worker['url']}/v1/task/{task_id}", req.to_bytes())
         if status >= 400:
             raise RuntimeError(f"task create failed on {worker['nodeId']}: "
                                f"{resp[:300].decode(errors='replace')}")
+        # the create response is a status payload: it seeds the slot, so
+        # totalSplits is known while the task runs
         self._note_task_status(task_id, json.loads(resp))
         return TaskLocation(worker["url"], task_id)
 
+    # ------------------------------------------------------ stats pipeline
     def _note_task_status(self, task_id: str, info: dict) -> None:
-        with self._tinfo_lock:
-            self.task_info[task_id] = info
+        """Record one task-status payload into the slot map the stage and
+        query rollups read."""
+        parts = task_id.split(".")
+        try:
+            frag = int(parts[-3])
+        except (ValueError, IndexError):
+            return
+        slot = task_id.rsplit(".a", 1)[0]
+        entry = {"fragment": frag, "taskId": task_id,
+                 "state": info.get("state") or "RUNNING", "stats": info.get("stats") or {}}
 
-    def _poll_task(self, loc: TaskLocation) -> Optional[dict]:
-        """One status read of a task (None when it fails)."""
+        def progress(e):
+            st = e.get("stats") or {}
+            return (int(st.get("completedSplits", 0)), int(st.get("inputRows", 0)),
+                    int(st.get("outputRows", 0)))
+
+        with self._tstats_lock:
+            have = self.task_stats.get(slot)
+            # a FINISHED attempt's record is final for its slot
+            if have is not None and have["state"] == "FINISHED" and entry["state"] != "FINISHED":
+                return
+            # another attempt of the slot: a dead record never displaces a
+            # live one, and while neither finished the one further along
+            # stays, so live numbers never regress
+            dead = ("FAILED", "CANCELED")
+            if (have is not None and have["taskId"] != task_id and entry["state"] in dead
+                    and have["state"] not in dead):
+                return
+            if (have is not None and entry["state"] != "FINISHED"
+                    and have["state"] not in dead and have["taskId"] != task_id
+                    and progress(entry) < progress(have)):
+                return
+            self.task_stats[slot] = entry
+
+    def _poll_task(self, loc: TaskLocation, timeout: float = 10.0) -> Optional[dict]:
+        """One status read of a task, recorded (None when it fails)."""
+        with self._tstats_lock:
+            self.status_polls += 1
         try:
             status, body, _ = wire.http_request(
-                "GET", f"{loc.base_url}/v1/task/{loc.task_id}/status", timeout=10.0)
+                "GET", f"{loc.base_url}/v1/task/{loc.task_id}/status", timeout=timeout)
         except Exception:  # noqa: BLE001 — a worker gone reads as no status
             return None
         if status >= 400:
@@ -699,12 +891,211 @@ class QueryExecution:
         self._note_task_status(loc.task_id, info)
         return info
 
-    def _sweep_task_status(self) -> None:
-        """Read every task's status once (the tasks are at least FLUSHING
-        once the root fragment drained them)."""
-        for locations in list(self.fragment_tasks.values()):
-            for loc in locations:
-                self._poll_task(loc)
+    def _sweep_task_stats(self) -> int:
+        """One status read of every scheduled task whose record is not yet
+        terminal (the poller's body, a stage boundary's snapshot and the
+        final freeze); a sub-second timeout keeps one unreachable worker
+        from stalling it. Returns the tasks polled: 0 is the poller's
+        backoff signal."""
+        with self._tstats_lock:
+            done = {e["taskId"] for e in self.task_stats.values()
+                    if e["state"] in ("FINISHED", "FAILED", "CANCELED")}
+        locations = [loc for locs in list(self.fragment_tasks.values()) for loc in list(locs)
+                     if loc.task_id not in done]
+        for loc in locations:
+            self._poll_task(loc, timeout=0.8)
+        return len(locations)
+
+    STATS_POLL_INTERVAL = 0.25
+    STATS_POLL_MAX_BACKOFF = 16.0  # x the base interval
+
+    def _start_stats_poller(self) -> None:
+        """Poll the tasks' status in the background while the query runs,
+        so ``GET /v1/query/{id}`` serves live stage and query stats. Each
+        sleep is jittered, so concurrent queries de-phase, and a sweep that
+        found nothing to poll backs off exponentially."""
+
+        def poll():
+            import random
+
+            backoff = 1.0
+            while not self.state.is_terminal():
+                polled = self._sweep_task_stats()
+                backoff = (min(backoff * 2.0, self.STATS_POLL_MAX_BACKOFF)
+                           if polled == 0 else 1.0)
+                time.sleep(self.STATS_POLL_INTERVAL * backoff * random.uniform(0.75, 1.25))
+
+        self._stats_poller = threading.Thread(target=poll, daemon=True)
+        self._stats_poller.start()
+
+    def stage_stats(self, include_operators: bool = True) -> List[dict]:
+        """Per-stage rollups of the latest task records;
+        ``include_operators=False`` skips the per-node merges (the
+        protocol's polls read only the scalar summary)."""
+        from trino_tpu_torch.exec.operator_stats import rollup_tasks_to_stage
+
+        with self._tstats_lock:
+            entries = [dict(e) for e in self.task_stats.values()]
+        by_frag: Dict[int, List[dict]] = {}
+        for e in entries:
+            by_frag.setdefault(e["fragment"], []).append(e)
+        return [rollup_tasks_to_stage(fid, es, include_operators=include_operators)
+                for fid, es in sorted(by_frag.items())]
+
+    def task_records(self) -> List[dict]:
+        """The slot records, each with its task's worker URL."""
+        url_by_task = {loc.task_id: loc.base_url for locs in list(self.fragment_tasks.values())
+                       for loc in list(locs)}
+        with self._tstats_lock:
+            entries = [dict(e) for e in self.task_stats.values()]
+        for e in entries:
+            e["workerUri"] = url_by_task.get(e["taskId"])
+        return entries
+
+    def query_stats(self, stages: Optional[List[dict]] = None) -> dict:
+        """The query-level rollup: live while the query runs, frozen once
+        it is terminal (polling stops and a FINISHED slot never changes)."""
+        from trino_tpu_torch.exec.operator_stats import rollup_stages_to_query
+
+        qs = rollup_stages_to_query(self.stage_stats() if stages is None else stages)
+        end = self.ended_at if self.state.is_terminal() and self.ended_at else time.time()
+        qs["elapsedMs"] = int((end - self.created_at) * 1000)
+        qs["state"] = self.state.get()
+        qs["cacheStatus"] = self.cache_status
+        # which path served the SELECT (fast-path | distributed | local-catalog)
+        qs["fastPath"] = self.fast_path
+        qs["resultRows"] = len(self.rows)
+        # adaptive plan changes applied so far
+        qs["adaptations"] = len(self.plan_versions)
+        # the materialized views substituted into this query's plan
+        qs["mvHits"] = len(self.mv_substitutions)
+        if self.mv_substitutions:
+            qs["mvNames"] = list(self.mv_substitutions)
+        qs["memory"] = {"peakBytes": int(qs.get("peakBytes") or 0),
+                        "shedBytes": int(qs.get("shedBytes") or 0),
+                        "yieldEvents": int(qs.get("yieldEvents") or 0),
+                        "spills": int(qs.get("spills") or 0)}
+        return qs
+
+    # ---------------------------------------------------- device profiler
+    def kernel_rows_live(self) -> List[dict]:
+        """This query's merged kernel-ledger rows: the workers' from the
+        task records (stamped with the worker's URL), the coordinator's
+        from its own executor. Superseded fragments re-ran as copies with
+        the same plan-node ids and stay out."""
+        from trino_tpu_torch.obs.devprofiler import merge_kernel_rows
+
+        merged: Dict[tuple, dict] = {}
+        superseded = {fid for ch in self.plan_versions for fid in ch.get("supersedes", ())}
+        for rec in self.task_records():
+            if rec.get("fragment") in superseded:
+                continue
+            node = rec.get("workerUri") or "coordinator"
+            rows = (rec.get("stats") or {}).get("kernelStats") or []
+            merge_kernel_rows(merged, [dict(r, nodeId=r.get("nodeId") or node) for r in rows])
+        for ex in (self._local_executor, self._root_executor):
+            if ex is not None:
+                merge_kernel_rows(merged, [dict(r, nodeId="coordinator")
+                                           for r in ex.kernel_stats.values()])
+        rows = []
+        for k in sorted(merged):
+            row = dict(merged[k], queryId=self.query_id)
+            row["dispatchOverheadS"] = round(max(0.0, row["wallS"] - row["deviceS"]), 6)
+            rows.append(row)
+        return rows
+
+    def fold_kernel_profile(self) -> None:
+        """Fold the merged kernel rows into the process's device profiler
+        once, at the end (per-operator launch and overhead metrics bump
+        here, never per dispatch). Observability: it never fails a query."""
+        if self._kernels_folded:
+            return
+        self._kernels_folded = True
+        from trino_tpu_torch.obs.devprofiler import DEVICE_PROFILER
+
+        try:
+            rows = self.kernel_rows_live()
+            if rows:
+                DEVICE_PROFILER.record_query_kernels(self.query_id, rows)
+        except Exception:  # noqa: BLE001 — observability only
+            pass
+
+    # ------------------------------------------------- EXPLAIN ANALYZE
+    def _explain_analyze(self, session, stmt) -> str:
+        """Distributed EXPLAIN ANALYZE: plan, execute through the real
+        fragment/schedule path with per-operator stats on, then render the
+        fragments with the rolled-up worker stats (reference:
+        PlanPrinter.textDistributedPlan with stats)."""
+        from trino_tpu_torch.exec.operator_stats import merge_operator_dicts, wall_time_header
+        from trino_tpu_torch.exec.query import _expand_udfs, mv_notes_header
+        from trino_tpu_torch.sql.planner.fragmenter import format_fragments
+        from trino_tpu_torch.sql.planner.optimizer import optimize
+        from trino_tpu_torch.sql.planner.planner import Planner
+
+        self._collect_stats = True
+        inner = _expand_udfs(session, stmt.statement)
+        t_plan = time.perf_counter()
+        with tracing.span("analyze/plan"):
+            root = Planner(session).plan(inner)
+        with tracing.span("optimize"):
+            root = optimize(root, session)
+        root, _versions = self._substitute_matviews(session, root, None)
+        plan_s = time.perf_counter() - t_plan
+        t_exec = time.perf_counter()
+        self._execute_query(session, root)
+        exec_s = time.perf_counter() - t_exec
+        header = [wall_time_header(plan_s, exec_s)]
+        mv_lines = mv_notes_header(self.mv_notes)
+        if mv_lines:
+            header.extend(mv_lines.rstrip("\n").split("\n"))
+        if self.fragments is None:
+            # a process-local catalog or a fast-path plan ran on the
+            # coordinator's own executor: annotate from it
+            ex = self._local_executor
+            if self.fast_path == "fast-path":
+                header.append("Fast path: coordinator-local ("
+                              + (self.fast_path_reason or "short query") + ")")
+            header.append(f"Peak working set: {(ex.memory.peak if ex else 0) // 1024}KiB"
+                          " (coordinator)")
+            return "\n".join(header) + "\n" + P.format_plan(root, executor=ex,
+                                                           verbose=stmt.verbose)
+        stages = self.stage_stats()
+        # superseded fragments re-ran as copies with the same plan-node ids:
+        # their operators stay out of the merge (their fragment header
+        # keeps its stage totals)
+        superseded = {fid for ch in self.plan_versions for fid in ch.get("supersedes", ())}
+        with self._tstats_lock:
+            op_lists = [e["stats"].get("operatorStats") for e in self.task_stats.values()
+                        if e["fragment"] not in superseded]
+        # the root fragment ran on the coordinator: its executor completes
+        # the tree
+        if self._root_executor is not None:
+            op_lists.append([st.to_dict() for st in self._root_executor.node_stats.values()])
+        node_stats = merge_operator_dicts(op_lists)
+        qs = self.query_stats(stages)
+        header.append(
+            f"Stages: {len(stages)} scheduled + 1 coordinator,"
+            f" splits: {qs['completedSplits']}/{qs['totalSplits']},"
+            f" input rows: {qs['totalRows']},"
+            f" peak task memory: {qs['peakBytes'] // 1024}KiB,"
+            f" spills: {qs['spills']}")
+        # the largest task peak each worker reached: the skewed node a
+        # cluster-wide rollup hides
+        node_peaks: Dict[str, int] = {}
+        for rec in self.task_records():
+            node = rec.get("workerUri") or "coordinator"
+            pb = int((rec.get("stats") or {}).get("peakBytes") or 0)
+            if pb > node_peaks.get(node, 0):
+                node_peaks[node] = pb
+        if node_peaks:
+            header.append("Peak task memory by node: " + ", ".join(
+                f"{node} {pb // 1024}KiB" for node, pb in sorted(node_peaks.items())))
+        kern = None
+        if stmt.verbose:
+            kern = P.kernel_annotations(self.kernel_rows_live())
+        return "\n".join(header) + "\n" + format_fragments(
+            self.fragments, stats=node_stats, stage_stats={s["stageId"]: s for s in stages},
+            verbose=stmt.verbose, adapted=self._adapted_notes(), kernels=kern)
 
     def _upstream_for(self, root, consumer_index: int = 0) -> Dict[int, list]:
         up: Dict[int, list] = {}
@@ -726,7 +1117,9 @@ class QueryExecution:
                                         device=session.device)
                 client.start()
                 remote_pages[node.fragment_id] = client.pages()
-        return FragmentExecutor(session, {}, remote_pages).execute_checked(root_frag.root)
+        ex = FragmentExecutor(session, {}, remote_pages, collect_stats=self._collect_stats or None)
+        self._root_executor = ex  # EXPLAIN ANALYZE: the root stage's stats
+        return ex.execute_checked(root_frag.root)
 
     PHASE_WAIT_TIMEOUT = 300.0
 
@@ -755,31 +1148,13 @@ class QueryExecution:
                     pass
 
     def stats(self) -> dict:
-        """The statement protocol's stats block: state, wall, splits and
-        rows over the tasks' latest status."""
-        with self._tinfo_lock:
-            infos = list(self.task_info.values())
-        st = [i.get("stats") or {} for i in infos]
-        end = self.ended_at or time.time()
-        return {
-            "state": self.state.get(),
-            "elapsedMs": round((end - self.created_at) * 1e3, 3),
-            "fragments": len(self.fragments or ()),
-            "tasks": len(infos),
-            "completedSplits": sum(int(s.get("completedSplits", 0)) for s in st),
-            "totalSplits": sum(int(s.get("totalSplits", 0)) for s in st),
-            "processedRows": sum(int(s.get("inputRows", 0)) for s in st),
-            "deviceCacheHits": sum(int(s.get("deviceCacheHits", 0)) for s in st),
-            "deviceCacheMisses": sum(int(s.get("deviceCacheMisses", 0)) for s in st),
-            # the materialized views substituted into this query's plan
-            "mvHits": len(self.mv_substitutions),
-            **({"mvNames": list(self.mv_substitutions)} if self.mv_substitutions else {}),
-        }
+        """The statement protocol's stats block: the query rollup over the
+        stages' scalar summaries (no per-node merge on a poll)."""
+        return {**self.query_stats(self.stage_stats(include_operators=False)),
+                "state": self.state.get()}
 
     def info(self) -> dict:
-        with self._tinfo_lock:
-            tasks = {tid: {"state": i.get("state"), "stats": i.get("stats")}
-                     for tid, i in self.task_info.items()}
+        stages = self.stage_stats()
         return {
             "queryId": self.query_id,
             "state": self.state.get(),
@@ -790,8 +1165,13 @@ class QueryExecution:
             "fastPath": self.fast_path,
             "fragments": {str(fid): [loc.task_id for loc in locs]
                           for fid, locs in self.fragment_tasks.items()},
-            "tasks": tasks,
-            "queryStats": self.stats(),
+            # the slot records by task id
+            "tasks": {e["taskId"]: {"state": e["state"], "stats": e["stats"]}
+                      for e in self.task_records()},
+            # versioned plan changes of the adaptive re-planner
+            "planVersions": list(self.plan_versions),
+            "queryStats": self.query_stats(stages),
+            "stageStats": stages,
         }
 
 

@@ -52,8 +52,10 @@ class ExchangeClient:
         self._lock = threading.Lock()
         self._failure: Optional[str] = None
         self._device = device
-        # the pullers' request walls, summed
+        # the pullers' request walls, summed, and those of empty polls (the
+        # producer had nothing ready: consumer-side backpressure)
         self.pulled_seconds = 0.0
+        self.stalled_seconds = 0.0
         self._threads = [threading.Thread(target=self._pull, args=(loc,), daemon=True)
                          for loc in self._locations]
 
@@ -103,13 +105,18 @@ class ExchangeClient:
             while True:
                 t0 = time.perf_counter()
                 body, headers = self._request_with_retry(loc, token)
+                waited = time.perf_counter() - t0
                 with self._lock:
-                    self.pulled_seconds += time.perf_counter() - t0
+                    self.pulled_seconds += waited
                 failed = headers.get(wire.H_TASK_FAILED)
                 if failed:
                     raise RuntimeError(f"upstream task {loc.task_id} failed: {failed}")
                 M.EXCHANGE_BYTES.inc(len(body))
-                for pb in wire.unframe_pages(body):
+                frames = wire.unframe_pages(body)
+                if not frames:
+                    with self._lock:
+                        self.stalled_seconds += waited
+                for pb in frames:
                     self._queue.put(deserialize_page(pb, self._device))
                 token = int(headers.get(wire.H_NEXT_TOKEN, token))
                 if headers.get(wire.H_BUFFER_COMPLETE) == "true":

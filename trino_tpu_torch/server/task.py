@@ -10,13 +10,19 @@ arriving partial states through the intermediate merge).
 
 A task's output leaves the device once: the result page is compacted on
 the card and each column copied to the host (``serde.host_page``), then
-partitioned, cut into size-bounded chunks and serialized on the host into
-the output buffer.
+partitioned (salted where the adaptive re-planner marked the producer: hot
+partitions spread over every partition, or replicated into each), cut
+into size-bounded chunks and serialized on the host into the output buffer.
+
+Each retired executor folds its per-operator stats and kernel-ledger rows
+into the task; ``stats_snapshot`` ships them with the task's counts, peak
+bytes and per-partition output rows and bytes (the reference's wire
+shape), read from host numbers only: a status poll runs on the worker's
+HTTP thread while the task's thread launches work.
 
 Not ported: the fault-tolerant tier (spooled task output, retries), the
-spooled result segments, adaptive skew salting and the flow, memory and
-device-profiler ledgers; the coordinator refuses the session properties
-that ask for them.
+spooled result segments and the flow and memory ledgers; the coordinator
+refuses the session properties that ask for them.
 """
 from __future__ import annotations
 
@@ -32,7 +38,10 @@ import numpy as np
 from trino_tpu_torch.data.page import Page, to_numpy
 from trino_tpu_torch.data.serde import compact_on_device, host_page, serialize_page
 from trino_tpu_torch.exec.executor import Executor
+from trino_tpu_torch.exec.memory import page_bytes
+from trino_tpu_torch.exec.operator_stats import OperatorStats
 from trino_tpu_torch.obs import metrics as M
+from trino_tpu_torch.obs.devprofiler import merge_kernel_rows
 from trino_tpu_torch.server.buffer import (DEFAULT_MAX_BUFFER_BYTES, OutputBuffer,
                                            PartitionedOutputBuffer)
 from trino_tpu_torch.server.statemachine import StateMachine, task_state_machine
@@ -57,6 +66,15 @@ class TaskRequest:
     # set: the output is hash-partitioned by these channels into
     # consumer_count distinct streams, consumer i pulling partition i
     output_partition_channels: Optional[List[int]] = None
+    # adaptive skew mitigation (adaptive/replanner.py): hot partitions whose
+    # rows this producer spreads over every partition (the probe side of a
+    # salted repartition join) or replicates into every partition (the
+    # build side); parallel/exchange.spread_partition_ids has the argument
+    skew_spread_partitions: Optional[List[int]] = None
+    skew_replicate_partitions: Optional[List[int]] = None
+    # the per-operator stats EXPLAIN ANALYZE reads (Executor collect_stats):
+    # one batched device read of live row counts an executor
+    collect_stats: bool = False
 
     def to_bytes(self) -> bytes:
         return pickle.dumps(self)
@@ -70,8 +88,9 @@ class FragmentExecutor(Executor):
     """Executes one plan fragment: scans read only the task's assigned
     splits; RemoteSourceNodes read the pages pulled from upstream tasks."""
 
-    def __init__(self, session, splits: Dict[int, List], remote_pages: Dict[int, List[Page]]):
-        super().__init__(session)
+    def __init__(self, session, splits: Dict[int, List], remote_pages: Dict[int, List[Page]],
+                 collect_stats: Optional[bool] = None):
+        super().__init__(session, collect_stats=collect_stats)
         self._splits = splits
         self._remote_pages = remote_pages
 
@@ -137,6 +156,15 @@ class SqlTask:
         else:
             self.output = OutputBuffer(request.consumer_count, max_buffer_bytes=sink_max)
         self.failure: Optional[str] = None
+        # the largest peak of this task's executors (they run one after
+        # another), and the one running now
+        self.peak_memory_bytes = 0
+        self._live_executor = None
+        # task-level stats (reference: TaskStats and the OperatorStats it
+        # aggregates): retired executors fold their node stats and kernel
+        # rows in under _stats_lock, and status reads snapshot the same way
+        self.operator_stats: Dict[int, OperatorStats] = {}
+        self.kernel_stats: Dict[tuple, dict] = {}
         self._stats_lock = threading.Lock()
         self.total_splits = sum(len(v) for v in request.splits.values())
         self.splits_completed = 0
@@ -144,42 +172,95 @@ class SqlTask:
         self.input_rows = 0
         self.output_rows = 0
         self.output_bytes = 0
+        # live output rows a partition (hash-partitioned producers): the
+        # skew signal, counted before serialization (compression flattens a
+        # constant hot key to almost no bytes) and before replication
+        self.partition_rows: Optional[List[int]] = None
+        self.spill_count = 0
         self.device_cache_hits = 0
         self.device_cache_misses = 0
         self._exchange_clients: List = []
         self._vocab_hash_cache: dict = {}
+        # the salted spread's round-robin cursor, carried across pages
+        self._spread_cursor = 0
         self.started_at = time.monotonic()
         self.ended_at: Optional[float] = None
         self._session_factory = session_factory
         self._thread = threading.Thread(target=self._run, daemon=True)
 
+    def _executor(self, session, splits, remote_pages) -> "FragmentExecutor":
+        """A fragment executor of this task, tracked for its peak bytes."""
+        ex = FragmentExecutor(session, splits, remote_pages,
+                              collect_stats=self.request.collect_stats or None)
+        self._live_executor = ex
+        return ex
+
     def _retire_executor(self, ex, splits: int = 0, input_rows: int = 0,
                          device_s: float = 0.0) -> None:
-        """Fold a finished executor's counts into the task's."""
+        """Fold a finished executor's per-operator stats, kernel rows and
+        counts into the task's (one executor a bulk body, a split or a
+        streaming batch: the sums stay additive over all three)."""
+        if ex.collect_stats:
+            ex.resolve_stats()  # stats recorded outside execute_checked
         M.DEVICE_SECONDS.inc(device_s)
         with self._stats_lock:
+            self.peak_memory_bytes = max(self.peak_memory_bytes, ex.memory.peak)
+            for nid, st in ex.node_stats.items():
+                have = self.operator_stats.get(nid)
+                if have is None:
+                    self.operator_stats[nid] = dataclasses.replace(st)
+                else:
+                    have.add(st)
+            merge_kernel_rows(self.kernel_stats, list(ex.kernel_stats.values()))
+            # the fragment body is the device execution: its wall is the
+            # fragment root's device seconds
+            root_st = self.operator_stats.get(self.request.fragment_root.id)
+            if root_st is not None:
+                root_st.device_s += device_s
             self.device_seconds += device_s
             self.splits_completed += splits
             self.input_rows += input_rows
+            self.spill_count += len(ex.memory.spills)
             self.device_cache_hits += sum(1 for d in ex.scan_cache.values() if d == "hit")
             self.device_cache_misses += sum(1 for d in ex.scan_cache.values() if d == "miss")
 
     def stats_snapshot(self) -> dict:
-        """Point-in-time task stats (``GET /v1/task/{id}/status``)."""
+        """Point-in-time task stats (``GET /v1/task/{id}/status``): the wire
+        shape the coordinator's stage and query rollups read. Host numbers
+        only."""
+        live = self._live_executor
+        peak = max(self.peak_memory_bytes, live.memory.peak if live is not None else 0)
+        # per-partition output bytes of a hash-partitioned producer
+        part_bytes = (self.output.partition_enqueued_bytes
+                      if isinstance(self.output, PartitionedOutputBuffer) else None)
+        transfer_s = sum(c.pulled_seconds for c in self._exchange_clients)
+        # backpressure: the producer's full-waits and the pullers' empty polls
+        stall_s = self.output.stalled_seconds + sum(
+            c.stalled_seconds for c in self._exchange_clients)
         with self._stats_lock:
             elapsed = (self.ended_at or time.monotonic()) - self.started_at
             snap = {
                 "elapsedS": round(elapsed, 6),
                 "deviceS": round(self.device_seconds, 6),
-                "transferS": round(sum(c.pulled_seconds for c in self._exchange_clients), 6),
+                "transferS": round(transfer_s, 6),
+                "stallS": round(stall_s, 6),
                 "completedSplits": self.splits_completed,
                 "totalSplits": self.total_splits,
                 "inputRows": self.input_rows,
                 "outputRows": self.output_rows,
                 "outputBytes": self.output_bytes,
+                "peakBytes": peak,
+                "spills": self.spill_count,
                 "deviceCacheHits": self.device_cache_hits,
                 "deviceCacheMisses": self.device_cache_misses,
+                "operatorStats": [self.operator_stats[k].to_dict()
+                                  for k in sorted(self.operator_stats)],
+                "kernelStats": [dict(self.kernel_stats[k]) for k in sorted(self.kernel_stats)],
             }
+            if part_bytes is not None:
+                snap["partitionBytes"] = part_bytes
+            if self.partition_rows is not None:
+                snap["partitionRows"] = list(self.partition_rows)
             return snap
 
     def start(self) -> None:
@@ -216,7 +297,7 @@ class SqlTask:
         remote_pages: Dict[int, List[Page]] = {
             fid: self._exchange_client(locations, session.device).pages()
             for fid, locations in req.upstream.items()}
-        ex = FragmentExecutor(session, req.splits, remote_pages)
+        ex = self._executor(session, req.splits, remote_pages)
         t0 = time.perf_counter()
         page = ex.execute_checked(req.fragment_root)
         device_s = time.perf_counter() - t0
@@ -224,8 +305,9 @@ class SqlTask:
         self._retire_executor(ex, splits=self.total_splits,
                               input_rows=sum(ex.scan_stats.values()) + remote_rows,
                               device_s=device_s)
+        prepared = self._prepare_out(page)
         self.state.set("FLUSHING")
-        self._enqueue_out(page)
+        self._emit(prepared)
         self.output.set_complete()
         self.state.set("FINISHED")
 
@@ -264,41 +346,73 @@ class SqlTask:
     STREAM_BATCH_ROWS = 65536
 
     def _partition_pages(self, page: Page) -> List[Page]:
-        """Hash-partition a host page into consumer_count pages (one hash
-        pass; the per-vocabulary hashes are cached across the task's
-        pages)."""
+        """Hash-partition a compacted host page into consumer_count pages
+        (one hash pass; the per-vocabulary hashes are cached across the
+        task's pages), salted where the re-planner marked this producer:
+        hot partitions' rows spread over every partition (the cursor
+        carried across pages), or hot partitions replicated into every
+        other. The skew accounting counts the pid array after the spread
+        and before the replication, so copies do not inflate the signal."""
         from trino_tpu_torch.exec.memory import partition_page_host
 
         req = self.request
         t0 = time.perf_counter()
         pids = _canonical_partition_ids(page, req.output_partition_channels,
                                         req.consumer_count, vocab_cache=self._vocab_hash_cache)
+        if req.skew_spread_partitions:
+            from trino_tpu_torch.parallel.exchange import spread_partition_ids
+
+            pids, self._spread_cursor = spread_partition_ids(
+                pids, req.skew_spread_partitions, req.consumer_count, start=self._spread_cursor)
         parts = partition_page_host(page, req.output_partition_channels,
                                     req.consumer_count, pid=pids)
+        counts = np.bincount(pids, minlength=req.consumer_count)
+        if req.skew_replicate_partitions:
+            hot = [parts[h] for h in req.skew_replicate_partitions
+                   if 0 <= h < len(parts) and counts[h] > 0]
+            parts = [_concat([part] + [hp for hp in hot if hp is not part]) for part in parts]
+        with self._stats_lock:
+            if self.partition_rows is None:
+                self.partition_rows = [0] * req.consumer_count
+            for pid in range(req.consumer_count):
+                self.partition_rows[pid] += int(counts[pid])
         M.PARTITION_SECONDS.inc(time.perf_counter() - t0)
         return parts
 
-    def _enqueue_out(self, out: Page) -> None:
-        """One output page into the buffer: to the host once, then
-        partitioned where the output is, cut into chunks and serialized
-        (enqueue blocks at the buffer's watermark)."""
-        from trino_tpu_torch.exec.memory import page_bytes
-
-        req = self.request
+    def _prepare_out(self, out: Page):
+        """An output page to the host once, counted (output rows and bytes,
+        rows a partition) and partitioned where the output is: (host page,
+        its partitions or None), or None when it holds no row. A body's
+        last page is prepared before FLUSHING, so a FLUSHING task's output
+        numbers are final (the adaptive rules read them then)."""
         out = host_page(out)
         if out.num_rows == 0:
-            return
+            return None
         with self._stats_lock:
             self.output_rows += out.num_rows
             self.output_bytes += page_bytes(out)
+        if self.request.output_partition_channels is None:
+            return out, None
+        return out, self._partition_pages(out)
+
+    def _emit(self, prepared) -> None:
+        """Cut a prepared page into chunks, serialize them and enqueue them
+        (enqueue blocks at the buffer's watermark)."""
+        if prepared is None:
+            return
+        out, parts = prepared
         chunk_rows = self._chunk_rows(out)
-        if req.output_partition_channels is not None:
-            for pid, part in enumerate(self._partition_pages(out)):
+        if parts is not None:
+            for pid, part in enumerate(parts):
                 for c in _chunk_pages(host_page(part), chunk_rows):
                     self.output.enqueue_partition(pid, serialize_page(c))
         else:
             for c in _chunk_pages(out, chunk_rows):
                 self.output.enqueue(serialize_page(c))
+
+    def _enqueue_out(self, out: Page) -> None:
+        """One output page into the buffer: prepared, then emitted."""
+        self._emit(self._prepare_out(out))
 
     def _finish(self) -> None:
         self.state.set("FLUSHING")
@@ -315,7 +429,7 @@ class SqlTask:
         if len(splits) <= 1:
             return False
         for split in splits:
-            ex = FragmentExecutor(session, {scan.id: [split]}, {})
+            ex = self._executor(session, {scan.id: [split]}, {})
             t0 = time.perf_counter()
             out = ex.execute_checked(req.fragment_root)
             split_s = time.perf_counter() - t0
@@ -366,22 +480,43 @@ class SqlTask:
 
         if final_agg is not None:
             node = final_agg[0]
+
+            def folded(ex, fn, page, in_rows, is_final=False):
+                """aggregate_intermediate/final outside ``execute``: the
+                aggregation's stats by hand, its output rows (the live rows
+                of the finalization only) read with the executor's batch."""
+                t0 = time.perf_counter()
+                out = compact_on_device(fn(node, page))
+                ex.raise_errors()
+                wall_s = time.perf_counter() - t0
+                if ex.collect_stats:
+                    st = ex.node_stats.setdefault(node.id, OperatorStats(node.id, "Aggregation"))
+                    st.wall_s += wall_s
+                    st.input_rows += in_rows
+                    st.invocations += 1
+                    if is_final:
+                        ex._row_terms.append((st, "output_rows", out.num_rows))
+                        st.output_bytes += page_bytes(out)
+                self._retire_executor(ex, input_rows=0 if is_final else in_rows,
+                                      device_s=wall_s)
+                return out
+
             running: Optional[Page] = None
             for batch, rows in batches():
                 page = _concat(batch if running is None else [running] + batch)
-                ex = FragmentExecutor(session, {}, {})
-                running = compact_on_device(
-                    timed(ex, ex.aggregate_intermediate, node, page, input_rows=rows))
+                ex = self._executor(session, {}, {})
+                running = folded(ex, ex.aggregate_intermediate, page, rows)
             if running is None:
                 running = Page.all_dead(src.types, session.device)
-            ex = FragmentExecutor(session, {}, {})
-            out = timed(ex, ex.aggregate_final, node, running)
+            ex = self._executor(session, {}, {})
+            out = folded(ex, ex.aggregate_final, running, running.num_rows, is_final=True)
+            prepared = self._prepare_out(out)
             self.state.set("FLUSHING")
-            self._enqueue_out(out)
+            self._emit(prepared)
             self._finish()
             return True
         for batch, rows in batches():
-            ex = FragmentExecutor(session, {}, {src.fragment_id: [_concat(batch)]})
+            ex = self._executor(session, {}, {src.fragment_id: [_concat(batch)]})
             self._enqueue_out(timed(ex, ex.execute_checked, req.fragment_root, input_rows=rows))
         self._finish()
         return True

@@ -26,6 +26,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from trino_tpu_torch.obs.devprofiler import DEVICE_PROFILER
 from trino_tpu_torch.server import wire
 from trino_tpu_torch.server.task import TaskManager, TaskRequest
 
@@ -75,6 +76,10 @@ class WorkerServer:
                  node_id: Optional[str] = None, session_factory=None, device=None):
         self.device = resolve_device(device)
         self.node_id = node_id or f"worker-{time.time_ns() & 0xFFFFFF:x}"
+        # the process device profiler takes the first server's identity
+        # (in-process test clusters share one profiler, as the metrics)
+        if not DEVICE_PROFILER.node_id:
+            DEVICE_PROFILER.node_id = self.node_id
         self.tasks = TaskManager(session_factory or shared_catalog_session_factory(self.device))
         self.coordinator_url = coordinator_url
         self.httpd = ThreadingHTTPServer(("127.0.0.1", port), _make_handler(self))
@@ -96,13 +101,16 @@ class WorkerServer:
 
     def _announce_loop(self) -> None:
         """Periodic announce: discovery and liveness in one (the worker
-        pushes, the coordinator ages entries out)."""
+        pushes, the coordinator ages entries out). Each tick takes one
+        device-profiler utilization sample (launches/sec and busy share
+        since the last tick) and carries it."""
         while not self._stop.is_set():
             try:
                 wire.json_request(
                     "PUT", f"{self.coordinator_url}/v1/announce/{self.node_id}",
                     {"url": self.base_url, "tasks": len(self.tasks.list_info()),
-                     "device": str(self.device)},
+                     "device": str(self.device),
+                     "profiler": DEVICE_PROFILER.sample_utilization()},
                     timeout=5.0)
             except Exception:  # noqa: BLE001 — the coordinator may not be up yet
                 pass
