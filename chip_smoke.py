@@ -194,7 +194,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the Q3 shape below whose refresh runs distributed and a SELECT that
    reads it (rows as phase matview's reference), Q6 and Q17 through a
    dbapi cursor with ? and the result cache on (binding A twice, binding B
-   twice: MISS, HIT, MISS, HIT, each warm EXECUTE a plan-cache hit), arrays
+   twice: MISS, HIT, MISS, HIT; binding B's MISS a plan-cache hit, each HIT
+   answered by the dispatcher's serving index without the plan cache), arrays
    and maps of decimals and dates through the protocol (the flat columns'
    strings), and 32 concurrent Q6 of which one executes and 31 are
    answered from its result (``distributed_caches``). Adaptive execution
@@ -247,6 +248,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
    whose warm-up inputs join phase mainpath (path ``adaptive``). No
    ``plan/adapt`` span of the phase may carry an error.
 
+16. serving (after phase adaptive, before phase mainpath): the serving plane
+   at SF1 on the card, in seven checks, each printed as one line with the
+   card. (1) A coordinator with two executor lanes and a dispatch queue of
+   4, two in-process workers, 32 concurrent StatementClients sending Q6
+   with the result cache off: every row as expected, 429s answered
+   (``DISPATCH_REJECTED`` and the clients' ``submit_retries`` >= 1), no
+   thread a query (new threads beside the clients' and the HTTP servers'
+   connection handlers belong to at most twice the lanes' queries at once);
+   the wall, p50 and p99. (2) On it, Q1 and Q18 with the result cache:
+   MISS, then a HIT served by the dispatcher (``DISPATCH_CACHE_SERVED`` +1,
+   no task, no plan-cache lookup), and a memory table's SELECT missing
+   after an INSERT. (3) The reference's two-tenant resource-group config
+   (its ``${USER}`` groups at limit 1): user a's second Q3 queues while
+   user b's runs, a source ``etl-1`` runs in ``global.etl``, and a query
+   parked past its group's queue timeout fails EXCEEDED_QUEUE_TIMEOUT and
+   is in the coordinator's history. (4) A cached eager session: Q17 and
+   Q18 cold and warm under group ``global.a`` (``CACHE_SHARES`` 0.5, the
+   device cache's budget 2 x (a's bytes + the largest storm entry)), then
+   group ``global.b``'s scans of TPC-H and TPC-DS tables (at most three
+   columns each) past the budget: a's entries and bytes
+   survive, every device-cache eviction in the memory ledger is b's, a
+   warm Q17 and Q18 after it stage 0 rows (rows and tiers as phase cache,
+   merge launches the path's, their cold inputs to phase mainpath), and
+   evicting the cache leaves none of its tensors alive and drops
+   ``torch.cuda.memory_allocated`` by at least its bytes.
+   (5) A worker whose pool holds a running Q1's reservation but not that
+   plus its warm device cache sheds the cache (a ``pool-overflow`` ledger
+   event, the cache under the pool less the reservation) and Q1 finishes
+   with its rows. (6) Two workers whose pools (64 MiB, or half the peak
+   reservation of an unlimited run where that is less) the orders x
+   lineitem join overflows: it fails EXCEEDED_CLUSTER_MEMORY (the script
+   feeds the workers' announces to the cluster memory manager every 2 ms
+   while it runs), its
+   postmortem's memory block has the reference's keys, ``select count(*)
+   from nation`` then finishes with 25, and the announce's
+   ``deviceMemoryBytes`` equals ``torch.cuda.mem_get_info``'s total.
+   (7) A coordinator with a password file and a JWT secret: 401 without
+   credentials, Basic and Bearer accepted, 403 on another user's query,
+   the created and completed events (the failed one with its error), and
+   ``/v1/metrics`` with the dispatch and resource-group series.
+
 With ``--profile`` it also runs each query once more (warm) in each of the
 five sessions (tpch, cache, analytics, scalar, nested) under
 torch.profiler and prints the device time by kernel, the device's busy
@@ -261,6 +303,7 @@ The last three lines of standard output are the kernel summary
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -1171,9 +1214,9 @@ def dist_caches(coord, device, expected, mvexp, card):
     memory table's SELECT missing after an INSERT; 32 concurrent Q6 with
     one execution), the plan cache on a repeat, a view whose refresh runs
     distributed and a SELECT reading it, Q6 and Q17 through a dbapi
-    cursor with ? (a warm EXECUTE a plan-cache hit; a new binding a MISS,
-    a repeated one a HIT), and arrays and maps of decimals and dates
-    through the protocol."""
+    cursor with ? (a new binding a MISS that takes its plan from the plan
+    cache, a repeated one a HIT that the serving index answers), and arrays
+    and maps of decimals and dates through the protocol."""
     import threading
 
     from trino_tpu_torch.client import dbapi
@@ -1247,11 +1290,12 @@ def dist_caches(coord, device, expected, mvexp, card):
         runs = []
         for i, binding in enumerate((bindings[q][0], bindings[q][0], bindings[q][1],
                                      bindings[q][1])):
-            h0 = M.PLAN_CACHE_HITS.value()
+            h0, s0 = M.PLAN_CACHE_HITS.value(), M.DISPATCH_CACHE_SERVED.value()
             t0 = time.perf_counter()
             cur.execute(sql, binding)
             runs.append({"status": cur.cache_status, "wall_s": time.perf_counter() - t0,
-                         "plan_cache_hits": M.PLAN_CACHE_HITS.value() - h0})
+                         "plan_cache_hits": M.PLAN_CACHE_HITS.value() - h0,
+                         "served": M.DISPATCH_CACHE_SERVED.value() - s0})
             got = jsonable_rows(cur.fetchall())
             if i < 2:
                 check_rows(f"Q{q} (dbapi, result cache)", got, expected[str(q)]["rows"],
@@ -1260,8 +1304,12 @@ def dist_caches(coord, device, expected, mvexp, card):
                 new_rows = got
             elif got != new_rows:
                 raise AssertionError(f"Q{q} (dbapi): a repeated binding gave other rows")
+        # a new binding's EXECUTE binds into the cached parameterized plan (one
+        # plan-cache hit); a repeated one is answered by the serving index,
+        # which neither plans nor reads the plan cache
         if [r["status"] for r in runs] != ["MISS", "HIT", "MISS", "HIT"] or \
-                runs[1]["plan_cache_hits"] != 1 or runs[2]["plan_cache_hits"] != 1:
+                [(r["plan_cache_hits"], r["served"]) for r in runs[1:]] != [(0, 1), (1, 0),
+                                                                             (0, 1)]:
             raise AssertionError(f"Q{q} (dbapi): {runs}")
         out[f"dbapi_Q{q}"] = runs
     # arrays and maps of decimals and dates through the protocol
@@ -2032,6 +2080,746 @@ def phase_adaptive(device, expected, compiled, cap, card, schema="sf1"):
     return out
 
 
+# ------------------------------------------------------------ phase serving
+# the reference's E2E_CFG (tests/test_resource_groups.py) with the per-user
+# template's limit at 1, so a user's second query must queue
+SERVING_E2E_CFG = {
+    "root_groups": [{
+        "name": "global", "hard_concurrency_limit": 16, "max_queued": 100,
+        "sub_groups": [
+            {"name": "adhoc",
+             "sub_groups": [{"name": "${USER}", "hard_concurrency_limit": 1,
+                             "max_queued": 2}]},
+            {"name": "etl", "hard_concurrency_limit": 4, "weight": 3}]}],
+    "selectors": [
+        {"source": "etl-.*", "group": "global.etl"},
+        {"group": "global.adhoc.${USER}"}]}
+SERVING_AGING_CFG = {
+    "root_groups": [{"name": "global", "sub_groups": [
+        {"name": "aging", "hard_concurrency_limit": 1, "queue_timeout_ms": 1}]}],
+    "selectors": [{"user": "ager", "group": "global.aging"}, {"group": "global"}]}
+SERVING_CLIENTS = 32
+SERVING_KILL_POOL = 64 << 20
+# group b's scans in the cache-share storm, at most three columns each (so
+# no entry outgrows the headroom the budget leaves): (table, columns), then
+# pairs of lineitem's columns until the storm is past the budget
+SERVING_STORM_COLUMNS = 3
+SERVING_STORM = (
+    ("tpch.{s}.partsupp", ("ps_partkey", "ps_suppkey", "ps_availqty")),
+    ("tpch.{s}.partsupp", ("ps_supplycost",)),
+    ("tpch.{s}.supplier", ("s_suppkey", "s_nationkey", "s_acctbal")),
+    ("tpch.{s}.customer", ("c_custkey", "c_nationkey", "c_acctbal")),
+    ("tpcds.{s}.store_sales", ("ss_sold_date_sk", "ss_item_sk", "ss_customer_sk")),
+    ("tpcds.{s}.store_sales", ("ss_cdemo_sk", "ss_hdemo_sk", "ss_addr_sk")),
+    ("tpcds.{s}.store_sales", ("ss_store_sk", "ss_promo_sk", "ss_ticket_number")),
+    ("tpcds.{s}.store_sales", ("ss_quantity", "ss_wholesale_cost", "ss_list_price")),
+    ("tpcds.{s}.store_sales", ("ss_coupon_amt", "ss_net_profit")),
+    ("tpcds.{s}.catalog_sales", ("cs_sold_date_sk", "cs_item_sk", "cs_order_number")),
+    ("tpcds.{s}.catalog_sales", ("cs_quantity", "cs_ext_list_price")),
+    ("tpcds.{s}.web_sales", ("ws_sold_date_sk", "ws_ship_date_sk", "ws_item_sk")),
+    ("tpcds.{s}.web_sales", ("ws_order_number", "ws_warehouse_sk", "ws_ship_addr_sk")),
+    ("tpcds.{s}.web_sales", ("ws_web_site_sk", "ws_ext_ship_cost", "ws_net_profit")),
+) + tuple(("tpch.{s}.lineitem", pair) for pair in itertools.combinations(
+    ("l_orderkey", "l_partkey", "l_suppkey", "l_linenumber", "l_quantity", "l_extendedprice",
+     "l_discount", "l_tax", "l_shipdate", "l_commitdate", "l_receiptdate"), 2))
+
+
+def serving_props(schema, **extra):
+    """The statement protocol's session properties of the phase."""
+    return {**{k: str(v) for k, v in DIST_PROPS.items()}, "schema": schema, **extra}
+
+
+def serving_cluster(device, n_workers, prefix, worker_kw=None, **coord_kw):
+    """A port coordinator and ``n_workers`` in-process workers on the card."""
+    from trino_tpu_torch.server.coordinator import CoordinatorServer
+    from trino_tpu_torch.server.worker import WorkerServer
+
+    coord = CoordinatorServer(device=device, **coord_kw)
+    coord.start()
+    workers = [WorkerServer(coordinator_url=coord.base_url, node_id=f"{prefix}{i}",
+                            device=device, **(worker_kw or {})) for i in range(n_workers)]
+    for w in workers:
+        w.start()
+    if n_workers and not coord.registry.wait_for_workers(n_workers, timeout=30.0):
+        serving_stop(coord, workers)
+        raise AssertionError(f"serving: workers {prefix}* did not announce")
+    return coord, workers
+
+
+def serving_stop(coord, workers):
+    for w in workers:
+        w.stop()
+    coord.stop()
+
+
+def ledger_mark():
+    """A uniquely owned marker event: the ledger's events after it are a
+    check's own."""
+    from trino_tpu_torch.obs.memledger import MEMORY_LEDGER
+
+    owner = f"chip-smoke-marker:{time.time_ns()}"
+    MEMORY_LEDGER.record_event("watermark", "device", owner, 0)
+    return owner
+
+
+def ledger_since(marker):
+    from trino_tpu_torch.obs.memledger import MEMORY_LEDGER
+
+    events = MEMORY_LEDGER.snapshot()
+    for i in range(len(events) - 1, -1, -1):
+        if events[i]["owner"] == marker:
+            return events[i + 1:]
+    raise AssertionError("the ledger's ring wrapped past a check's marker")
+
+
+def thread_census(baseline):
+    """Threads started since ``baseline`` (a set of idents), by kind: this
+    script's clients, the HTTP servers' connection handlers, the helpers of
+    a query (stats poller, exchange pullers, worker tasks; named after the
+    query or its task ids), the bounded staging pool and the rest."""
+    import threading
+
+    out = {"client": 0, "http": 0, "pool": 0, "query": 0, "other": 0, "queries": set(),
+           "names": []}
+    for t in threading.enumerate():
+        if t.ident in baseline:
+            continue
+        name = t.name
+        if name.startswith("serving-client-"):
+            out["client"] += 1
+        elif "process_request_thread" in name:
+            out["http"] += 1
+        elif name.startswith("staging-io"):
+            out["pool"] += 1  # the process's bounded staging pool, grown on demand
+        elif name.split(":", 1)[0] in ("stats", "exchange", "task"):
+            out["query"] += 1
+            out["queries"].add(name.split(":", 1)[1].split(".", 1)[0])
+        else:
+            out["other"] += 1
+            out["names"].append(name)
+    return out
+
+
+def serving_overload(device, expected, card, schema):
+    """Check 1: 32 clients against two lanes and a 4-deep queue; then the
+    serving index on the same coordinator (check 2)."""
+    import statistics
+    import threading
+
+    from trino_tpu_torch.client.remote import StatementClient
+    from trino_tpu_torch.obs import metrics as M
+
+    lanes = 2
+    coord, workers = serving_cluster(device, 2, "sv", executor_lanes=lanes,
+                                     dispatch_queue_capacity=4)
+    try:
+        props = serving_props(schema, result_cache_enabled="false")
+        q6 = expected["6"]
+        # one warm-up run: the workers' first scan of lineitem
+        StatementClient(coord.base_url, props).execute(q6["sql"], timeout=600.0)
+        rejected0 = M.DISPATCH_REJECTED.value("queue-full")
+        baseline = {t.ident for t in threading.enumerate()}
+        results, errors, lat, retries = {}, [], [], []
+        start = threading.Barrier(SERVING_CLIENTS + 1)
+
+        def client(i):
+            c = StatementClient(coord.base_url, props)
+            start.wait()
+            t0 = time.perf_counter()
+            try:
+                results[i] = c.execute(q6["sql"], timeout=300.0)[1]
+                lat.append(time.perf_counter() - t0)
+                retries.append(c.submit_retries)
+            except Exception as e:  # noqa: BLE001 — the assertion below
+                errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=client, args=(i,), name=f"serving-client-{i}")
+                   for i in range(SERVING_CLIENTS)]
+        for t in threads:
+            t.start()
+        start.wait()
+        t0 = time.perf_counter()
+        peak = {"client": 0, "http": 0, "pool": 0, "query": 0, "other": 0, "queries": 0}
+        other_names = set()
+        while any(t.is_alive() for t in threads):
+            c = thread_census(baseline)
+            for k in ("client", "http", "pool", "query", "other"):
+                peak[k] = max(peak[k], c[k])
+            peak["queries"] = max(peak["queries"], len(c["queries"]))
+            other_names.update(c["names"])
+            time.sleep(0.005)
+        wall = time.perf_counter() - t0
+        for t in threads:
+            t.join()
+        if errors:
+            raise AssertionError(f"serving overload: {errors[:3]}")
+        for i in range(SERVING_CLIENTS):
+            check_rows(f"Q6 (serving, client {i})", results[i], q6["rows"],
+                       rel_tol=DIST_REL_TOL)
+        rejected = M.DISPATCH_REJECTED.value("queue-full") - rejected0
+        if rejected < 1 or sum(retries) < 1:
+            raise AssertionError(f"serving overload: {rejected} rejections, "
+                                 f"{sum(retries)} client retries (want >= 1 each)")
+        # no thread a query: besides the clients and the HTTP servers'
+        # connection handlers, only the helpers of the queries the lanes run
+        # (a query that just finished may overlap the next one) and nothing
+        # else
+        if peak["queries"] > 2 * lanes or peak["other"] > 0:
+            raise AssertionError(f"serving overload: threads of {peak['queries']} queries at "
+                                 f"once (lanes {lanes}), other new threads "
+                                 f"{sorted(other_names)}")
+        lat.sort()
+        out = {"clients": SERVING_CLIENTS, "lanes": lanes, "queue_capacity": 4,
+               "wall_s": wall, "p50_s": statistics.median(lat),
+               "p99_s": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+               "max_s": lat[-1], "rejected": rejected, "client_retries": sum(retries),
+               "peak_new_threads": peak, "card": card}
+        print("serving", json.dumps({"check": "overload", **out}), flush=True)
+        out["index"] = serving_index(coord, device, expected, card, schema)
+        return out
+    finally:
+        serving_stop(coord, workers)
+
+
+def serving_index(coord, device, expected, card, schema):
+    """Check 2: Q1 and Q18 with the result cache: MISS, then a HIT served
+    by the dispatcher without a task or a plan-cache lookup; a memory
+    table's SELECT misses after an INSERT."""
+    from trino_tpu_torch.client.remote import StatementClient
+    from trino_tpu_torch.obs import metrics as M
+
+    client = StatementClient(coord.base_url, serving_props(schema, result_cache_enabled="true"))
+    out = {}
+    for q in (1, 18):
+        entry = expected[str(q)]
+        runs = []
+        for want in ("MISS", "HIT"):
+            c0 = (M.DISPATCH_CACHE_SERVED.value(), M.TASKS_TOTAL.value(),
+                  M.PLAN_CACHE_HITS.value())
+            sync(device)
+            t0 = time.perf_counter()
+            _cols, rows = client.execute(entry["sql"], timeout=600.0)
+            wall = time.perf_counter() - t0
+            d = [a - b for a, b in zip((M.DISPATCH_CACHE_SERVED.value(), M.TASKS_TOTAL.value(),
+                                        M.PLAN_CACHE_HITS.value()), c0)]
+            check_rows(f"Q{q} (serving index, {want})", rows, entry["rows"],
+                       rel_tol=DIST_REL_TOL)
+            if client.cache_status != want:
+                raise AssertionError(f"Q{q} (serving index): {client.cache_status}, want {want}")
+            if want == "HIT" and d != [1, 0, 0]:
+                raise AssertionError(f"Q{q} (serving index): the HIT served {d[0]}, created "
+                                     f"{d[1]} tasks, {d[2]} plan-cache hits (want 1, 0, 0)")
+            runs.append({"status": want, "wall_s": wall, "served": d[0], "tasks": d[1],
+                         "plan_cache_hits": d[2]})
+        out[f"Q{q}"] = runs
+    mem = StatementClient(coord.base_url, {"catalog": "memory", "schema": "default",
+                                           "result_cache_enabled": "true"})
+    mem.execute("create table memory.default.serving_t as "
+                "select n_nationkey, n_regionkey from tpch.tiny.nation")
+    sql = "select count(*), sum(n_regionkey) from memory.default.serving_t"
+    seen = []
+    for step in ("read", "read", "insert", "read", "read"):
+        if step == "insert":
+            mem.execute("insert into memory.default.serving_t values (100, 4)")
+            continue
+        rows = mem.execute(sql)[1]
+        seen.append((mem.cache_status, rows))
+    if seen != [("MISS", [[25, 50]]), ("HIT", [[25, 50]]), ("MISS", [[26, 54]]),
+                ("HIT", [[26, 54]])]:
+        raise AssertionError(f"serving index over a memory table: {seen}")
+    out["memory_table"] = [s for s, _ in seen]
+    print("serving", json.dumps({"check": "index", **out, "card": card}), flush=True)
+    return out
+
+
+def serving_groups(device, expected, card, schema):
+    """Check 3: two users of ``global.adhoc.${USER}`` at limit 1 (a's
+    second Q3 queues while b's runs), a source ``etl-1`` in
+    ``global.etl``, and a query aged out of its group typed, in the
+    history."""
+    import threading
+
+    from trino_tpu_torch.client.remote import StatementClient
+
+    props = serving_props(schema)
+    q3 = expected["3"]
+    coord, workers = serving_cluster(device, 2, "rg", executor_lanes=4,
+                                     resource_groups_config=SERVING_E2E_CFG)
+    out = {}
+    try:
+        StatementClient(coord.base_url, props).execute(q3["sql"], timeout=600.0)  # warm-up
+        a1 = coord.submit(q3["sql"], props, user="a")
+        a2 = coord.submit(q3["sql"], props, user="a")
+        b1 = coord.submit(q3["sql"], props, user="b")
+        queued_seen = 0
+        while not all(q.state.is_terminal() for q in (a1, a2, b1)):
+            queued, _cap = coord.resource_groups.queue_state("global.adhoc.a")
+            queued_seen = max(queued_seen, queued)
+            time.sleep(0.002)
+        for q in (a1, a2, b1):
+            if q.state.get() != "FINISHED":
+                raise AssertionError(f"serving groups: {q.query_id} {q.state.get()}: "
+                                     f"{q.failure}")
+            check_rows("Q3 (serving groups)", jsonable_rows(q.rows), q3["rows"],
+                       rel_tol=DIST_REL_TOL)
+
+        def started(q):
+            return min(s["start"] for s in q.tracer.to_dicts() if s["name"] == "query")
+
+        out["a2_started_after_a1_ended"] = started(a2) >= a1.ended_at
+        out["b1_started_before_a1_ended"] = started(b1) < a1.ended_at
+        out["a_queued_seen"] = queued_seen
+        out["groups"] = [a1.resource_group, b1.resource_group]
+        if not (out["a2_started_after_a1_ended"] and out["b1_started_before_a1_ended"]
+                and queued_seen >= 1 and out["groups"] == ["global.adhoc.a", "global.adhoc.b"]):
+            raise AssertionError(f"serving groups: {out}")
+        etl = StatementClient(coord.base_url, props, user="c", source="etl-1")
+        etl.execute(expected["6"]["sql"], timeout=600.0)
+        out["etl_group"] = etl.stats["resourceGroup"]
+        if out["etl_group"] != "global.etl":
+            raise AssertionError(f"serving groups: source etl-1 ran in {out['etl_group']}")
+    finally:
+        serving_stop(coord, workers)
+    coord, workers = serving_cluster(device, 0, "ag", executor_lanes=0,
+                                     resource_groups_config=SERVING_AGING_CFG)
+    try:
+        q = coord.submit("select 1", {"catalog": "tpch", "schema": "tiny",
+                                      "short_query_fast_path": "true"}, user="ager")
+        time.sleep(0.15)  # parked past the 1 ms timeout, no lanes yet
+        coord.dispatcher.start_lanes(1)
+        state = q.state.wait_for_terminal(30.0)
+        deadline = time.time() + 10
+        rec = None
+        while rec is None and time.time() < deadline:
+            rec = next((r for r in coord.history.snapshot() if r["queryId"] == q.query_id), None)
+            time.sleep(0.01)
+        out["aged"] = {"state": state, "failure": (q.failure or "")[:120],
+                       "history": rec and {k: rec[k] for k in ("state", "resourceGroup")}}
+        if state != "FAILED" or "EXCEEDED_QUEUE_TIMEOUT" not in (q.failure or "") or \
+                out["aged"]["history"] != {"state": "FAILED", "resourceGroup": "global.aging"}:
+            raise AssertionError(f"serving groups (aging): {out['aged']}")
+    finally:
+        serving_stop(coord, [])
+    print("serving", json.dumps({"check": "groups", **out, "card": card}), flush=True)
+    return out
+
+
+def serving_cache_shares(device, expected, plane, cap, card, schema):
+    """Check 4: Q17 and Q18 warm in a cached eager session under group
+    global.a (share 0.5), then group global.b's storm of scans past the
+    device cache's budget: a's entries and bytes survive, every device
+    eviction is b's, a warm Q17 and Q18 stage 0 rows; evicting the cache
+    frees its bytes on the card."""
+    import gc
+    import weakref
+
+    import torch
+
+    from trino_tpu_torch import Session
+    from trino_tpu_torch.devcache import DEVICE_CACHE, HOST_CACHE
+    from trino_tpu_torch.server import resource_groups as rg
+
+    DEVICE_CACHE.invalidate_all()
+    HOST_CACHE.invalidate_all()
+    shares_before = rg.CACHE_SHARES.snapshot()
+    budget_before = DEVICE_CACHE.max_bytes
+    rg.CACHE_SHARES.configure({"global.a": 0.5})
+    session = Session(properties={"catalog": "tpch", "schema": schema, "fused_join_pallas": True,
+                                  "device_cache_enabled": True}, device=device)
+    out = {"launches": 0, "card": card}
+
+    def grouped(group, fn):
+        tok = rg.set_current_group(group)
+        try:
+            return fn()
+        finally:
+            rg.reset_current_group(tok)
+
+    def run_a(label):
+        runs = {}
+        for q in (17, 18):
+            entry = expected[str(q)]
+            wall, launches, c, _n = grouped("global.a", lambda: run_checked(
+                session, device, "serving", q, label, entry["sql"], entry["rows"],
+                plane["tiers_cached"][str(q)]["warm" if label != "cold" else "cold"], cap))
+            out["launches"] += launches
+            runs[f"Q{q}"] = {"wall_s": wall, "merge_launches": launches,
+                             "staged_rows": c["staged_rows"], "h2d_bytes": c["h2d_bytes"]}
+        return runs
+
+    try:
+        out["cold"] = run_a("cold")
+        out["warm"] = run_a("warm")
+        a_bytes = DEVICE_CACHE.group_bytes().get("global.a", 0)
+        a_keys = {e.key for e in DEVICE_CACHE.entries() if e.group == "global.a"}
+        # the budget: a's carve-out (half) holds its warm set, and b passes its
+        # own half before the cache is full, however large one storm entry
+        # (at most the widest table's rows x 3 columns x 8 bytes) is: the
+        # carve-out prefers a group over its share, else the LRU head
+        lineitem_rows = session.execute("select count(*) from lineitem").rows[0][0]
+        max_entry = lineitem_rows * SERVING_STORM_COLUMNS * 8
+        DEVICE_CACHE._max_bytes = 2 * (a_bytes + max_entry)
+        out.update({"a_bytes": a_bytes, "max_storm_entry_bytes": max_entry,
+                    "budget_bytes": DEVICE_CACHE.max_bytes})
+        mark = ledger_mark()
+        storm = Session(properties={"catalog": "tpch", "schema": schema,
+                                    "device_cache_enabled": True}, device=device)
+        admitted = 0
+        for table, cols in SERVING_STORM:
+            sql = "select count(*), " + ", ".join(f"max({c})" for c in cols) + \
+                " from " + table.format(s=schema)
+            grouped("global.b", lambda: storm.execute(sql))
+            admitted = sum(e["bytes"] for e in ledger_since(mark)
+                           if e["kind"] == "admit" and e["owner"] == "device-cache:global.b")
+            if admitted > 1.5 * DEVICE_CACHE.max_bytes:
+                break
+        events = [e for e in ledger_since(mark) if e["owner"].startswith("device-cache")
+                  and e["kind"] in ("evict", "shed", "release")]
+        out["storm"] = {"admitted_b": admitted, "evictions": len(events),
+                        "evicted_bytes": sum(e["bytes"] for e in events),
+                        "owners": sorted({e["owner"] for e in events})}
+        if admitted <= DEVICE_CACHE.max_bytes - a_bytes or not events:
+            raise AssertionError(f"serving cache shares: the storm did not overflow the "
+                                 f"budget: {out['storm']}")
+        if out["storm"]["owners"] != ["device-cache:global.b"]:
+            raise AssertionError(f"serving cache shares: evictions of {out['storm']['owners']}")
+        keys_after = {e.key for e in DEVICE_CACHE.entries() if e.group == "global.a"}
+        out["a_bytes_after"] = DEVICE_CACHE.group_bytes().get("global.a", 0)
+        if keys_after != a_keys or out["a_bytes_after"] != a_bytes:
+            raise AssertionError(f"serving cache shares: global.a's entries did not survive "
+                                 f"({len(keys_after)} of {len(a_keys)}, {out['a_bytes_after']} "
+                                 f"of {a_bytes} bytes)")
+        out["after_storm"] = run_a("after-storm")
+        for q, r in out["after_storm"].items():
+            if r["staged_rows"] or r["h2d_bytes"]:
+                raise AssertionError(f"{q} (serving, after the storm) staged {r}")
+        if out["launches"] < 1:
+            raise AssertionError("serving cache shares: Q17 and Q18 launched no merge kernel")
+        # evicting frees the entries' device memory
+        del storm
+        gc.collect()
+        torch.cuda.synchronize(device)
+        entries = len(DEVICE_CACHE)
+        tensors = entry_tensors([e.value for e in DEVICE_CACHE.entries()])
+        storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                    for t in tensors}
+        refs = [weakref.ref(t) for t in tensors]
+        del tensors
+        before = torch.cuda.memory_allocated(device)
+        freed = DEVICE_CACHE.evict_to(0)
+        gc.collect()
+        torch.cuda.synchronize(device)
+        drop = before - torch.cuda.memory_allocated(device)
+        out["evict_all"] = {"entries": entries, "freed_bytes": freed,
+                            "storages": len(storages), "storage_bytes": sum(storages.values()),
+                            "memory_allocated_drop": drop,
+                            "tensors_alive": sum(r() is not None for r in refs)}
+        # every tensor of the evicted entries is gone, so their storages are
+        # back with the allocator: the drop is at least the evicted bytes
+        # (each storage rounded up to a block). Other threads of the process
+        # free memory too while this runs, so the drop has no upper bound here
+        if out["evict_all"]["tensors_alive"] or drop < freed:
+            raise AssertionError(f"serving cache shares: evicting {out['evict_all']}")
+    finally:
+        rg.CACHE_SHARES.configure(shares_before)
+        DEVICE_CACHE._max_bytes = budget_before
+        DEVICE_CACHE.invalidate_all()
+        HOST_CACHE.invalidate_all()
+    print("serving", json.dumps({"check": "cache_shares", **out}), flush=True)
+    return out
+
+
+def entry_tensors(values):
+    """The tensors the cache entries' values hold (pages, columns, sorted
+    builds: walked through their attributes)."""
+    import torch
+
+    out, seen = [], set()
+
+    def walk(v, depth=0):
+        if depth > 8 or id(v) in seen:
+            return
+        seen.add(id(v))
+        if torch.is_tensor(v):
+            out.append(v)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x, depth + 1)
+        elif hasattr(v, "__dict__") and not isinstance(v, type):
+            for x in vars(v).values():
+                walk(x, depth + 1)
+
+    for v in values:
+        walk(v)
+    return out
+
+
+class AnnouncePoller:
+    """While a block runs, take every worker's announce (``announce_payload``:
+    the pool-overflow shed, the memory sample) every 2 ms and feed it to the
+    coordinator's cluster memory manager, as the announce loop does every
+    0.5 s; ``ticks`` keeps (node, reservation, device-cache bytes) of each."""
+
+    def __init__(self, coord, workers):
+        import threading
+
+        self.coord, self.workers = coord, workers
+        self.ticks = []
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._poll)
+
+    def _poll(self):
+        while not self._done.is_set():
+            for w in self.workers:
+                p = w.announce_payload()
+                self.coord.cluster_memory.update(w.node_id, p)
+                self.ticks.append((w.node_id, p["memoryBytes"], p["deviceCacheBytes"]))
+            time.sleep(0.002)
+
+    def peak(self):
+        return max((m for _n, m, _c in self.ticks), default=0)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._done.set()
+        self._thread.join()
+
+
+def serving_pool_overflow(device, expected, card, schema):
+    """Check 5: a worker whose pool holds a running Q1's reservation but not
+    that plus its warm device cache sheds the cache (``pool-overflow``),
+    and Q1 finishes with the expected rows."""
+    from trino_tpu_torch.client.remote import StatementClient
+    from trino_tpu_torch.devcache import DEVICE_CACHE
+
+    DEVICE_CACHE.invalidate_all()
+    coord, workers = serving_cluster(device, 1, "po")
+    w = workers[0]
+    props = serving_props(schema, device_cache_enabled="true")
+    q1 = expected["1"]
+    out = {"card": card}
+
+    def run_polled():
+        """Q1 under the announce poller."""
+        with AnnouncePoller(coord, workers) as poller:
+            t0 = time.perf_counter()
+            rows = StatementClient(coord.base_url, props).execute(q1["sql"], timeout=600.0)[1]
+            wall = time.perf_counter() - t0
+        check_rows("Q1 (serving, pool overflow)", rows, q1["rows"], rel_tol=DIST_REL_TOL)
+        return wall, [(m, c) for _n, m, c in poller.ticks]
+
+    try:
+        out["first_wall_s"], ticks = run_polled()  # fills the cache: no pool yet
+        reservation = max(m for m, _ in ticks)
+        cached = DEVICE_CACHE.cached_bytes()
+        if not reservation or not cached:
+            raise AssertionError(f"serving pool overflow: reservation {reservation}, "
+                                 f"cached {cached}")
+        w.memory_limit_bytes = reservation + cached // 2
+        mark = ledger_mark()
+        out["second_wall_s"], ticks = run_polled()
+        sheds = [e for e in ledger_since(mark)
+                 if e["kind"] == "shed" and e.get("reason") == "pool-overflow"]
+        held = [(m, c) for m, c in ticks if m]
+        out.update({"reservation_bytes": reservation, "cached_bytes": cached,
+                    "limit_bytes": w.memory_limit_bytes,
+                    "shed_bytes": sum(e["bytes"] for e in sheds), "shed_events": len(sheds),
+                    "cached_after": DEVICE_CACHE.cached_bytes(),
+                    "ticks_with_reservation": len(held)})
+        if not sheds or not any(c <= w.memory_limit_bytes - m for m, c in held):
+            raise AssertionError(f"serving pool overflow: {out}")
+        if coord.cluster_memory.kills:
+            raise AssertionError(f"serving pool overflow killed {coord.cluster_memory.kills}")
+    finally:
+        serving_stop(coord, workers)
+        DEVICE_CACHE.invalidate_all()
+    print("serving", json.dumps({"check": "pool_overflow", **out}), flush=True)
+    return out
+
+
+SERVING_KILL_SQL = ("select o_orderpriority, count(*) c, sum(l_quantity) q "
+                    "from orders, lineitem where o_orderkey = l_orderkey "
+                    "group by o_orderpriority order by o_orderpriority")
+
+
+def serving_killer(device, card, schema):
+    """Check 6: two workers whose pools the orders x lineitem join at SF1
+    overflows: it fails EXCEEDED_CLUSTER_MEMORY with a postmortem (the
+    announce poller feeds the workers' reservations to the cluster memory
+    manager every 2 ms while it runs); then a small query finishes. A
+    worker's pool is 64 MiB, or half the peak reservation an unlimited run
+    of the join showed where that is less (the port streams the join's
+    scans a split at a time)."""
+    import torch
+
+    coord, workers = serving_cluster(device, 2, "kw")
+    props = {"catalog": "tpch", "schema": schema}
+    out = {"card": card}
+    try:
+        payload = workers[0].announce_payload()
+        out["device_memory_bytes"] = payload["deviceMemoryBytes"]
+        if payload["deviceMemoryBytes"] != torch.cuda.mem_get_info(device)[1]:
+            raise AssertionError(f"announce deviceMemoryBytes {payload['deviceMemoryBytes']} != "
+                                 f"mem_get_info {torch.cuda.mem_get_info(device)[1]}")
+        with AnnouncePoller(coord, workers) as poller:
+            free = coord.submit(SERVING_KILL_SQL, props)
+            free.state.wait_for_terminal(300.0)
+        out["unlimited"] = {"state": free.state.get(), "peak_worker_reservation": poller.peak()}
+        if free.state.get() != "FINISHED" or not poller.peak():
+            raise AssertionError(f"serving killer: the unlimited run {out['unlimited']}: "
+                                 f"{free.failure}")
+        out["pool_bytes"] = min(SERVING_KILL_POOL, poller.peak() // 2)
+        for w in workers:
+            w.memory_limit_bytes = out["pool_bytes"]
+        t0 = time.perf_counter()
+        with AnnouncePoller(coord, workers) as poller:
+            big = coord.submit(SERVING_KILL_SQL, props)
+            big.state.wait_for_terminal(300.0)
+        out["kill_wall_s"] = time.perf_counter() - t0
+        out["peak_worker_reservation"] = poller.peak()
+        out["state"] = big.state.get()
+        # an announce that still carries the victim's tasks (their cancel is
+        # on its way) names it again: the history may repeat the one victim
+        out["kills"] = [q for q, _ in coord.cluster_memory.kills]
+        if out["state"] != "FAILED" or "EXCEEDED_CLUSTER_MEMORY" not in (big.failure or "") \
+                or set(out["kills"]) != {big.query_id}:
+            raise AssertionError(f"serving killer: {out}, failure {(big.failure or '')[:300]}")
+        deadline = time.time() + 30
+        while big.postmortem is None and time.time() < deadline:
+            time.sleep(0.01)
+        pm = big.postmortem or {}
+        mem = (pm.get("coordinator") or {}).get("memory") or {}
+        out["postmortem_memory_keys"] = sorted(mem)
+        out["postmortem_workers"] = len(pm.get("workers") or ())
+        if set(mem) != {"nodeId", "pools", "topConsumers", "sheds"}:
+            raise AssertionError(f"serving killer: postmortem memory {sorted(mem)}")
+        t0 = time.perf_counter()
+        small = coord.submit("select count(*) from nation", {"catalog": "tpch", "schema": schema})
+        state = small.state.wait_for_terminal(120.0)
+        out["small"] = {"state": state, "rows": small.rows, "wall_s": time.perf_counter() - t0}
+        if state != "FINISHED" or small.rows != [(25,)]:
+            raise AssertionError(f"serving killer: the small query {out['small']}: "
+                                 f"{small.failure}")
+    finally:
+        serving_stop(coord, workers)
+    print("serving", json.dumps({"check": "killer", **out}, default=str), flush=True)
+    return out
+
+
+def serving_auth_events(device, card):
+    """Check 7 (host side): a coordinator with a password file and a JWT
+    secret: 401 without credentials, Basic and Bearer accepted, 403 on
+    another user's query, the created and completed events (a failed
+    query's carrying its error), and /v1/metrics with the serving series."""
+    import base64
+    import urllib.error
+    import urllib.request
+
+    from trino_tpu_torch.server import auth
+    from trino_tpu_torch.server.events import EventListener
+
+    secret = b"chip-smoke-jwt-secret"
+    pw = auth.PasswordFileAuthenticator({"alice": auth.hash_password("wonder"),
+                                         "bob": auth.hash_password("tinker")})
+    coord, _ = serving_cluster(device, 0, "au", authenticator=auth.Authenticator(
+        password=pw, jwt=auth.JwtAuthenticator(secret)))
+
+    class Events(EventListener):
+        def __init__(self):
+            self.created, self.completed = [], []
+
+        def query_created(self, event):
+            self.created.append(event)
+
+        def query_completed(self, event):
+            self.completed.append(event)
+
+    events = Events()
+    coord.events.add(events)
+    session = {"X-Trino-Session-Catalog": "tpch", "X-Trino-Session-Schema": "tiny",
+               "X-Trino-Session-Short_query_fast_path": "true"}
+
+    def request(path, data=None, method="GET", headers=None):
+        req = urllib.request.Request(coord.base_url + path, data=data, method=method,
+                                     headers=headers or {})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return resp.status, json.loads(resp.read() or b"null")
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers.get("WWW-Authenticate")
+
+    def basic(user, password):
+        return {"Authorization": "Basic " + base64.b64encode(f"{user}:{password}".encode())
+                .decode()}
+
+    out = {"card": card}
+    try:
+        out["no_credentials"] = request("/v1/statement", b"select 1", "POST", session)
+        status, body = request("/v1/statement", b"select 41 + 1", "POST",
+                               {**session, **basic("alice", "wonder")})
+        qid = body["id"]
+        coord.get_query(qid).state.wait_for_terminal(60.0)
+        tok = auth.make_jwt({"sub": "bob", "exp": time.time() + 300}, secret)
+        bstatus, bbody = request("/v1/statement", b"select 1", "POST",
+                                 {**session, "Authorization": f"Bearer {tok}"})
+        out["basic"] = [status, coord.get_query(qid).user]
+        out["bearer"] = [bstatus, coord.get_query(bbody["id"]).user]
+        out["other_user"] = request(f"/v1/query/{qid}", headers=basic("bob", "tinker"))[0]
+        out["owner"] = request(f"/v1/query/{qid}", headers=basic("alice", "wonder"))[0]
+        bad = coord.submit("select no_such_column from nation", {"catalog": "tpch",
+                                                                   "schema": "tiny"})
+        bad.state.wait_for_terminal(60.0)
+        deadline = time.time() + 10
+        while len(events.completed) < 3 and time.time() < deadline:
+            time.sleep(0.01)
+        done = {e.query_id: e for e in events.completed}
+        out["events"] = {"created": len(events.created), "completed": len(events.completed),
+                         "failed_error": bool(done.get(bad.query_id) and
+                                              done[bad.query_id].error)}
+        with urllib.request.urlopen(coord.base_url + "/v1/metrics", timeout=60) as resp:
+            page = resp.read().decode()
+        series = ("trino_tpu_dispatch_queue_depth", "trino_tpu_executor_lanes_busy",
+                  "trino_tpu_resource_group_running", "trino_tpu_resource_group_queue_seconds",
+                  "trino_tpu_queries_total", "trino_tpu_query_seconds")
+        out["metrics_missing"] = [s for s in series if f"\n{s}" not in page]
+        if (out["no_credentials"] != (401, 'Basic realm="trino-tpu", Bearer')
+                or out["basic"] != [200, "alice"] or out["bearer"] != [200, "bob"]
+                or out["other_user"] != 403 or out["owner"] != 200
+                or out["events"] != {"created": 3, "completed": 3, "failed_error": True}
+                or out["metrics_missing"]):
+            raise AssertionError(f"serving auth and events: {out}")
+    finally:
+        serving_stop(coord, [])
+    print("serving", json.dumps({"check": "auth_events", **out}), flush=True)
+    return out
+
+
+def phase_serving(device, expected, plane, cap, card, schema="sf1"):
+    """The serving plane on the card (server/dispatch.py, resource groups,
+    cluster memory, the memory ledger, authentication and events): seven
+    checks; the merge launches of check 4's Q17 and Q18 are the path's."""
+    t_phase = time.perf_counter()
+    out = {}
+    for name, step in (
+            ("overload", lambda: serving_overload(device, expected, card, schema)),
+            ("groups", lambda: serving_groups(device, expected, card, schema)),
+            ("cache_shares", lambda: serving_cache_shares(device, expected, plane, cap, card,
+                                                          schema)),
+            ("pool_overflow", lambda: serving_pool_overflow(device, expected, card, schema)),
+            ("killer", lambda: serving_killer(device, card, schema)),
+            ("auth_events", lambda: serving_auth_events(device, card))):
+        t0 = time.perf_counter()
+        out[name] = step()
+        out[f"{name}_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("serving_total", json.dumps({k: v for k, v in out.items() if k.endswith("_s")}
+                                      | {"card": card}), flush=True)
+    return out
+
+
 def check_random(session, device):
     """random() over every lineitem row at SF1, drawn on the card from the
     session's generator."""
@@ -2582,6 +3370,7 @@ def main() -> int:
             {q: (runs[0]["wall_s"], runs[1]["wall_s"]) for q, runs in tpch.items()}, card)
         matview = phase_matview(device, mvexp, expected, cap, card)
         adaptive = phase_adaptive(device, expected, compiled, cap, card)
+        serving = phase_serving(device, expected, plane, cap, card)
     eager_merge = sorted(int(q) for q, e in expected.items()
                          if e["tiers"].get("merge-pallas", 0) >= 1)
     compiled_merge = sorted(f"Q{q}" for q, e in compiled["queries"].items()
@@ -2592,7 +3381,9 @@ def main() -> int:
         "tpch": eager_merge, "cache": eager_merge,
         "compiled_uncached": compiled_merge, "compiled_cached": compiled_merge,
         "distributed": dist_merge, "matview": matview_merge,
-        "adaptive": ["Q17"] if "Q17" in compiled_merge else []})
+        "adaptive": ["Q17"] if "Q17" in compiled_merge else [],
+        "serving": [q for q in (17, 18)
+                    if plane["tiers_cached"][str(q)]["cold"].get("merge-pallas", 0) >= 1]})
     if profiling:
         tpch_sql = [(f"Q{q}", expected[str(q)]["sql"]) for q in range(1, 23)]
         phase_profile(session, tpch_sql, "uncached")
@@ -2632,7 +3423,8 @@ def main() -> int:
         "distributed": sum(run["merge_launches"] for runs in dist_runs.values()
                            for run in runs),
         "matview": matview["q18"]["merge_launches"],
-        "adaptive": adaptive["compile_ledger"]["merge_launches"]}
+        "adaptive": adaptive["compile_ledger"]["merge_launches"],
+        "serving": serving["cache_shares"]["launches"]}
     for path, n in launches_by_path.items():
         if n < 1 and path not in ("analytics", "scalar", "nested", "distributed", "matview"):
             raise AssertionError(f"the 22 queries of path {path} launched the merge kernel "

@@ -412,10 +412,11 @@ def test_dbapi_qmark_parameters(cluster):
 
 
 def test_unported_tiers_are_refused(cluster):
-    """The fault-tolerant tier and spooled results are refused, and their
-    routes answer 501. Adaptive execution and distributed EXPLAIN ANALYZE
-    are ported: a request setting ``adaptive_execution_enabled`` runs, and
-    EXPLAIN ANALYZE answers with the annotated fragments."""
+    """The fault-tolerant tier, spooled results and the executor-process
+    plane are refused, and their routes answer 501. Adaptive execution and
+    distributed EXPLAIN ANALYZE are ported: a request setting
+    ``adaptive_execution_enabled`` runs, and EXPLAIN ANALYZE answers with
+    the annotated fragments."""
     coord, _ = cluster
     from trino_tpu_torch.client.remote import RemoteQueryError
 
@@ -432,6 +433,10 @@ def test_unported_tiers_are_refused(cluster):
     for path in ("/ui", "/v1/query/x/trace", "/v1/segment/x"):
         status, _, _ = wire.http_request("GET", coord.base_url + path, timeout=10.0)
         assert status == 501, path
+    from trino_tpu_torch.server.coordinator import CoordinatorServer
+
+    with pytest.raises(NotImplementedError, match="executor_plane=process"):
+        CoordinatorServer(device="cpu", executor_plane="process", executor_processes=2)
 
 
 def test_nested_decimals_and_dates_cross_the_protocol(cluster):

@@ -215,7 +215,7 @@ def test_query_stats_live_while_running_then_frozen(clusters, monkeypatch):
 
 # the reference's statement stats keys that read what the port does not
 # have: the phase timeline and flow ledger, resource groups, spooled results
-UNPORTED_STATS_KEYS = {"timeline", "flows", "resourceGroup", "spooled"}
+UNPORTED_STATS_KEYS = {"timeline", "flows", "spooled"}
 
 
 def test_statement_protocol_carries_the_reference_stats(clusters):
@@ -232,7 +232,8 @@ def test_statement_protocol_carries_the_reference_stats(clusters):
     assert set(jstats) - set(stats) == UNPORTED_STATS_KEYS
     assert set(stats) <= set(jstats)
     for key in ("state", "stages", "completedStages", "completedSplits", "totalSplits",
-                "totalRows", "adaptations", "resultRows", "fastPath", "mvHits"):
+                "totalRows", "adaptations", "resultRows", "fastPath", "mvHits",
+                "resourceGroup"):
         assert stats[key] == jstats[key], key
     from trino_tpu_torch.client import dbapi
 

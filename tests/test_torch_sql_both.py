@@ -140,7 +140,13 @@ NAMED_MODULES = (
     "trino_tpu_torch.matview.substitute", "trino_tpu_torch.matview.lifecycle",
     # the adaptive distributed path
     "trino_tpu_torch.obs.devprofiler", "trino_tpu_torch.parallel.exchange",
-    "trino_tpu_torch.adaptive.runtime_stats", "trino_tpu_torch.adaptive.replanner")
+    "trino_tpu_torch.adaptive.runtime_stats", "trino_tpu_torch.adaptive.replanner",
+    # the serving plane
+    "trino_tpu_torch.server.dispatch", "trino_tpu_torch.server.resource_groups",
+    "trino_tpu_torch.server.cluster_memory", "trino_tpu_torch.server.auth",
+    "trino_tpu_torch.server.events", "trino_tpu_torch.obs.memledger",
+    "trino_tpu_torch.obs.flightrecorder", "trino_tpu_torch.obs.metrics",
+    "trino_tpu_torch.devcache.hostcache")
 
 
 def test_port_loads_neither_jax_nor_the_jax_package():

@@ -72,17 +72,11 @@ def session_user(session) -> str:
 
 
 def _current_group() -> Optional[str]:
-    """Resource group of the query on THIS thread (dispatcher lane sets
-    it around execution), or None. Lazy + fail-open so the cache stays
-    importable and functional without the server package. The port has no
-    ``server/resource_groups.py`` yet (ROADMAP queue 1, item 5: the serving
-    plane), so the import fails and every entry is ungrouped (None)."""
-    try:
-        from trino_tpu_torch.server.resource_groups import current_group
+    """Resource group of the query on this thread (the dispatcher's lane
+    sets it around execution), or None outside a lane."""
+    from trino_tpu_torch.server.resource_groups import current_group
 
-        return current_group()
-    except Exception:  # noqa: BLE001 — attribution never fails caching
-        return None
+    return current_group()
 
 
 class ResultCache:
@@ -104,6 +98,11 @@ class ResultCache:
         with self._lock:
             return self._bytes
 
+    def group_bytes(self) -> dict:
+        """Resident bytes per owning resource group (None = ungrouped)."""
+        with self._lock:
+            return dict(self._group_bytes)
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._entries)
@@ -119,21 +118,16 @@ class ResultCache:
         """Eviction victim: the oldest entry of a group over its
         configured cache share first (one tenant's burst reclaims its own
         over-share bytes before touching another's warm results), else
-        the LRU head. Without ``server/resource_groups.py`` (ROADMAP queue
-        1, item 5) the import fails and the LRU head is the victim."""
-        try:
-            from trino_tpu_torch.server.resource_groups import CACHE_SHARES
+        the LRU head."""
+        from trino_tpu_torch.server.resource_groups import CACHE_SHARES
 
-            for k, ent in self._entries.items():  # LRU order
-                if k == exclude:
-                    continue
-                group = ent[4]
-                if CACHE_SHARES.over_share(
-                        group, self._group_bytes.get(group, 0),
-                        self.max_bytes):
-                    return k
-        except Exception:  # noqa: BLE001 — carve-outs never wedge eviction
-            pass
+        for k, ent in self._entries.items():  # LRU order
+            if k == exclude:
+                continue
+            group = ent[4]
+            if CACHE_SHARES.over_share(group, self._group_bytes.get(group, 0),
+                                       self.max_bytes):
+                return k
         return next(iter(self._entries))
 
     # ------------------------------------------------------------- lifecycle
@@ -194,6 +188,25 @@ class ResultCache:
                 M.RESULT_CACHE_BYTES.set(self._bytes)
         if flight is not None:
             flight._resolve(value, ok=True)
+
+    def peek(self, key: str):
+        """Read-only lookup: ``(columns, rows)`` of a live entry, else None.
+        Never starts a flight: the dispatcher's serving index
+        (server/dispatch.py) consults it on the HTTP thread, where leading a
+        flight (and later having to abandon it) would be wrong."""
+        with self._lock:
+            ent = self._entries.get(key)
+            if ent is None:
+                return None
+            columns, rows, nbytes, expires_at, group = ent
+            if time.monotonic() >= expires_at:
+                del self._entries[key]
+                self._bytes -= nbytes
+                self._group_sub_locked(group, nbytes)
+                M.RESULT_CACHE_BYTES.set(self._bytes)
+                return None
+            self._entries.move_to_end(key)
+            return columns, rows
 
     def abandon(self, key: str) -> None:
         """Leader failed: wake waiters empty-handed (they re-execute)."""

@@ -39,14 +39,19 @@ class DatabaseError(Error):
 class Connection:
     def __init__(self, coordinator_url: Optional[str] = None, session=None,
                  catalog: str = "tpch", schema: str = "tiny",
-                 user: Optional[str] = None, device=None, **properties):
-        # ``user`` rides the X-Trino-User header; ``device`` is the embedded
+                 user: Optional[str] = None, source: Optional[str] = None,
+                 password: Optional[str] = None, token: Optional[str] = None,
+                 device=None, **properties):
+        # ``user`` and ``source`` ride the X-Trino-User and X-Trino-Source
+        # headers (resource-group selector inputs), ``password`` or
+        # ``token`` Basic or Bearer credentials; ``device`` is the embedded
         # session's torch device (CUDA unless named)
         if coordinator_url is not None:
             from trino_tpu_torch.client.remote import StatementClient
 
             props = {"catalog": catalog, "schema": schema, **properties}
-            self._client = StatementClient(coordinator_url, props, user=user)
+            self._client = StatementClient(coordinator_url, props, user=user, source=source,
+                                           password=password, token=token)
             self._session = None
         else:
             if session is None:

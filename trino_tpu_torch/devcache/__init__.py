@@ -11,7 +11,7 @@ from trino_tpu_torch.devcache.cache import (
     instance_token)
 from trino_tpu_torch.devcache.hostcache import (
     HOST_CACHE, HostColumnCache, column_data_bytes, host_admit_budget,
-    split_data_bytes)
+    shed_revocable, split_data_bytes)
 from trino_tpu_torch.devcache.keys import (
     admit_budget, cache_enabled, cached_build, cached_stage, host_split_keys,
     scan_cache_key, scan_signature, splits_shard)
@@ -21,5 +21,6 @@ __all__ = [
     "HOST_CACHE", "HostColumnCache", "admit_budget", "cache_enabled",
     "cached_build", "cached_stage", "column_data_bytes", "device_memory_bytes",
     "host_admit_budget", "host_split_keys", "instance_token",
-    "scan_cache_key", "scan_signature", "split_data_bytes", "splits_shard",
+    "scan_cache_key", "scan_signature", "shed_revocable", "split_data_bytes",
+    "splits_shard",
 ]

@@ -16,12 +16,21 @@ CPU session and a CUDA session must never share an entry.
 
 Memory discipline: a byte-budgeted LRU (a quarter of the card's memory,
 256 MiB for the CPU), single-flight admission (concurrent stagings of one
-key run one loader), and ``yield_bytes``, which a query about to spill
-calls to reclaim cache bytes first (exec/memory.py). Cached tensors are
-shared by every later query and must never be written in place.
+key run one loader), and ``yield_bytes``, which a query about to spill, a
+worker whose pool overflows and the host-RAM shed call to reclaim cache
+bytes first (exec/memory.py, server/worker.py, devcache/hostcache.py).
+Cached tensors are shared by every later query and must never be written
+in place; an evicted entry's tensors are dropped with it, so its bytes
+return to the CUDA allocator.
 
-Not ported: the resource-group carve-outs and the memory-ledger events
-(their server modules are not ported).
+Resource-group carve-outs: an entry carries the group of the query that
+staged it (server/resource_groups.py ``current_group``, set by the
+dispatcher's lane), and eviction takes the oldest entry of a group over
+its ``CACHE_SHARES`` fraction of the budget first, so one tenant's scan
+storm reclaims its own bytes before another tenant's warm tables. Every
+admission, eviction and shed is a memory-ledger event (obs/memledger.py)
+under the owner ``device-cache`` (``device-cache:<group>`` for a grouped
+entry).
 """
 from __future__ import annotations
 
@@ -98,6 +107,17 @@ class CacheEntry:
     hits: int = 0
     created_at: float = 0.0
     last_used_at: float = 0.0
+    # the resource group whose query staged the entry (None outside a
+    # lane): the carve-out eviction preference and the ledger owner suffix
+    group: Optional[str] = None
+
+
+def _current_group() -> Optional[str]:
+    """The resource group of the query on this thread (the dispatcher's
+    lane sets it around execution), or None outside a lane."""
+    from trino_tpu_torch.server.resource_groups import current_group
+
+    return current_group()
 
 
 class DeviceTableCache:
@@ -114,6 +134,11 @@ class DeviceTableCache:
     M_EVICTIONS = M.DEVICE_CACHE_EVICTIONS
     M_BYTES = M.DEVICE_CACHE_BYTES
 
+    # memory-ledger attribution: the pool this tier's bytes live in and the
+    # owner its events carry (the host tier overrides both)
+    LEDGER_POOL = "device"
+    LEDGER_OWNER = "device-cache"
+
     def __init__(self, max_bytes: Optional[int] = None):
         self._max_bytes = max_bytes
         self._lock = threading.Lock()
@@ -124,10 +149,30 @@ class DeviceTableCache:
         # stays O(entries of this table)
         self._by_table: Dict[tuple, set] = {}
         self._hit_count = 0
+        # resident bytes per resource group (None = ungrouped)
+        self._group_bytes: Dict[Optional[str], int] = {}
 
     def _default_max_bytes(self) -> int:
         """Budget when the constructor did not pin one (subclass hook)."""
         return _default_budget()
+
+    def _ledger_event(self, kind: str, nbytes: int, reason: Optional[str] = None,
+                      group: Optional[str] = None) -> None:
+        """One memory-ledger event of this tier, emitted with ``self._lock``
+        released (bytes are collected under the lock, the event goes out
+        after, which also makes a shed exactly one event a group)."""
+        if nbytes <= 0:
+            return
+        from trino_tpu_torch.obs.memledger import MEMORY_LEDGER
+
+        owner = f"{self.LEDGER_OWNER}:{group}" if group else self.LEDGER_OWNER
+        MEMORY_LEDGER.record_event(kind, self.LEDGER_POOL, owner, nbytes, reason=reason)
+
+    def _ledger_events(self, kind: str, by_group: Dict[Optional[str], int],
+                       reason: Optional[str] = None) -> None:
+        """One ledger event a group of a batch of freed entries."""
+        for group, nbytes in by_group.items():
+            self._ledger_event(kind, nbytes, reason=reason, group=group)
 
     # ---------------------------------------------------------- inspection
     @property
@@ -143,6 +188,11 @@ class DeviceTableCache:
     def cached_bytes(self) -> int:
         with self._lock:
             return self._bytes
+
+    def group_bytes(self) -> Dict[Optional[str], int]:
+        """Resident bytes per owning resource group (None = ungrouped)."""
+        with self._lock:
+            return dict(self._group_bytes)
 
     def __len__(self) -> int:
         with self._lock:
@@ -164,6 +214,7 @@ class DeviceTableCache:
                 "shard": e.key.shard,
                 "signature": e.key.signature,
                 "device": e.key.device,
+                "group": e.group,
                 "bytes": e.nbytes,
                 "rows": e.rows,
                 "hits": e.hits,
@@ -192,7 +243,7 @@ class DeviceTableCache:
         while True:
             inflight = False
             with self._lock:
-                self._drop_stale_locked(key)
+                stale_freed = self._drop_stale_locked(key)
                 ent = self._entries.get(key)
                 if ent is not None:
                     self._entries.move_to_end(key)
@@ -209,6 +260,7 @@ class DeviceTableCache:
                         if not wait:
                             inflight = True
                         lead = False
+            self._ledger_events("evict", stale_freed, reason="stale")
             if ent is not None:
                 return ent, "hit"
             if inflight:
@@ -255,13 +307,14 @@ class DeviceTableCache:
         """The resident entry for ``key`` (counted and LRU-bumped as a
         hit), or None, without staging and without joining a flight."""
         with self._lock:
-            self._drop_stale_locked(key)
+            stale_freed = self._drop_stale_locked(key)
             ent = self._entries.get(key)
             if ent is not None:
                 self._entries.move_to_end(key)
                 ent.hits += 1
                 ent.last_used_at = time.time()
                 self._hit_count += 1
+        self._ledger_events("evict", stale_freed, reason="stale")
         if ent is None:
             return None
         self.M_HITS.inc()
@@ -276,20 +329,35 @@ class DeviceTableCache:
                else min(self.max_bytes, int(admit_bytes)))
         if ent.nbytes > cap:
             return
+        if ent.group is None:
+            ent.group = _current_group()
+        evicted: Dict[Optional[str], int] = {}
         with self._lock:
-            self._remove_locked(ent.key)
+            replaced = self._remove_locked(ent.key)
             while self._bytes + ent.nbytes > self.max_bytes and self._entries:
-                self._evict_lru_locked()
+                nbytes, group = self._evict_victim_locked()
+                evicted[group] = evicted.get(group, 0) + nbytes
             self._entries[ent.key] = ent
             self._bytes += ent.nbytes
+            self._group_bytes[ent.group] = self._group_bytes.get(ent.group, 0) + ent.nbytes
             self._by_table.setdefault(ent.key.table_id(), set()).add(ent.key)
             self.M_BYTES.set(self._bytes)
+        self._ledger_events("evict", evicted, reason="lru")
+        if replaced is not None:
+            self._ledger_event("release", replaced.nbytes, reason="replace",
+                               group=replaced.group)
+        self._ledger_event("admit", ent.nbytes, group=ent.group)
 
     def _remove_locked(self, key: CacheKey) -> Optional[CacheEntry]:
         ent = self._entries.pop(key, None)
         if ent is None:
             return None
         self._bytes -= ent.nbytes
+        remaining = self._group_bytes.get(ent.group, 0) - ent.nbytes
+        if remaining > 0:
+            self._group_bytes[ent.group] = remaining
+        else:
+            self._group_bytes.pop(ent.group, None)
         keys = self._by_table.get(key.table_id())
         if keys is not None:
             keys.discard(key)
@@ -297,48 +365,84 @@ class DeviceTableCache:
                 del self._by_table[key.table_id()]
         return ent
 
-    def _evict_lru_locked(self) -> int:
-        victim = self._remove_locked(next(iter(self._entries)))
+    def _evict_victim_locked(self) -> Tuple[int, Optional[str]]:
+        """Evict one entry; ``(bytes, group)``. The oldest entry of a group
+        holding more than its ``CACHE_SHARES`` fraction of the budget goes
+        first, else the LRU head."""
+        from trino_tpu_torch.server.resource_groups import CACHE_SHARES
+
+        victim_key = next(
+            (k for k, e in self._entries.items()  # LRU order
+             if CACHE_SHARES.over_share(e.group, self._group_bytes.get(e.group, 0),
+                                        self.max_bytes)),
+            next(iter(self._entries)))
+        victim = self._remove_locked(victim_key)
         self.M_EVICTIONS.inc()
         self.M_BYTES.set(self._bytes)
-        return victim.nbytes
+        return victim.nbytes, victim.group
 
-    def _drop_stale_locked(self, key: CacheKey) -> int:
+    def _drop_stale_locked(self, key: CacheKey) -> Dict[Optional[str], int]:
         """Drop every entry of the same table whose data_version differs
         from the one the caller just observed: a mutation moved it, so
-        those artifacts can never be served again. Returns bytes freed."""
+        those artifacts can never be served again. Returns the bytes freed
+        a group, for the ledger events the caller emits after the lock."""
         keys = self._by_table.get(key.table_id())
         if not keys:
-            return 0
-        freed = 0
-        for k in [k for k in keys if k.data_version != key.data_version]:
+            return {}
+        stale = [k for k in keys if k.data_version != key.data_version]
+        freed: Dict[Optional[str], int] = {}
+        for k in stale:
             victim = self._remove_locked(k)
             if victim is not None:
-                freed += victim.nbytes
+                freed[victim.group] = freed.get(victim.group, 0) + victim.nbytes
             self.M_EVICTIONS.inc()
-        if freed:
+        if stale:
             self.M_BYTES.set(self._bytes)
         return freed
 
     # ------------------------------------------------------------ pressure
-    def yield_bytes(self, nbytes: int) -> int:
-        """Shed at least ``nbytes`` of cached artifacts (LRU first) for a
-        running query's benefit; returns the bytes freed. Never blocks on
-        staging flights."""
+    def _evict_while(self, more) -> Tuple[int, Dict[Optional[str], int]]:
+        """Evict victims while ``more(freed)`` holds and entries remain;
+        (bytes freed, bytes a group)."""
+        freed = 0
+        by_group: Dict[Optional[str], int] = {}
+        with self._lock:
+            while self._entries and more(freed):
+                n, group = self._evict_victim_locked()
+                freed += n
+                by_group[group] = by_group.get(group, 0) + n
+        return freed, by_group
+
+    def yield_bytes(self, nbytes: int, reason: str = "yield") -> int:
+        """Shed at least ``nbytes`` of cached artifacts (over-share groups
+        first, then LRU) for a running query's benefit; returns the bytes
+        freed. Never blocks on staging flights. A call that frees anything
+        emits one ledger ``shed`` event a group, carrying ``reason``
+        (``spill``, ``pool-overflow``, ``host-pressure``,
+        ``rss-escalation``, ...)."""
         if nbytes <= 0:
             return 0
-        freed = 0
-        with self._lock:
-            while freed < nbytes and self._entries:
-                freed += self._evict_lru_locked()
+        freed, by_group = self._evict_while(lambda f: f < nbytes)
+        self._ledger_events("shed", by_group, reason=reason)
+        return freed
+
+    def evict_to(self, target_bytes: int, reason: str = "trim") -> int:
+        """Evict until the cache holds at most ``target_bytes``; returns
+        the bytes freed."""
+        target = max(0, int(target_bytes))
+        freed, by_group = self._evict_while(lambda f: self._bytes > target)
+        self._ledger_events("evict", by_group, reason=reason)
         return freed
 
     def invalidate_all(self) -> None:
         with self._lock:
+            by_group = dict(self._group_bytes)
             self._entries.clear()
             self._by_table.clear()
+            self._group_bytes.clear()
             self._bytes = 0
             self.M_BYTES.set(0)
+        self._ledger_events("release", by_group, reason="invalidate")
 
 
 # the process-wide pool: every session of this process shares one budget

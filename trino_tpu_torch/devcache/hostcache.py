@@ -7,8 +7,11 @@ merge, narrowing and the copy to the device. It is keyed like the device
 cache, with the split's own boundary digest as the shard and "host" as
 the device, so an eviction from the device cache re-stages from host
 memory (concat and copy only) without running the connector again.
-Semantics are :class:`DeviceTableCache`'s; only the metric hooks and the
-budget differ.
+Semantics are :class:`DeviceTableCache`'s; only the metric hooks, the
+ledger pool and owner, and the budget differ.
+
+``shed_revocable`` is the node's host-RAM pressure shed across both
+revocable tiers, this one first.
 """
 from __future__ import annotations
 
@@ -55,6 +58,10 @@ class HostColumnCache(DeviceTableCache):
     M_EVICTIONS = M.HOST_CACHE_EVICTIONS
     M_BYTES = M.HOST_CACHE_BYTES
 
+    # this tier's pages are host RAM: its ledger events land in the host pool
+    LEDGER_POOL = "host"
+    LEDGER_OWNER = "host-cache"
+
     def _default_max_bytes(self) -> int:
         return DEFAULT_HOST_CACHE_BYTES
 
@@ -69,3 +76,34 @@ def host_admit_budget(session) -> Optional[int]:
     props = getattr(session, "properties", None) or {}
     v = props.get("host_cache_max_bytes")
     return int(v) if v is not None else None
+
+
+def shed_revocable(nbytes: int) -> int:
+    """Host-RAM pressure shed across both revocable tiers, host tier first:
+    a host page costs one copy to rebuild, a warm device page the whole
+    scan, decode and copy once the host tier is gone too. The worker calls
+    it when its RSS crosses ``TRINO_TPU_HOST_MEMORY_LIMIT_BYTES``. A caller
+    that needs device bytes back (the pool overflow, the spill decision)
+    calls ``DEVICE_CACHE.yield_bytes`` instead: freeing host RAM cannot
+    satisfy a device reservation."""
+    from trino_tpu_torch.devcache.cache import DEVICE_CACHE
+
+    if nbytes <= 0:
+        return 0
+    freed = HOST_CACHE.yield_bytes(nbytes, reason="host-pressure")
+    if freed < nbytes and _device_memory_host_backed():
+        # the device tier relieves RSS only where its tensors live in host
+        # RAM; on the card they hold device memory, and evicting them
+        # under host pressure would thrash the warm tier for nothing. Each
+        # tier's yield is its own shed event, so the ledger shows the order
+        freed += DEVICE_CACHE.yield_bytes(nbytes - freed, reason="rss-escalation")
+    return freed
+
+
+def _device_memory_host_backed() -> bool:
+    """True when this process has no CUDA device, so the device cache's
+    tensors are host RAM (a ``device="cpu"`` cache); a CUDA cache is not
+    host-backed."""
+    from trino_tpu_torch.devcache.cache import device_memory_bytes
+
+    return device_memory_bytes() is None

@@ -5,7 +5,9 @@ Page shapes are known, so a reservation is exact arithmetic on tensor
 bytes. The spill tier is host RAM: an over-budget join or aggregation
 hash-partitions its inputs on the host into P passes and runs each pass on
 the device (the reference engine's partitioned spill collapsed into a loop).
-Not ported: the memory-ledger events of the reference's ``owner``.
+A context given an ``owner`` (``query:<id>``) reports each peak increase
+to the memory ledger (obs/memledger.py) as a ``reserve`` event on the
+``device`` pool and its peak as a ``release`` when the query is done.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import List, Optional
 import numpy as np
 
 from trino_tpu_torch.obs import trace as tracing
+from trino_tpu_torch.obs.memledger import MEMORY_LEDGER, POOL_DEVICE
 
 
 def _tensor_bytes(t) -> int:
@@ -54,12 +57,15 @@ class MemoryContext:
     """Per-query device-memory budget, peak tracking and spill log.
     ``peak_projected`` is the largest working set handed to the spill
     decision; ``shed_bytes`` and ``yields`` count the device-cache bytes
-    reclaimed on this query's behalf."""
+    reclaimed on this query's behalf. ``owner`` is the memory-ledger tag:
+    each peak increase is a ``reserve`` event of the delta, so the owner's
+    live bytes track the peak."""
 
     MAX_SPILL_PARTITIONS = 64
 
-    def __init__(self, budget_bytes: Optional[int] = None):
+    def __init__(self, budget_bytes: Optional[int] = None, owner: Optional[str] = None):
         self.budget = int(budget_bytes) if budget_bytes else None
+        self.owner = owner
         self.peak = 0
         self.peak_projected = 0
         self.spills: List[SpillEvent] = []
@@ -68,7 +74,17 @@ class MemoryContext:
 
     def observe(self, nbytes: int) -> None:
         if nbytes > self.peak:
+            delta = nbytes - self.peak
             self.peak = nbytes
+            if self.owner:
+                MEMORY_LEDGER.record_event("reserve", POOL_DEVICE, self.owner, delta)
+
+    def release(self) -> None:
+        """The query is done: the owner's live bytes drop to 0 (its peak and
+        events stay in the ledger)."""
+        if self.owner and self.peak:
+            MEMORY_LEDGER.record_event("release", POOL_DEVICE, self.owner, self.peak,
+                                       reason="done")
 
     def spill_partitions(self, projected_bytes: int) -> int:
         """1 = fits in the budget; else the number of hash partitions (a
@@ -78,6 +94,8 @@ class MemoryContext:
         if self.budget is None or projected_bytes <= self.budget:
             with tracing.span("memory/reserve") as sp:
                 sp.set("bytes", int(projected_bytes))
+                if self.owner:
+                    sp.set("owner", self.owner)
             return 1
         parts = 1
         while parts < self.MAX_SPILL_PARTITIONS and projected_bytes // parts > self.budget:
@@ -88,10 +106,12 @@ class MemoryContext:
         from trino_tpu_torch.devcache import DEVICE_CACHE
 
         with tracing.span("memory/shed") as sp:
-            freed = DEVICE_CACHE.yield_bytes(projected_bytes // parts)
+            freed = DEVICE_CACHE.yield_bytes(projected_bytes // parts, reason="spill")
             sp.set("requested", int(projected_bytes // parts))
             sp.set("freed", int(freed))
             sp.set("partitions", parts)
+            if self.owner:
+                sp.set("owner", self.owner)
         self.shed_bytes += freed
         self.yields += 1
         return parts

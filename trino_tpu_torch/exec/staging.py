@@ -47,6 +47,7 @@ import numpy as np
 
 from trino_tpu_torch.obs import metrics as M
 from trino_tpu_torch.obs import trace as tracing
+from trino_tpu_torch.obs.memledger import MEMORY_LEDGER, POOL_DEVICE
 
 # default target bytes per split when the session does not set
 # staging_split_bytes
@@ -424,6 +425,14 @@ def _blocked_copy(parts, dtype: np.dtype, n: int, device, block_rows: int,
     return out, blocks
 
 
+def _host_copy(parts, dtype, device):
+    """The plain host path of a transfer: one concatenation, one copy."""
+    from trino_tpu_torch.data.page import to_device
+
+    host = parts[0] if len(parts) == 1 else np.concatenate(parts)
+    return to_device(host.astype(dtype, copy=False), device)
+
+
 def blocked_transfer(device, profile: Optional[StageProfile] = None,
                      block_bytes: int = TRANSFER_BLOCK_BYTES):
     """A ``transfer(parts, dtype=None) -> tensor on device``: the 1-D host
@@ -432,10 +441,13 @@ def blocked_transfer(device, profile: Optional[StageProfile] = None,
     CUDA, more than two blocks of ~``block_bytes`` go through two reused
     pinned buffers (``_blocked_copy``); less takes one plain copy a part,
     straight into the part's slice. A CPU device takes the plain host
-    path. Either way the result is bitwise the concatenation."""
+    path. Either way the result is bitwise the concatenation. A transfer
+    of more than two blocks holds its output as in-flight scratch until
+    the copy ends: the memory ledger's ``staging`` owner on the ``device``
+    pool reserves its bytes for that time."""
     import torch
 
-    from trino_tpu_torch.data.page import to_device, torch_dtype
+    from trino_tpu_torch.data.page import torch_dtype
 
     device = torch.device(device)
 
@@ -450,17 +462,21 @@ def blocked_transfer(device, profile: Optional[StageProfile] = None,
         if profile is not None:
             profile.h2d_bytes += nbytes
         M.STAGED_H2D_BYTES.inc(nbytes)
-        if device.type != "cuda":
-            # the plain host path
-            host = parts[0] if len(parts) == 1 else np.concatenate(parts)
-            return to_device(host.astype(dtype, copy=False), device)
         block_rows = max(1, block_bytes // dtype.itemsize)
         if n > 2 * block_rows:
-            out, blocks = _blocked_copy(parts, dtype, n, device, block_rows,
-                                        _pinned_pair(device, block_bytes))
-            if profile is not None:
-                profile.transfer_blocks += blocks
-            return out
+            MEMORY_LEDGER.record_event("reserve", POOL_DEVICE, "staging", nbytes)
+            try:
+                if device.type != "cuda":
+                    return _host_copy(parts, dtype, device)
+                out, blocks = _blocked_copy(parts, dtype, n, device, block_rows,
+                                            _pinned_pair(device, block_bytes))
+                if profile is not None:
+                    profile.transfer_blocks += blocks
+                return out
+            finally:
+                MEMORY_LEDGER.record_event("release", POOL_DEVICE, "staging", nbytes)
+        if device.type != "cuda":
+            return _host_copy(parts, dtype, device)
         # at most two blocks: one plain copy a part, into its slice
         out = torch.empty((n,), dtype=torch_dtype(dtype), device=device)
         off = 0

@@ -90,9 +90,13 @@ class DeviceProfiler:
         self._last_sample_ts: Optional[float] = None
         self._last_launches = 0
         self._last_busy_s = 0.0
+        self._recorder = None
 
     def attach_recorder(self, recorder) -> None:
-        """Accepted and ignored: the flight recorder is not ported."""
+        """Mirror compile events into the process flight recorder
+        (obs/flightrecorder.py), so a FAILED query's postmortem shows a
+        recompile storm before the failure."""
+        self._recorder = recorder
 
     # --------------------------------------------------------- hot path
     def count_launch(self, wall_s: float, busy_s: float, n: int = 1) -> None:
@@ -124,6 +128,11 @@ class DeviceProfiler:
         from trino_tpu_torch.obs import metrics as M
 
         M.COMPILE_SECONDS_TIERED.observe(float(compile_s), tier, cache)
+        if self._recorder is not None:
+            self._recorder.record(
+                "compile", "device/compile-event", tier=tier, cache=cache,
+                fingerprint=fingerprint, shapeSig=shape_sig,
+                compileS=round(float(compile_s), 6), queryId=query_id)
 
     # ------------------------------------------------------- query fold
     def record_query_kernels(self, query_id: str, rows: List[dict],

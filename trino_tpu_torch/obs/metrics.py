@@ -1,17 +1,27 @@
-"""Process-wide counters for the port's local path.
+"""Process-wide metrics of the port, and their Prometheus text page.
 
-A small stand-in for the reference's metrics registry
-(trino_tpu/obs/metrics.py): plain labelled counters with the same
-``inc(amount, *labels)`` / ``value(*labels)`` surface, histograms with its
-``observe`` / ``snapshot``, and no exposition format. The tests and
-``chip_smoke.py`` read them to show which join tier a query took, what the
-staging and device-cache plane moved, and what the result cache, the plan
-cache and the materialized views decided.
+The port of trino_tpu/obs/metrics.py. Every metric has the reference's
+``inc(amount, *labels)`` / ``set`` / ``observe`` / ``value`` /
+``snapshot`` surface. The series of the serving plane (dispatch, executor
+lanes, resource groups, the coordinator's query gauges, the memory ledger's
+pressure and peak series, the process self-metrics) are declared in
+``REGISTRY`` with the reference's names, help strings and label names, and
+``render_registry`` renders them as the Prometheus text page that
+``GET /v1/metrics`` serves on the coordinator and the workers, so both
+packages' pages carry the same series. The other counters are plain and
+unregistered: the tests and ``chip_smoke.py`` read them to show which join
+tier a query took, what the staging and device-cache plane moved, and what
+the result cache, the plan cache and the materialized views decided.
+
+Server-derived gauges are refreshed from the owning server just before a
+render, under ``RENDER_LOCK`` (server/events.render_metrics), and cleared
+afterwards, so a worker's render in the same process never re-exports a
+coordinator's values.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
 # the reference's latency buckets, in seconds
@@ -19,44 +29,105 @@ LATENCY_BUCKETS_S = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10
                      60.0, 120.0, 300.0)
 
 
-class Counter:
-    def __init__(self, name: str):
+def escape_label_value(value: str) -> str:
+    """Prometheus label escaping: backslash, double quote and newline."""
+    return str(value).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _format_value(v: float) -> str:
+    if v == float("inf"):
+        return "+Inf"
+    if isinstance(v, float) and v.is_integer():
+        return str(int(v))
+    return repr(v) if isinstance(v, float) else str(v)
+
+
+def _series(name: str, labels: Dict[str, str], value) -> str:
+    if labels:
+        inner = ",".join(f'{k}="{escape_label_value(v)}"' for k, v in labels.items())
+        return f"{name}{{{inner}}} {_format_value(value)}"
+    return f"{name} {_format_value(value)}"
+
+
+class Metric:
+    """Name, help, label names and a thread-safe child map keyed by label
+    values. A metric declared without label names (``labelnames=None``)
+    takes any labels and is never rendered."""
+
+    type_name = "untyped"
+
+    def __init__(self, name: str, help: Optional[str] = None,
+                 labelnames: Optional[Sequence[str]] = None):
         self.name = name
+        self.help = help
+        self.labelnames = None if labelnames is None else tuple(labelnames)
         self._lock = threading.Lock()
-        self._children: Dict[Tuple[str, ...], float] = {}
+        self._children: Dict[Tuple[str, ...], object] = {}
+
+    def _labelkey(self, labelvalues) -> Tuple[str, ...]:
+        if self.labelnames is not None and len(labelvalues) != len(self.labelnames):
+            raise ValueError(f"{self.name}: expected labels {self.labelnames}, "
+                             f"got {labelvalues!r}")
+        return tuple(str(v) for v in labelvalues)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._children.clear()
+
+    def header(self) -> List[str]:
+        return [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} {self.type_name}"]
+
+    def samples(self) -> List[tuple]:
+        """Every touched series as ``(sample name, labels, value)``."""
+        with self._lock:
+            children = dict(self._children)
+        return [(self.name, dict(zip(self.labelnames or (), key)), float(v))
+                for key, v in sorted(children.items())]
+
+    def render(self) -> List[str]:
+        """The header, then one line a touched series (a metric never
+        touched renders no series)."""
+        return self.header() + [_series(n, lab, v) for n, lab, v in self.samples()]
+
+
+class Counter(Metric):
+    type_name = "counter"
 
     def inc(self, amount: float = 1, *labelvalues) -> None:
-        key = tuple(str(v) for v in labelvalues)
+        key = self._labelkey(labelvalues)
         with self._lock:
             self._children[key] = self._children.get(key, 0) + amount
 
     def value(self, *labelvalues) -> float:
         with self._lock:
-            return self._children.get(tuple(str(v) for v in labelvalues), 0)
+            return self._children.get(self._labelkey(labelvalues), 0)
 
 
 class Gauge(Counter):
     """A counter that can also be set (the last value wins)."""
 
+    type_name = "gauge"
+
     def set(self, value: float, *labelvalues) -> None:
-        key = tuple(str(v) for v in labelvalues)
+        key = self._labelkey(labelvalues)
         with self._lock:
             self._children[key] = value
 
 
-class Histogram:
+class Histogram(Metric):
     """Cumulative fixed-bucket histogram: ``observe(value, *labels)`` and
     ``snapshot(*labels) -> (bucket counts, sum, count)``, as the
     reference's."""
 
-    def __init__(self, name: str, buckets=LATENCY_BUCKETS_S):
-        self.name = name
+    type_name = "histogram"
+
+    def __init__(self, name: str, help: Optional[str] = None,
+                 labelnames: Optional[Sequence[str]] = None, buckets=LATENCY_BUCKETS_S):
+        super().__init__(name, help, labelnames)
         self.buckets = tuple(sorted(buckets))
-        self._lock = threading.Lock()
-        self._children: Dict[Tuple[str, ...], tuple] = {}
 
     def observe(self, value: float, *labelvalues) -> None:
-        key = tuple(str(v) for v in labelvalues)
+        key = self._labelkey(labelvalues)
         with self._lock:
             counts, total, n = self._children.get(key, ([0] * len(self.buckets), 0.0, 0))
             counts = [c + (value <= b) for c, b in zip(counts, self.buckets)]
@@ -65,9 +136,66 @@ class Histogram:
     def snapshot(self, *labelvalues):
         with self._lock:
             counts, total, n = self._children.get(
-                tuple(str(v) for v in labelvalues), ([0] * len(self.buckets), 0.0, 0))
+                self._labelkey(labelvalues), ([0] * len(self.buckets), 0.0, 0))
             return list(counts), total, n
 
+    def samples(self) -> List[tuple]:
+        """One cumulative ``_bucket`` sample a bound (``+Inf`` = the count),
+        ``_sum`` and ``_count``, a label set."""
+        with self._lock:
+            children = {k: (list(c), t, n) for k, (c, t, n) in self._children.items()}
+        out: List[tuple] = []
+        for key, (counts, total, n) in sorted(children.items()):
+            base = dict(zip(self.labelnames or (), key))
+            for b, c in zip(self.buckets, counts):
+                out.append((f"{self.name}_bucket", {**base, "le": _format_value(b)}, float(c)))
+            out.append((f"{self.name}_bucket", {**base, "le": "+Inf"}, float(n)))
+            out.append((f"{self.name}_sum", dict(base), float(total)))
+            out.append((f"{self.name}_count", dict(base), float(n)))
+        return out
+
+
+# serializes refresh + render across every renderer of the process (the
+# coordinator's gauge refresh and a worker's render); reentrant, since
+# render_metrics holds it around its refresh while it calls render_registry
+RENDER_LOCK = threading.RLock()
+
+
+class MetricsRegistry:
+    """The declared metrics in declaration order; renders the page."""
+
+    def __init__(self):
+        self._metrics: Dict[str, Metric] = {}
+        self._lock = threading.Lock()
+
+    def _register(self, metric: Metric) -> Metric:
+        with self._lock:
+            return self._metrics.setdefault(metric.name, metric)
+
+    def counter(self, name, help, labelnames=()) -> Counter:
+        return self._register(Counter(name, help, labelnames))
+
+    def gauge(self, name, help, labelnames=()) -> Gauge:
+        return self._register(Gauge(name, help, labelnames))
+
+    def histogram(self, name, help, labelnames=(), buckets=LATENCY_BUCKETS_S) -> Histogram:
+        return self._register(Histogram(name, help, labelnames, buckets))
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return list(self._metrics)
+
+    def render(self) -> str:
+        with self._lock:
+            metrics = list(self._metrics.values())
+        with RENDER_LOCK:
+            lines: List[str] = []
+            for m in metrics:
+                lines.extend(m.render())
+        return "\n".join(lines) + "\n"
+
+
+REGISTRY = MetricsRegistry()
 
 PLAN_VALIDATION_FAILURES = Counter("plan_validation_failures_total")
 GENCACHE_HITS = Counter("tpch_gencache_hits_total")
@@ -180,3 +308,175 @@ MV_SUBSTITUTIONS = Counter("mv_substitutions_total")
 MV_REFRESH_SECONDS = Histogram("mv_refresh_seconds")
 MV_WARM_ROWS = Counter("mv_warm_rows_total")
 MV_WARM_FAILURES = Counter("mv_warm_failures_total")
+
+
+# ------------------------------------------------ the declared series
+# coordinator state gauges, refreshed per render (server/events.py)
+QUERIES = REGISTRY.gauge(
+    "trino_tpu_queries", "tracked queries by lifecycle state", ("state",))
+QUERIES_TOTAL = REGISTRY.counter(
+    "trino_tpu_queries_total", "queries submitted since server start")
+RESULT_ROWS = REGISTRY.gauge(
+    "trino_tpu_result_rows", "result rows held by FINISHED tracked queries")
+WORKERS = REGISTRY.gauge(
+    "trino_tpu_workers", "alive workers in the discovery registry")
+UPTIME_SECONDS = REGISTRY.gauge(
+    "trino_tpu_uptime_seconds", "seconds since server start")
+
+# the dispatch plane (server/dispatch.py): the bounded queue between the
+# HTTP front and the executor lanes, typed overload rejections, lane
+# occupancy and which plane ran each query
+DISPATCH_QUEUE_DEPTH = REGISTRY.gauge(
+    "trino_tpu_dispatch_queue_depth",
+    "queries waiting in the bounded dispatch queue (between the HTTP "
+    "front and the executor lanes)")
+DISPATCH_REJECTED = REGISTRY.counter(
+    "trino_tpu_dispatch_rejected_total",
+    "statements rejected by the dispatch plane with the typed 429 + "
+    "Retry-After overload response (reason = queue-full)", ("reason",))
+DISPATCH_CACHE_SERVED = REGISTRY.counter(
+    "trino_tpu_dispatch_cache_served_total",
+    "queries answered entirely on the dispatch plane by the serving "
+    "index (result-cache hit revalidated against connector data "
+    "versions — no executor lane, no queue slot, no planning)")
+EXECUTOR_LANES_BUSY = REGISTRY.gauge(
+    "trino_tpu_executor_lanes_busy",
+    "executor lanes currently running a query (the fixed lane pool "
+    "replaced per-query thread creation)")
+EXECUTOR_PLANE_QUERIES = REGISTRY.counter(
+    "trino_tpu_executor_plane_queries_total",
+    "dequeued queries by executing plane (inline = a dispatch-side "
+    "executor lane; process = forwarded to an executor process; "
+    "bounced = an executor process declined ownership and the query "
+    "re-ran inline)", ("plane",))
+
+# resource groups (server/resource_groups.py)
+RESOURCE_GROUP_QUEUED = REGISTRY.gauge(
+    "trino_tpu_resource_group_queued",
+    "queries parked in one resource group's queue", ("group",))
+RESOURCE_GROUP_RUNNING = REGISTRY.gauge(
+    "trino_tpu_resource_group_running",
+    "queries running under one resource group (subtree rollup)",
+    ("group",))
+RESOURCE_GROUP_QUEUE_SECONDS = REGISTRY.histogram(
+    "trino_tpu_resource_group_queue_seconds",
+    "time a query waited in its resource group's queue before the "
+    "weighted-fair drain admitted (or aged) it", ("group",))
+RESOURCE_GROUP_REJECTED = REGISTRY.counter(
+    "trino_tpu_resource_group_rejected_total",
+    "queries a resource group said no to, by reason (queue-full = typed "
+    "429 at submit; queue-timeout = typed EXCEEDED_QUEUE_TIMEOUT "
+    "failure after aging out of the group queue)", ("group", "reason"))
+RESOURCE_GROUP_SERVED = REGISTRY.counter(
+    "trino_tpu_resource_group_served_total",
+    "serving-index hits attributed to a resource group "
+    "(concurrency-free: answered on the dispatch thread without "
+    "occupying a group slot, counted so cached repeats stay auditable)",
+    ("group",))
+
+# latency distribution per terminal state
+QUERY_SECONDS = REGISTRY.histogram(
+    "trino_tpu_query_seconds",
+    "query wall time by terminal state", ("state",))
+
+# the coordinator's completed-query ring
+QUERY_HISTORY_SIZE = REGISTRY.gauge(
+    "trino_tpu_query_history_size",
+    "completed-query records held by the coordinator history ring "
+    "(system.runtime.queries coverage of finished queries)")
+QUERY_HISTORY_EVICTIONS = REGISTRY.counter(
+    "trino_tpu_query_history_evictions_total",
+    "completed-query records evicted from the coordinator history ring "
+    "(query_max_history / query_min_expire_age_ms retention)")
+
+# process self-metrics, refreshed before every render
+PROCESS_RSS_BYTES = REGISTRY.gauge(
+    "trino_tpu_process_rss_bytes",
+    "resident set size of this server process (VmRSS)")
+PROCESS_OPEN_FDS = REGISTRY.gauge(
+    "trino_tpu_process_open_fds",
+    "open file descriptors held by this server process")
+PROCESS_THREADS = REGISTRY.gauge(
+    "trino_tpu_process_threads",
+    "live Python threads in this server process")
+PROCESS_GC_COLLECTIONS = REGISTRY.gauge(
+    "trino_tpu_process_gc_collections",
+    "Python GC collections per generation since process start "
+    "(point-in-time read of gc.get_stats)", ("generation",))
+
+# fixed byte buckets for memory-size histograms: 64 KiB .. 64 GiB in
+# powers of four
+MEMORY_BUCKETS_BYTES = (
+    64 << 10, 256 << 10, 1 << 20, 4 << 20, 16 << 20, 64 << 20, 256 << 20,
+    1 << 30, 4 << 30, 16 << 30, 64 << 30)
+
+# the memory ledger (obs/memledger.py): per-pool occupancy sampled on the
+# worker announce loop, pressure sheds by reclaiming action, and each
+# terminal query's peak
+MEMORY_POOL_BYTES = REGISTRY.gauge(
+    "trino_tpu_memory_pool_bytes",
+    "live memory-pool occupancy by pool and node, sampled on the worker "
+    "announce loop (device = query reservations + warm-HBM cache [+ "
+    "staging scratch]; host = host-RAM page cache [+ other tracked host "
+    "owners])", ("pool", "node"))
+MEMORY_PRESSURE_EVENTS = REGISTRY.counter(
+    "trino_tpu_memory_pressure_events_total",
+    "revocable-tier pressure sheds by reclaiming action (spill = a "
+    "query's pre-spill cache yield; pool-overflow = device pool over its "
+    "limit; host-pressure = process RSS over the node limit; "
+    "rss-escalation = host pressure escalated into host-backed device "
+    "entries; yield = direct cache yields)", ("action",))
+QUERY_PEAK_MEMORY_BYTES = REGISTRY.histogram(
+    "trino_tpu_query_peak_memory_bytes",
+    "per-query peak device-pool bytes (max over tasks/stages), observed "
+    "once per terminal query", ("state",),
+    buckets=MEMORY_BUCKETS_BYTES)
+
+
+def current_rss_bytes():
+    """This process's current resident set (VmRSS), or None where /proc
+    is unavailable: a caller that needs a live pressure signal (the
+    worker's host-RAM shed) treats None as unknown, never as 0."""
+    try:
+        with open("/proc/self/status", encoding="ascii") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def refresh_process_gauges() -> None:
+    """Sample the process self-metrics (Linux /proc, with a portable
+    fallback for the RSS); a failure leaves the previous reading."""
+    import gc
+    import os
+
+    rss = current_rss_bytes()
+    if rss is not None:
+        PROCESS_RSS_BYTES.set(rss)
+    else:
+        try:
+            import resource
+            import sys
+
+            # ru_maxrss is the peak, in bytes on macOS and KiB elsewhere
+            unit = 1 if sys.platform == "darwin" else 1024
+            PROCESS_RSS_BYTES.set(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * unit)
+        except Exception:  # noqa: BLE001 — self-metrics are best-effort
+            pass
+    try:
+        PROCESS_OPEN_FDS.set(len(os.listdir("/proc/self/fd")))
+    except OSError:
+        pass
+    PROCESS_THREADS.set(threading.active_count())
+    for gen, st in enumerate(gc.get_stats()):
+        PROCESS_GC_COLLECTIONS.set(int(st.get("collections", 0)), str(gen))
+
+
+def render_registry() -> str:
+    """The process's Prometheus text page (a worker's ``/v1/metrics``, and
+    the coordinator's once its gauges refreshed)."""
+    refresh_process_gauges()
+    return REGISTRY.render()

@@ -40,14 +40,34 @@ each boundary, and rolled up task -> stage -> query
 query through the same path with per-operator stats on and prints the
 fragments annotated with the rolled-up stats.
 
+The serving plane (server/dispatch.py) makes one coordinator safe to
+share. ``submit`` classifies the statement into its resource group
+(server/resource_groups.py; the config from ``resource_groups_config`` or
+the file named by ``TRINO_TPU_RESOURCE_GROUPS_CONFIG``), turns overload
+around before any per-query state exists (``DispatchRejected``: HTTP 429
+with ``Retry-After``), registers the query, fires its created event
+(server/events.py), and hands it to the dispatcher: a repeat whose result
+is still valid is answered from the serving index on the HTTP thread,
+anything else waits in its group's bounded queue for one of a fixed pool
+of executor lanes, which runs admission (the group's weighted-fair drain,
+then the cluster-memory gate) and the query. No thread is created a query.
+Workers announce their per-query reservations and pools; the cluster
+memory manager (server/cluster_memory.py) kills the largest query of a
+worker over its pool (``QueryExecution.kill``, EXCEEDED_CLUSTER_MEMORY),
+and a FAILED query keeps a postmortem of the coordinator's and its
+workers' flight-recorder rings and memory-ledger snapshots. With an
+``authenticator`` (server/auth.py) every public route asks for Basic or
+Bearer credentials (401) and a query's routes answer only its owner (403).
+``GET /v1/metrics`` serves the Prometheus page.
+
 The coordinator runs on one torch device: CUDA unless it is given another
 (``device="cpu"`` in the tests); asked for CUDA without a usable GPU it
 raises.
 
 Not ported (each refused, never ignored): ``retry_policy=TASK`` (the
-fault-tolerant tier), spooled result segments, resource groups and the
-dispatch plane, cluster memory, the flow and memory ledgers and the phase
-timeline, the system catalog, and the ``/v1/query/{id}/trace|profile|flows``,
+fault-tolerant tier), spooled result segments, the executor-process plane
+(``executor_plane="process"``), the flow ledger and the phase timeline,
+the system catalog, and the ``/v1/query/{id}/trace|profile|flows``,
 ``/ui`` and ``/v1/segment`` routes (501).
 
     python -m trino_tpu_torch.server.coordinator [--port N] [--device cuda|cpu]
@@ -64,12 +84,17 @@ import time
 import traceback
 import uuid
 import weakref
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from collections import OrderedDict
+from http.server import BaseHTTPRequestHandler
 from typing import Dict, List, Optional
 
 from trino_tpu_torch.exec.query import MATVIEW_STATEMENTS
+from trino_tpu_torch.obs import metrics as M
 from trino_tpu_torch.obs import trace as tracing
+from trino_tpu_torch.server import events as ev
 from trino_tpu_torch.server import wire
+from trino_tpu_torch.server.auth import AuthenticationError
+from trino_tpu_torch.server.dispatch import Dispatcher, DispatchRejected
 from trino_tpu_torch.server.exchange_client import ExchangeClient, TaskLocation
 from trino_tpu_torch.server.statemachine import StateMachine, query_state_machine
 from trino_tpu_torch.server.task import TaskRequest
@@ -82,6 +107,9 @@ _ANNOUNCE_RE = re.compile(r"^/v1/announce/([^/]+)$")
 _RESULT_RE = re.compile(r"^/v1/statement/executing/([^/]+)/(\d+)$")
 _QUERY_RE = re.compile(r"^/v1/query/([^/]+)$")
 _NOT_PORTED_RE = re.compile(r"^(/v1/query/[^/]+/(trace|profile|flows)|/ui/?|/v1/segment/[^/]+)$")
+
+# the WWW-Authenticate challenge of a 401
+AUTH_CHALLENGE = 'Basic realm="trino-tpu", Bearer'
 
 RESULT_PAGE_ROWS = 10_000
 # the result-cache disposition header (HIT | MISS | BYPASS)
@@ -205,20 +233,43 @@ class QueryExecution:
         self.phase_waits: List[tuple] = []
         self.created_at = time.time()
         self.ended_at: Optional[float] = None
-        self._thread: Optional[threading.Thread] = None
-
-    def start(self) -> None:
-        self._thread = threading.Thread(target=self.run, daemon=True)
-        self._thread.start()
+        # the serving plane: the group the selectors chose (None under an
+        # injected flat gate), the client's X-Trino-Source, the queries
+        # queued ahead at enqueue, and the queue-residency span the lane
+        # closes at dequeue
+        self.resource_group: Optional[str] = None
+        self.source: str = ""
+        self.queued_ahead: Optional[int] = None
+        self._dispatch_queue_span = None
+        # serving-index learning: whether the statement was a plain SELECT,
+        # and the result-cache key and data versions of a led flight
+        self.is_plain_select = False
+        self.result_cache_versions = None
+        # the coordinator's flight recorder (set at submit) and the
+        # postmortem a FAILED query keeps
+        self.recorder = None
+        self.postmortem: Optional[dict] = None
 
     def cancel(self) -> None:
         self.ended_at = self.ended_at or time.time()
         if self.state.set("CANCELED"):
             self._cancel_tasks()
 
+    def kill(self, reason: str) -> None:
+        """Administrative kill (the low-memory killer): FAILED with
+        ``reason``, the running tasks canceled."""
+        self.failure = reason
+        self.ended_at = self.ended_at or time.time()
+        if self.state.set("FAILED"):
+            self._cancel_tasks()
+
     # ------------------------------------------------------------ lifecycle
     def run(self) -> None:
         root_span = self.tracer.start_span("query", query_id=self.query_id, user=self.user)
+        # the queue span opened before this root existed: adopt it, so the
+        # trace keeps one root
+        if self._dispatch_queue_span is not None:
+            self._dispatch_queue_span.parent_id = root_span.span_id
         try:
             with tracing.activate(self.tracer, root_span.span_id):
                 self._run_lifecycle()
@@ -234,6 +285,12 @@ class QueryExecution:
             self.tracer.end_span(root_span)
             self._cancel_tasks()
             self.fold_kernel_profile()
+            # the postmortem before FAILED is visible: the workers' rings
+            # still hold the context around the failure
+            try:
+                self.capture_postmortem()
+            except Exception:  # noqa: BLE001 — best-effort forensics
+                pass
             self.state.set("FAILED")
 
     def _run_lifecycle(self) -> None:
@@ -278,6 +335,7 @@ class QueryExecution:
             elif isinstance(stmt, ast.ResetSession):
                 self.reset_session.append(stmt.name)
             return
+        self.is_plain_select = True
         root, versions = self._plan_query(session, stmt)
         root, versions = self._substitute_matviews(session, root, versions)
         key = self._consult_result_cache(session, stmt, root, versions)
@@ -404,7 +462,9 @@ class QueryExecution:
                    if canonical is not None
                    else plan_fingerprint(root, versions, extra=extra))
             sp.set("key", key[:16])
+            # the serving index learns (SQL -> key, versions) of a MISS
             self.result_cache_key = key
+            self.result_cache_versions = versions
             kind, payload = cache.results.begin(key)
             if kind == "wait":
                 # single flight: an identical query is already executing
@@ -521,6 +581,7 @@ class QueryExecution:
                 result = dispatch_statement(session, bound)
             self.columns, self.rows = result.column_names, result.rows
             return
+        self.is_plain_select = True
         ptypes = tuple(c.type for c in values)
         root, versions = self._plan_prepared(session, ps, ptypes)
         t1 = time.perf_counter()
@@ -923,9 +984,12 @@ class QueryExecution:
                 polled = self._sweep_task_stats()
                 backoff = (min(backoff * 2.0, self.STATS_POLL_MAX_BACKOFF)
                            if polled == 0 else 1.0)
-                time.sleep(self.STATS_POLL_INTERVAL * backoff * random.uniform(0.75, 1.25))
+                # wakes at once when the query ends, so no poller outlives it
+                self.state.wait_for_terminal(
+                    self.STATS_POLL_INTERVAL * backoff * random.uniform(0.75, 1.25))
 
-        self._stats_poller = threading.Thread(target=poll, daemon=True)
+        self._stats_poller = threading.Thread(target=poll, daemon=True,
+                                              name=f"stats:{self.query_id}")
         self._stats_poller.start()
 
     def stage_stats(self, include_operators: bool = True) -> List[dict]:
@@ -962,6 +1026,8 @@ class QueryExecution:
         qs["elapsedMs"] = int((end - self.created_at) * 1000)
         qs["state"] = self.state.get()
         qs["cacheStatus"] = self.cache_status
+        # the resource group that admitted the query
+        qs["resourceGroup"] = self.resource_group
         # which path served the SELECT (fast-path | distributed | local-catalog)
         qs["fastPath"] = self.fast_path
         qs["resultRows"] = len(self.rows)
@@ -976,6 +1042,36 @@ class QueryExecution:
                         "yieldEvents": int(qs.get("yieldEvents") or 0),
                         "spills": int(qs.get("spills") or 0)}
         return qs
+
+    # ---------------------------------------------------- flight recorder
+    def capture_postmortem(self, store: bool = True, timeout: float = 3.0) -> dict:
+        """This process's flight-recorder ring and memory-ledger snapshot
+        merged with every involved worker's (``GET /v1/task/{id}/recorder``):
+        taken when the query FAILED, kept on the execution and shipped on
+        its completed event."""
+        from trino_tpu_torch.obs.flightrecorder import pull_worker_rings
+        from trino_tpu_torch.obs.memledger import MEMORY_LEDGER
+
+        locations = [loc for locs in list(self.fragment_tasks.values()) for loc in list(locs)]
+        # taken before FAILED is published: a set failure means FAILED
+        state = self.state.get()
+        if self.failure is not None and not self.state.is_terminal():
+            state = "FAILED"
+        pm = {
+            "queryId": self.query_id,
+            "state": state,
+            "failure": (self.failure or "").split("\n")[0] or None,
+            "capturedAt": time.time(),
+            "coordinator": {
+                "nodeId": getattr(self.recorder, "node_id", "coordinator"),
+                "records": self.recorder.snapshot() if self.recorder is not None else [],
+                "memory": MEMORY_LEDGER.memory_snapshot(),
+            },
+            "workers": pull_worker_rings(locations, timeout=timeout),
+        }
+        if store:
+            self.postmortem = pm
+        return pm
 
     # ---------------------------------------------------- device profiler
     def kernel_rows_live(self) -> List[dict]:
@@ -1163,6 +1259,7 @@ class QueryExecution:
             "failure": (self.failure or "").split("\n")[0] or None,
             "cacheStatus": self.cache_status,
             "fastPath": self.fast_path,
+            "resourceGroup": self.resource_group,
             "fragments": {str(fid): [loc.task_id for loc in locs]
                           for fid, locs in self.fragment_tasks.items()},
             # the slot records by task id
@@ -1199,16 +1296,98 @@ class PlanMetaStore:
                                  if v[0]() is not None}
 
 
+class QueryHistory:
+    """Bounded ring of completed-query records (the reference's
+    ``QueryTracker`` expiry): the oldest go past ``MAX_HISTORY``."""
+
+    MAX_HISTORY = 100
+
+    def __init__(self):
+        self._entries: "OrderedDict[str, dict]" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def record(self, entry: dict) -> None:
+        evicted = 0
+        with self._lock:
+            self._entries[entry["queryId"]] = entry
+            self._entries.move_to_end(entry["queryId"])
+            while len(self._entries) > self.MAX_HISTORY:
+                self._entries.popitem(last=False)
+                evicted += 1
+        if evicted:
+            M.QUERY_HISTORY_EVICTIONS.inc(evicted)
+
+    def snapshot(self) -> List[dict]:
+        """Newest first."""
+        with self._lock:
+            return list(reversed(self._entries.values()))
+
+
+def query_record(execution: QueryExecution, state: str, ended_at: float) -> dict:
+    """One terminal query's history record."""
+    qs = execution.query_stats(execution.stage_stats(include_operators=False))
+    return {
+        "queryId": execution.query_id,
+        "state": state,
+        "user": execution.user,
+        "source": execution.source,
+        "query": execution.sql,
+        "resourceGroup": execution.resource_group,
+        "createdAt": float(execution.created_at),
+        "endedAt": float(ended_at),
+        "elapsedMs": int(qs.get("elapsedMs", 0)),
+        "peakBytes": int(qs.get("peakBytes") or 0),
+        "resultRows": len(execution.rows),
+        "cacheStatus": execution.cache_status,
+        "failure": (execution.failure or "").split("\n")[0] or None,
+    }
+
+
 class CoordinatorServer:
-    """The coordinator process: discovery registry + statement protocol."""
+    """The coordinator process: discovery registry, dispatch, statement
+    protocol.
 
-    MAX_QUERY_HISTORY = 100  # terminal queries kept (oldest evicted)
+    ``resource_group`` injects a flat blocking gate (the reference's
+    ``ResourceGroup`` or ``ResourceGroupManager``) in place of the
+    resource-group tree; ``resource_groups_config`` is the tree's config
+    (a dict or a JSON file's path; else ``TRINO_TPU_RESOURCE_GROUPS_CONFIG``,
+    else one root group ``global``), validated here so a bad one fails the
+    server's start. ``cluster_memory_limit_bytes`` is the cluster's
+    admission ceiling (None: the workers' announced device capacity) and
+    ``low_memory_killer`` the kill policy (default: the largest
+    reservation). ``authenticator`` guards the public routes (None: an
+    open cluster). ``executor_lanes`` and ``dispatch_queue_capacity`` size
+    the dispatch plane (defaults: ``max(8, min(32, 4 x cpus))`` lanes and
+    256 queued, or ``TRINO_TPU_EXECUTOR_LANES`` and
+    ``TRINO_TPU_DISPATCH_QUEUE_CAPACITY``). ``executor_plane="process"``
+    (and ``executor_processes``) asks for executor processes, which the
+    port does not have: it raises NotImplementedError."""
 
-    def __init__(self, port: int = 0, session_factory=None, device=None):
+    MAX_QUERY_HISTORY = 100  # terminal queries kept in the registry (oldest evicted)
+
+    def __init__(self, port: int = 0, session_factory=None, resource_group=None,
+                 cluster_memory_limit_bytes=None, low_memory_killer=None,
+                 authenticator=None, executor_lanes=None, dispatch_queue_capacity=None,
+                 executor_plane=None, executor_processes=None,
+                 resource_groups_config=None, device=None):
         from trino_tpu_torch.connector.registry import default_catalogs
+        from trino_tpu_torch.obs.devprofiler import DEVICE_PROFILER
+        from trino_tpu_torch.obs.flightrecorder import FlightRecorder
+        from trino_tpu_torch.obs.memledger import MEMORY_LEDGER
+        from trino_tpu_torch.server.cluster_memory import (ClusterMemoryManager,
+                                                           total_reservation_killer)
+        from trino_tpu_torch.server.resource_groups import (ResourceGroupTree, config_from_env,
+                                                            load_config_file, parse_config)
 
         self.device = resolve_device(device)
         self.registry = NodeRegistry()
+        self.cluster_memory = ClusterMemoryManager(
+            kill=self._kill_query, cluster_limit_bytes=cluster_memory_limit_bytes,
+            policy=low_memory_killer or total_reservation_killer)
         # one catalog map and routine store for every query the server
         # runs: memory-catalog DDL and CREATE FUNCTION persist
         self.catalogs = default_catalogs()
@@ -1238,34 +1417,187 @@ class CoordinatorServer:
         self.queries: Dict[str, QueryExecution] = {}
         self._qlock = threading.Lock()
         self._qid = itertools.count(1)
-        self.httpd = ThreadingHTTPServer(("127.0.0.1", port), _make_handler(self))
+        self.history = QueryHistory()
+        # admission: the resource-group tree (selector-routed, weighted-fair,
+        # per-group concurrency, queue and memory limits), or an injected
+        # flat gate
+        if resource_group is not None:
+            self.resource_groups = None
+            self.resource_group = resource_group
+        else:
+            if resource_groups_config is None:
+                roots, selectors = config_from_env()
+            elif isinstance(resource_groups_config, str):
+                roots, selectors = load_config_file(resource_groups_config)
+            else:
+                roots, selectors = parse_config(resource_groups_config)
+            self.resource_groups = ResourceGroupTree(roots, selectors)
+            # group memory limits read the cluster's live per-query bytes
+            self.resource_groups.set_memory_probe(self.cluster_memory.query_reservations)
+            self.resource_group = self.resource_groups
+        self.authenticator = authenticator
+        self.events = ev.EventListenerManager()
+        self.queries_submitted = 0
+        self.start_time = time.time()
+        # this process's flight recorder; the process memory ledger and
+        # device profiler take the first server's identity and mirror their
+        # events into it
+        self.recorder = FlightRecorder(node_id="coordinator")
+        for ledger in (MEMORY_LEDGER, DEVICE_PROFILER):
+            if not ledger.node_id:
+                ledger.node_id = "coordinator"
+            ledger.attach_recorder(self.recorder)
+        # executor_processes sizes the process plane, which resolve_plane refuses
+        self.dispatcher = Dispatcher(
+            self, lanes=executor_lanes, queue_capacity=dispatch_queue_capacity,
+            plane=executor_plane, groups=self.resource_groups)
+        self.httpd = wire.ServerHTTP(("127.0.0.1", port), _make_handler(self))
         self.port = self.httpd.server_address[1]
         self.base_url = f"http://127.0.0.1:{self.port}"
         self._serve_thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
 
     def start(self) -> None:
         self._serve_thread.start()
+        self.dispatcher.ensure_lanes()
 
     def stop(self) -> None:
         self.httpd.shutdown()
         self.httpd.server_close()
+        self.dispatcher.shutdown()
 
     def submit(self, sql: str, properties: Optional[dict] = None,
-               user: str = "anonymous") -> QueryExecution:
+               user: str = "anonymous", source: str = "") -> QueryExecution:
+        """Register one statement and dispatch it. Raises DispatchRejected
+        (HTTP 429) when its queue is full, before any per-query state."""
+        group = None
+        if self.resource_groups is not None:
+            group = self.resource_groups.select(user, source, properties or {})
+        self.dispatcher.precheck(group)
         query_id = f"q{time.strftime('%Y%m%d')}_{next(self._qid):05d}_{uuid.uuid4().hex[:5]}"
         execution = QueryExecution(query_id, sql, properties or {}, self.registry,
                                    self.session_factory, user=user,
                                    query_cache=self.query_cache,
                                    prepared_registry=self.prepared,
                                    prepared_meta=self.prepared_meta)
+        execution.resource_group = group
+        execution.source = source
+        execution.recorder = self.recorder
+        execution.tracer.recorder = self.recorder
+        self.recorder.record("admission", "submitted", queryId=query_id, user=user)
         with self._qlock:
             if len(self.queries) > self.MAX_QUERY_HISTORY:
                 terminal = [qid for qid, q in self.queries.items() if q.state.is_terminal()]
                 for qid in terminal[: max(0, len(terminal) - self.MAX_QUERY_HISTORY)]:
                     del self.queries[qid]
             self.queries[query_id] = execution
-        execution.start()
+            self.queries_submitted += 1
+        created_at = time.time()
+        self.events.fire_created(ev.QueryCreatedEvent(query_id, user, sql, created_at))
+        execution.state.add_listener(
+            lambda state: self._on_terminal(execution, state, created_at))
+        try:
+            self.dispatcher.dispatch(execution)
+        except DispatchRejected as e:
+            # lost the capacity race after registration: unregister, and
+            # keep the serving index (the statement ran nothing)
+            execution.is_plain_select = True
+            with self._qlock:
+                self.queries.pop(query_id, None)
+            execution.failure = str(e)
+            execution.ended_at = time.time()
+            execution.state.set("FAILED")
+            self.recorder.record("admission", "dispatch-rejected", queryId=query_id, user=user)
+            raise
         return execution
+
+    def _on_terminal(self, execution: QueryExecution, state: str, created_at: float) -> None:
+        """The terminal listener: serving-index upkeep, the wall and peak
+        histograms, the history record, the postmortem of a FAILED query
+        killed from another thread, and the completed event."""
+        if state not in ("FINISHED", "FAILED", "CANCELED"):
+            return
+        try:
+            self.dispatcher.note_completion(execution, execution.is_plain_select)
+        except Exception:  # noqa: BLE001 — index upkeep never disturbs the transition
+            pass
+        now = time.time()
+        wall = now - created_at
+        M.QUERY_SECONDS.observe(wall, state)
+        self.recorder.record("event", "query-completed", queryId=execution.query_id,
+                             state=state, wallS=round(wall, 6))
+        try:
+            peak = int(execution.query_stats().get("peakBytes") or 0)
+            if peak:
+                M.QUERY_PEAK_MEMORY_BYTES.observe(peak, state)
+            self.history.record(query_record(execution, state, now))
+        except Exception:  # noqa: BLE001 — observability never disturbs the transition
+            pass
+        if state == "FAILED" and execution.postmortem is None:
+            try:
+                execution.capture_postmortem()
+            except Exception:  # noqa: BLE001 — best-effort forensics
+                pass
+        self.events.fire_completed(ev.QueryCompletedEvent(
+            execution.query_id, execution.user, execution.sql, state, created_at, now, wall,
+            len(execution.rows), execution.failure,
+            spans=tuple(execution.tracer.to_dicts()),
+            session_properties=dict(execution.session_properties),
+            postmortem=execution.postmortem))
+
+    ADMISSION_DEADLINE_S = 600.0
+
+    def _admit(self, execution: QueryExecution) -> bool:
+        """Admission on an executor lane after dequeue: the resource group,
+        then the cluster-memory gate. False when the query failed admission
+        or went terminal while queued: the lane moves on."""
+        user = execution.user
+        qid = execution.query_id
+        if self.resource_groups is not None:
+            # the tree admitted the query at dequeue: release its slot at
+            # terminal, or now if it went terminal in between
+            groups = self.resource_groups
+            if execution.state.is_terminal():
+                groups.finish(qid)
+                return False
+            execution.state.add_listener(
+                lambda s: groups.finish(qid) if s in ("FINISHED", "FAILED", "CANCELED") else None)
+            self.recorder.record("admission", "admitted", queryId=qid, user=user,
+                                 group=execution.resource_group)
+        else:
+            if execution.state.is_terminal():
+                return False
+            if not self.resource_group.submit(timeout=self.ADMISSION_DEADLINE_S, user=user):
+                execution.failure = "Query queue is full (resource group limit)"
+                self.recorder.record("admission", "queue-full", queryId=qid, user=user)
+                execution.state.set("FAILED")
+                return False
+            self.recorder.record("admission", "admitted", queryId=qid, user=user)
+        # the cluster-memory gate: wait while the cluster is over its limit
+        # (the killer frees it); a cluster still full at the deadline fails
+        # the query, never dispatches it over the limit
+        deadline = time.monotonic() + self.ADMISSION_DEADLINE_S
+        while (not self.cluster_memory.has_headroom() and not execution.state.is_terminal()
+               and time.monotonic() < deadline):
+            time.sleep(0.2)
+        if not execution.state.is_terminal() and not self.cluster_memory.has_headroom():
+            execution.failure = ("Cluster is out of memory and did not recover within the "
+                                 "admission deadline (EXCEEDED_CLUSTER_MEMORY)")
+            execution.state.set("FAILED")
+        if execution.state.is_terminal():
+            if self.resource_groups is None:
+                self.resource_group.finish(user=user)
+            return False
+        if self.resource_groups is None:
+            execution.state.add_listener(
+                lambda s: self.resource_group.finish(user=user)
+                if s in ("FINISHED", "FAILED", "CANCELED") else None)
+        return True
+
+    def _kill_query(self, query_id: str, reason: str) -> None:
+        q = self.get_query(query_id)
+        if q is not None and not q.state.is_terminal():
+            self.recorder.record("event", "query-killed", queryId=query_id)
+            q.kill(reason)
 
     def get_query(self, query_id: str) -> Optional[QueryExecution]:
         with self._qlock:
@@ -1377,9 +1709,36 @@ def _make_handler(server: CoordinatorServer):
                     return
                 info = json.loads(body)
                 server.registry.announce(m.group(1), info["url"], info)
+                server.cluster_memory.update(m.group(1), info)
                 self._send(200, b"{}")
                 return
             self._send(404)
+
+        def _identity(self):
+            """The authenticated principal, None on an open cluster, or
+            False after answering 401."""
+            auth = server.authenticator
+            if auth is None or not auth.required:
+                return None
+            try:
+                return auth.authenticate_header(self.headers.get("Authorization"))
+            except AuthenticationError as e:
+                self._send(401, json.dumps(
+                    {"error": {"message": f"Authentication failed: {e}"}}).encode(),
+                    headers={"WWW-Authenticate": AUTH_CHALLENGE})
+                return False
+
+        def _authenticated(self, query=None) -> bool:
+            """The gate of a query's routes under an authenticator: valid
+            credentials (401), and with ``query`` its owner's (403)."""
+            identity = self._identity()
+            if identity is False:
+                return False
+            if identity is not None and query is not None and query.user != identity.user:
+                self._send(403, json.dumps({"error": {
+                    "message": "Access Denied: query belongs to another user"}}).encode())
+                return False
+            return True
 
         def do_POST(self):
             if self.path == "/v1/statement":
@@ -1389,7 +1748,20 @@ def _make_handler(server: CoordinatorServer):
                     if header.lower().startswith("x-trino-session-"):
                         props[header[len("x-trino-session-"):].lower()] = value
                 user = self.headers.get("X-Trino-User", "anonymous")
-                q = server.submit(sql, props, user=user)
+                identity = self._identity()
+                if identity is False:
+                    return
+                if identity is not None:
+                    # the authenticated principal wins over the claimed user
+                    user = identity.user
+                source = self.headers.get("X-Trino-Source", "")
+                try:
+                    q = server.submit(sql, props, user=user, source=source)
+                except DispatchRejected as e:
+                    # typed overload: the client backs off and resubmits
+                    self._send(429, json.dumps(e.payload()).encode(),
+                               headers={"Retry-After": f"{e.retry_after_s:g}"})
+                    return
                 # a short query finishes inside this wait: one round trip
                 if not q.state.is_terminal():
                     q.state.wait_for_terminal(0.5)
@@ -1404,6 +1776,8 @@ def _make_handler(server: CoordinatorServer):
             m = _RESULT_RE.match(self.path)
             if m:
                 q = server.get_query(m.group(1))
+                if not self._authenticated(query=q):
+                    return
                 if q is None:
                     self._send(404, b'{"error": "no such query"}')
                     return
@@ -1416,6 +1790,8 @@ def _make_handler(server: CoordinatorServer):
             m = _QUERY_RE.match(self.path)
             if m:
                 q = server.get_query(m.group(1))
+                if not self._authenticated(query=q):
+                    return
                 if q is None:
                     self._send(404, b'{"error": "no such query"}')
                     return
@@ -1428,6 +1804,9 @@ def _make_handler(server: CoordinatorServer):
                 self._send(200, json.dumps({"coordinator": True, "state": "ACTIVE",
                                             "device": str(server.device)}).encode())
                 return
+            if self.path == "/v1/metrics":
+                self._send(200, ev.render_metrics(server).encode(), "text/plain; version=0.0.4")
+                return
             self._send(404)
 
         def do_DELETE(self):
@@ -1436,6 +1815,8 @@ def _make_handler(server: CoordinatorServer):
             m = _RESULT_RE.match(self.path)
             if m:
                 q = server.get_query(m.group(1))
+                if not self._authenticated(query=q):
+                    return
                 if q is not None:
                     q.cancel()
                 self._send(204)

@@ -56,7 +56,9 @@ class ExchangeClient:
         # producer had nothing ready: consumer-side backpressure)
         self.pulled_seconds = 0.0
         self.stalled_seconds = 0.0
-        self._threads = [threading.Thread(target=self._pull, args=(loc,), daemon=True)
+        # named by the upstream task, whose id starts with its query's
+        self._threads = [threading.Thread(target=self._pull, args=(loc,), daemon=True,
+                                          name=f"exchange:{loc.task_id}")
                          for loc in self._locations]
 
     def start(self) -> None:

@@ -16,13 +16,17 @@ into size-bounded chunks and serialized on the host into the output buffer.
 
 Each retired executor folds its per-operator stats and kernel-ledger rows
 into the task; ``stats_snapshot`` ships them with the task's counts, peak
-bytes and per-partition output rows and bytes (the reference's wire
-shape), read from host numbers only: a status poll runs on the worker's
-HTTP thread while the task's thread launches work.
+bytes, the device-cache bytes shed on its behalf and per-partition output
+rows and bytes (the reference's wire shape), read from host numbers only:
+a status poll runs on the worker's HTTP thread while the task's thread
+launches work. Each rise of the task's peak is a memory-ledger
+``reserve`` event of its query (``query:<id>``), released when the task
+ends; ``TaskManager.query_memory`` is the worker's per-query reservation
+that its announce carries to the coordinator's cluster memory manager.
 
 Not ported: the fault-tolerant tier (spooled task output, retries), the
-spooled result segments and the flow and memory ledgers; the coordinator
-refuses the session properties that ask for them.
+spooled result segments and the flow ledger; the coordinator refuses the
+session properties that ask for them.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from trino_tpu_torch.exec.memory import page_bytes
 from trino_tpu_torch.exec.operator_stats import OperatorStats
 from trino_tpu_torch.obs import metrics as M
 from trino_tpu_torch.obs.devprofiler import merge_kernel_rows
+from trino_tpu_torch.obs.memledger import MEMORY_LEDGER, POOL_DEVICE
 from trino_tpu_torch.server.buffer import (DEFAULT_MAX_BUFFER_BYTES, OutputBuffer,
                                            PartitionedOutputBuffer)
 from trino_tpu_torch.server.statemachine import StateMachine, task_state_machine
@@ -177,6 +182,11 @@ class SqlTask:
         # constant hot key to almost no bytes) and before replication
         self.partition_rows: Optional[List[int]] = None
         self.spill_count = 0
+        # device-cache bytes shed on this task's behalf, and the yields
+        self.shed_bytes = 0
+        self.yield_events = 0
+        # the bytes a FLUSHING task still holds: its last output page
+        self.flushing_bytes = 0
         self.device_cache_hits = 0
         self.device_cache_misses = 0
         self._exchange_clients: List = []
@@ -186,7 +196,8 @@ class SqlTask:
         self.started_at = time.monotonic()
         self.ended_at: Optional[float] = None
         self._session_factory = session_factory
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name=f"task:{request.task_id}")
 
     def _executor(self, session, splits, remote_pages) -> "FragmentExecutor":
         """A fragment executor of this task, tracked for its peak bytes."""
@@ -204,7 +215,12 @@ class SqlTask:
             ex.resolve_stats()  # stats recorded outside execute_checked
         M.DEVICE_SECONDS.inc(device_s)
         with self._stats_lock:
-            self.peak_memory_bytes = max(self.peak_memory_bytes, ex.memory.peak)
+            # the task's peak is the max over its executors (they run one
+            # after another), so the ledger gets the rise only
+            delta = max(0, ex.memory.peak - self.peak_memory_bytes)
+            self.peak_memory_bytes += delta
+            self.shed_bytes += ex.memory.shed_bytes
+            self.yield_events += ex.memory.yields
             for nid, st in ex.node_stats.items():
                 have = self.operator_stats.get(nid)
                 if have is None:
@@ -223,6 +239,23 @@ class SqlTask:
             self.spill_count += len(ex.memory.spills)
             self.device_cache_hits += sum(1 for d in ex.scan_cache.values() if d == "hit")
             self.device_cache_misses += sum(1 for d in ex.scan_cache.values() if d == "miss")
+        if delta:
+            MEMORY_LEDGER.record_event("reserve", POOL_DEVICE,
+                                       f"query:{self.request.query_id}", delta)
+
+    @property
+    def memory_bytes(self) -> int:
+        """The task's reservation for cluster memory management: its
+        executors' peak while the body runs; once the body is done
+        (FLUSHING), what the drain still holds (the last output page and
+        the buffered frames); 0 once terminal."""
+        state = self.state.get()
+        if state in ("FINISHED", "FAILED", "CANCELED"):
+            return 0
+        if state not in ("PLANNED", "RUNNING"):
+            return int(self.flushing_bytes + self.output.buffered_bytes)
+        live = self._live_executor
+        return max(self.peak_memory_bytes, live.memory.peak if live is not None else 0)
 
     def stats_snapshot(self) -> dict:
         """Point-in-time task stats (``GET /v1/task/{id}/status``): the wire
@@ -251,6 +284,8 @@ class SqlTask:
                 "outputBytes": self.output_bytes,
                 "peakBytes": peak,
                 "spills": self.spill_count,
+                "shedBytes": self.shed_bytes,
+                "yieldEvents": self.yield_events,
                 "deviceCacheHits": self.device_cache_hits,
                 "deviceCacheMisses": self.device_cache_misses,
                 "operatorStats": [self.operator_stats[k].to_dict()
@@ -276,6 +311,10 @@ class SqlTask:
             self.state.set("FAILED")
         finally:
             self.ended_at = time.monotonic()
+            if self.peak_memory_bytes:
+                MEMORY_LEDGER.record_event("release", POOL_DEVICE,
+                                           f"query:{self.request.query_id}",
+                                           self.peak_memory_bytes, reason="done")
 
     def _exchange_client(self, locations, device):
         from trino_tpu_torch.server.exchange_client import ExchangeClient, TaskLocation
@@ -388,9 +427,11 @@ class SqlTask:
         out = host_page(out)
         if out.num_rows == 0:
             return None
+        nbytes = page_bytes(out)
         with self._stats_lock:
+            self.flushing_bytes = nbytes
             self.output_rows += out.num_rows
-            self.output_bytes += page_bytes(out)
+            self.output_bytes += nbytes
         if self.request.output_partition_channels is None:
             return out, None
         return out, self._partition_pages(out)
@@ -535,6 +576,7 @@ class SqlTask:
             "state": self.state.get(),
             "failure": self.failure,
             "bufferedBytes": self.output.buffered_bytes,
+            "memoryBytes": self.memory_bytes,
             "stats": self.stats_snapshot(),
         }
 
@@ -599,10 +641,12 @@ class TaskManager:
 
     MAX_TASK_HISTORY = 200  # terminal tasks kept for status queries
 
-    def __init__(self, session_factory):
+    def __init__(self, session_factory, recorder=None):
         self._tasks: Dict[str, SqlTask] = {}
         self._lock = threading.Lock()
         self._session_factory = session_factory
+        # the worker's flight recorder (obs/flightrecorder.py)
+        self._recorder = recorder
 
     def create_task(self, request: TaskRequest) -> SqlTask:
         with self._lock:
@@ -616,6 +660,9 @@ class TaskManager:
                 self._tasks[request.task_id] = task
         if created:
             M.TASKS_TOTAL.inc()
+            if self._recorder is not None:
+                self._recorder.record("event", "task-created", taskId=request.task_id,
+                                      queryId=request.query_id)
         task.start()
         return task
 
@@ -629,8 +676,25 @@ class TaskManager:
         if task is not None:
             task.output.abort("canceled")
             task.state.set("CANCELED")
+            if self._recorder is not None:
+                self._recorder.record("event", "task-canceled", taskId=task_id,
+                                      queryId=task.request.query_id)
 
     def list_info(self) -> List[dict]:
         with self._lock:
             tasks = list(self._tasks.values())
         return [t.info() for t in tasks]
+
+    def query_memory(self) -> Dict[str, int]:
+        """Reserved bytes a query on this worker (``SqlTask.memory_bytes``
+        summed over its live tasks): the node's half of the cluster memory
+        pool."""
+        with self._lock:
+            tasks = list(self._tasks.values())
+        out: Dict[str, int] = {}
+        for t in tasks:
+            if t.state.is_terminal():
+                continue
+            qid = t.request.query_id
+            out[qid] = out.get(qid, 0) + t.memory_bytes
+        return out

@@ -18,6 +18,7 @@ import struct
 import threading
 import urllib.error
 import urllib.request
+from http.server import ThreadingHTTPServer
 from typing import List, Optional, Tuple
 from urllib.parse import urlsplit
 
@@ -41,6 +42,15 @@ if _env_secret is None:
 
     _env_secret = _secrets.token_hex(32)
 _SECRET = _env_secret.encode()
+
+
+class ServerHTTP(ThreadingHTTPServer):
+    """The servers' HTTP front: a thread a connection, and a listen backlog
+    that takes a burst of clients connecting at once (the socketserver
+    default of 5 resets the connections past it); overload is answered by
+    the dispatch plane with 429, not by the kernel with a reset."""
+
+    request_queue_size = 128
 
 
 def get_secret() -> str:
