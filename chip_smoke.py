@@ -288,6 +288,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
    credentials, Basic and Bearer accepted, 403 on another user's query,
    the created and completed events (the failed one with its error), and
    ``/v1/metrics`` with the dispatch and resource-group series.
+17. observe (after phase serving, before phase mainpath): the observability
+   plane at SF1 on a port coordinator with two in-process workers and an
+   OTLP stub collector in this process. Q1, Q3 and Q18 distributed, cold
+   and warm (rows as expected): each query's exchange-pull bytes in the
+   flow ledger equal its ``EXCHANGE_BYTES`` delta and its staging-transfer
+   bytes its ``STAGED_H2D_BYTES`` delta, exactly, and ``/flows`` shows the
+   same pulls; each warm query's trace holds a task span of every task
+   (but a superseded producer's) on both workers, under the query's trace
+   id and the coordinator's schedule span, and its timeline's exclusive
+   phases and residual make up the wall within 1 ms. Through SQL:
+   ``system.runtime.queries`` has the six queries FINISHED with their row
+   counts, ``tasks`` their tasks on both workers, ``nodes`` 2 active, and
+   ``transfers`` Q3's link totals of ``/flows``. The collector holds every
+   span of Q1's trace. The cached Q17 and Q18 (``device_cache_enabled``,
+   ``device_profiling``), each joined with the first worker's row of
+   ``system.runtime.nodes`` so that it runs on the coordinator's executor,
+   where the merge kernel launches (on the distributed path it does not),
+   cold and warm: rows and cached tiers as phase cache, at least one
+   merge launch each, a measured ``Join`` row on ``coordinator`` in
+   ``system.runtime.kernels`` and device seconds at most wall seconds
+   (cold inputs to phase mainpath, path ``observe``). A system page lies on
+   the card. Q17's CompiledQuery twice: ``system.runtime.compiles`` shows
+   a miss then a hit under its fingerprint (path ``observe_compiled``).
+   ``system.runtime.device_cache`` equals the cache's entries and bytes; a
+   metric series through ``system.metrics`` equals ``/v1/metrics``; a system
+   query twice with the result cache on is a BYPASS and enters no cache.
+   ``CALL system.runtime.kill_query`` fails a running Q18 with its reason
+   and its tasks answer 404; EXPLAIN ANALYZE of Q18 prints "Phase ledger:"
+   phases its timeline has and "Data flow:" bytes its ``/flows`` has; the
+   CLI as a subprocess (``--execute``) prints Q1's rows as the table and
+   ``[cache: HIT]``; the OTLP exporters dropped nothing. Recorded: the
+   walls beside phase distributed's, the host microseconds of one
+   ``record_transfer`` and the records a query.
 
 With ``--profile`` it also runs each query once more (warm) in each of the
 five sessions (tpch, cache, analytics, scalar, nested) under
@@ -1983,11 +2016,11 @@ def adaptive_explain(coord, device, schema, expected, eager):
     return out
 
 
-def adaptive_compile_ledger(device, expected, compiled, cap, schema):
+def adaptive_compile_ledger(device, expected, compiled, cap, schema, path="adaptive"):
     """One CompiledQuery of Q17 run twice: the compile ledger records a miss
     then a hit under one fingerprint, the CompiledBody row counts both runs,
     and on the card the graph holds the merge kernel (the warm-up's inputs
-    go to phase mainpath)."""
+    go to phase mainpath under ``path``)."""
     from trino_tpu_torch import Session
     from trino_tpu_torch.exec.compiled import CompiledQuery
     from trino_tpu_torch.exec.query import plan_sql
@@ -2004,7 +2037,7 @@ def adaptive_compile_ledger(device, expected, compiled, cap, schema):
         # the compile ring is bounded (earlier phases may have filled it):
         # this run's events are the ones stamped after it began
         ts0 = time.time()
-        cap.now = ("adaptive", "Q17", run)
+        cap.now = (path, "Q17", run)
         sync(device)
         t0 = time.perf_counter()
         page = cq.run()
@@ -2028,8 +2061,9 @@ def adaptive_compile_ledger(device, expected, compiled, cap, schema):
         raise AssertionError(f"Q17: its graph holds no merge launch: {cq.captures}")
     replayed = sum(c["merge_launches"] * c["replays"] for c in cq.captures)
     cq.close()
-    return {"events": [{k: e[k] for k in ("cache", "compileS", "shapeSig")} for e in events],
-            "fingerprint": events[0]["fingerprint"][:16], "body_row": row, "walls_s": walls,
+    return {"events": [{k: e[k] for k in ("cache", "compileS", "shapeSig", "ts")}
+                       for e in events],
+            "fingerprint": events[0]["fingerprint"], "body_row": row, "walls_s": walls,
             "merge_in_graph": in_graph, "merge_launches": launches + replayed}
 
 
@@ -2176,7 +2210,8 @@ def thread_census(baseline):
     """Threads started since ``baseline`` (a set of idents), by kind: this
     script's clients, the HTTP servers' connection handlers, the helpers of
     a query (stats poller, exchange pullers, worker tasks; named after the
-    query or its task ids), the bounded staging pool and the rest."""
+    query or its task ids), the bounded staging and coordinator pools and
+    the rest."""
     import threading
 
     out = {"client": 0, "http": 0, "pool": 0, "query": 0, "other": 0, "queries": set(),
@@ -2189,8 +2224,10 @@ def thread_census(baseline):
             out["client"] += 1
         elif "process_request_thread" in name:
             out["http"] += 1
-        elif name.startswith("staging-io"):
-            out["pool"] += 1  # the process's bounded staging pool, grown on demand
+        elif name.startswith(("staging-io", "coord-io")):
+            # the process's bounded staging pool and the coordinator's
+            # bounded pool of pulls from the workers, grown on demand
+            out["pool"] += 1
         elif name.split(":", 1)[0] in ("stats", "exchange", "task"):
             out["query"] += 1
             out["queries"].add(name.split(":", 1)[1].split(".", 1)[0])
@@ -2820,6 +2857,380 @@ def phase_serving(device, expected, plane, cap, card, schema="sf1"):
     return out
 
 
+# ------------------------------------------------------------- phase observe
+OBSERVE_DIST_QUERIES = (1, 3, 18)
+OBSERVE_CACHED_QUERIES = (17, 18)
+OBSERVE_KILL_REASON = "observe: killed by kill_query"
+# where a cached query joins one row of system.runtime.nodes (the worker it
+# names): a plan that scans the system catalog, a process-local catalog,
+# runs whole on the coordinator's own executor, where exchanged pages play
+# no part and the merge kernel launches as in an eager session
+OBSERVE_GATES = {17: ("from lineitem, part", "where p_partkey = l_partkey"),
+                 18: ("from customer, orders, lineitem", "and o_orderkey = l_orderkey")}
+OUT_OF_WALL = ("segment-fetch", "client-drain", "unattributed")
+
+
+def observe_gated(sql, q, node_id):
+    """Query ``q``'s SQL joined with the one row of system.runtime.nodes
+    whose node id is ``node_id``: the same rows while that worker is known."""
+    frm, cond = OBSERVE_GATES[q]
+    if sql.count(frm) != 1 or sql.count(cond) != 1:
+        raise AssertionError(f"Q{q}: the gate's anchors are not in its SQL once")
+    return sql.replace(frm, frm + ", system.runtime.nodes").replace(
+        cond, f"{cond} and node_id = '{node_id}'")
+
+
+def flow_totals():
+    """Bytes and records of the process's flow ledger by link."""
+    from trino_tpu_torch.obs.flowledger import FLOW_LEDGER
+
+    out = {}
+    for r in FLOW_LEDGER.transfer_rows():
+        b, n = out.get(r["link"], (0, 0))
+        out[r["link"]] = (b + r["bytes"], n + r["transfers"])
+    return out
+
+
+def observe_execute(coord, client, sql, device, cap=None, label=None):
+    """(rows, wall, deltas, execution) of one statement through the
+    coordinator: the exchange and staging counters against the flow
+    ledger's links, the ledger's data-plane records, merge launches."""
+    from trino_tpu_torch.obs import metrics as M
+    from trino_tpu_torch.ops import merge
+
+    merge.launches = 0
+    c0 = (M.EXCHANGE_BYTES.value(), M.STAGED_H2D_BYTES.value(), flow_totals())
+    if cap is not None:
+        cap.now = label
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        _cols, rows = client.execute(sql, timeout=600.0)
+        sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        if cap is not None:
+            cap.now = None
+    launches = merge.launches
+    ex1, h2d1, f1 = M.EXCHANGE_BYTES.value(), M.STAGED_H2D_BYTES.value(), flow_totals()
+
+    def link(f, name, i):
+        return f.get(name, (0, 0))[i]
+
+    d = {"exchange_bytes": ex1 - c0[0], "h2d_bytes": h2d1 - c0[1],
+         "pull_bytes": link(f1, "exchange-pull", 0) - link(c0[2], "exchange-pull", 0),
+         "staged_bytes": link(f1, "staging-transfer", 0) - link(c0[2], "staging-transfer", 0),
+         "records": sum(n for k, (_b, n) in f1.items() if k != "control")
+         - sum(n for k, (_b, n) in c0[2].items() if k != "control"),
+         "merge_launches": launches}
+    if d["pull_bytes"] != d["exchange_bytes"] or d["staged_bytes"] != d["h2d_bytes"]:
+        raise AssertionError(f"observe: the flow ledger's links disagree with the counters: {d}")
+    return rows, wall, d, coord.get_query(client.query_id)
+
+
+def observe_trace(coord, q, worker_urls):
+    """The query's trace holds a task span of every task (but those of
+    superseded producers), on both workers,
+    under the query's trace id and parented under the coordinator's
+    schedule span; the timeline's phases are exclusive and with the
+    residual make up the wall within 1 ms."""
+    from trino_tpu_torch.server import wire
+
+    spans = q.tracer.to_dicts() + q.worker_spans()
+    (schedule,) = [s for s in spans if s["name"] == "schedule"]
+    tasks = [s for s in spans if s["name"] == "task"]
+    # a producer the adaptive re-planner superseded was canceled, and its
+    # worker dropped it with its spans
+    superseded = {fid for ch in q.plan_versions for fid in ch.get("supersedes", ())}
+    where = {loc.task_id: loc.base_url for fid, locs in q.fragment_tasks.items()
+             if fid not in superseded for loc in locs}
+    got = {t["attributes"]["task_id"] for t in tasks
+           if int(t["attributes"]["task_id"].split(".")[-3]) not in superseded}
+    if got != set(where) or {where[t] for t in got} != worker_urls:
+        raise AssertionError(f"observe: task spans of {sorted(got)}, tasks {sorted(where)}")
+    if {t["parentId"] for t in tasks} != {schedule["spanId"]}:
+        raise AssertionError("observe: task spans not parented under the schedule span")
+    for task_id, url in where.items():
+        dump = wire.json_request("GET", f"{url}/v1/task/{task_id}/spans")
+        if dump["traceId"] != q.tracer.trace_id:
+            raise AssertionError(f"observe: task {task_id} traced under {dump['traceId']}")
+    tl = q.timeline_dict()
+    phases = {p: v for p, v in tl["phases"].items() if p not in OUT_OF_WALL}
+    if min(phases.values()) < 0 or sum(phases.values()) > tl["wallS"] + 1e-5 or \
+            abs(sum(phases.values()) + tl["unattributedS"] - tl["wallS"]) > 1e-3:
+        raise AssertionError(f"observe: the timeline does not make up the wall: {tl}")
+    return {"spans": len(spans), "task_spans": len(tasks), "timeline": tl}
+
+
+def observe_sql(client, sql):
+    return client.execute(sql, timeout=120.0)[1]
+
+
+def phase_observe(device, expected, plane, compiled, cap, card, dist_walls, schema="sf1",
+                  kill_props=None):
+    """The observability plane on a port coordinator with two in-process
+    workers, an OTLP stub collector in this process and the flow ledger,
+    the phase ledger and the system catalog read through SQL.
+    ``kill_props``: session properties added to the query it kills (the
+    CPU test holds it running with ``slow_injection``)."""
+    import urllib.request
+
+    from trino_tpu_torch.client.cli import format_table
+    from trino_tpu_torch.client.remote import StatementClient
+    from trino_tpu_torch.devcache import DEVICE_CACHE
+    from trino_tpu_torch.exec.executor import Executor
+    from trino_tpu_torch.exec.query import plan_sql
+    from trino_tpu_torch.obs import metrics as M
+    from trino_tpu_torch.obs import otlp
+    from trino_tpu_torch.obs.flowledger import FlowLedger
+    from trino_tpu_torch.obs.timeline import summarize
+    from trino_tpu_torch.server import wire
+
+    t_phase = time.perf_counter()
+    collector = otlp.StubCollector().start()
+    os.environ[otlp.ENDPOINT_ENV] = collector.endpoint
+    try:
+        coord, workers = serving_cluster(device, 2, "ow")
+    finally:
+        del os.environ[otlp.ENDPOINT_ENV]
+    dropped0 = sum(M.OTLP_DROPPED.value(r) for r in ("overflow", "send-error"))
+    props = serving_props(schema)
+    client = StatementClient(coord.base_url, props)
+    urls = {w.base_url for w in workers}
+    out = {"card": card, "launches": 0}
+    try:
+        # traffic: Q1, Q3 and Q18 distributed, cold then warm
+        traffic = {}
+        for q in OBSERVE_DIST_QUERIES:
+            entry = expected[str(q)]
+            for label in ("cold", "warm"):
+                rows, wall, d, ex = observe_execute(coord, client, entry["sql"], device)
+                check_rows(f"Q{q} (observe, {label})", rows, entry["rows"], rel_tol=DIST_REL_TOL)
+                if ex.fast_path != "distributed":
+                    raise AssertionError(f"Q{q} (observe) ran {ex.fast_path}")
+                flows = ex.flows_dict()
+                pulled = sum(r["bytes"] for r in flows["transfers"] if r["link"] == "exchange-pull")
+                if pulled != d["exchange_bytes"]:
+                    raise AssertionError(f"Q{q} (observe): /flows pulled {pulled} bytes, "
+                                         f"EXCHANGE_BYTES moved {d['exchange_bytes']}")
+                traffic[(q, label)] = (ex, len(rows))
+                out.setdefault("walls", {})[f"Q{q}_{label}_s"] = wall
+                out.setdefault("flows", {})[f"Q{q}_{label}"] = d
+                if label == "cold" and q == 1:
+                    out["otlp_query"] = ex
+        for q in OBSERVE_DIST_QUERIES:
+            out.setdefault("trace", {})[f"Q{q}"] = observe_trace(coord, traffic[(q, "warm")][0],
+                                                                 urls)
+        # the system tables over that traffic
+        qrows = {r[0]: r for r in observe_sql(
+            client, "select query_id, state, result_rows from system.runtime.queries")}
+        for (q, label), (ex, n) in traffic.items():
+            if qrows.get(ex.query_id, [None])[1:] != ["FINISHED", n]:
+                raise AssertionError(f"Q{q} ({label}) in system.runtime.queries: "
+                                     f"{qrows.get(ex.query_id)}, want FINISHED {n} rows")
+        for q in OBSERVE_DIST_QUERIES:
+            ex = traffic[(q, "warm")][0]
+            on = {r[0] for r in observe_sql(client, "select worker_uri from system.runtime.tasks "
+                                                    f"where query_id = '{ex.query_id}'")}
+            if on != urls:
+                raise AssertionError(f"Q{q}: system.runtime.tasks on {on}, not {urls}")
+        active = observe_sql(client, "select count(*) from system.runtime.nodes "
+                                     "where state = 'active'")
+        if active != [[2]]:
+            raise AssertionError(f"observe: system.runtime.nodes active {active}")
+        q3 = traffic[(3, "warm")][0]
+        table = {r[0]: r[1] for r in observe_sql(
+            client, "select link, sum(bytes) from system.runtime.transfers where owner like "
+                    f"'task:{q3.query_id}.%' or owner = 'drain:{q3.query_id}' or owner = "
+                    f"'query:{q3.query_id}' group by link")}
+        by_link = {}
+        for r in q3.flows_dict()["transfers"]:
+            by_link[r["link"]] = by_link.get(r["link"], 0) + r["bytes"]
+        if table != by_link:
+            raise AssertionError(f"Q3: system.runtime.transfers {table} != /flows {by_link}")
+        out["q3_links"] = by_link
+        # OTLP: every span of Q1's trace reached the collector
+        ex = out.pop("otlp_query")
+        want = len(ex.tracer.to_dicts()) + len(ex.worker_spans())
+        deadline = time.time() + 20.0
+        got = 0
+        while time.time() < deadline:
+            got = sum(sp["traceId"] == ex.tracer.trace_id for sp in collector.spans())
+            if got >= want:
+                break
+            time.sleep(0.05)
+        if got != want:
+            raise AssertionError(f"observe: the OTLP collector got {got} of Q1's {want} spans")
+        out["otlp_spans"] = got
+        # kernel rows: the cached Q17 and Q18 on the coordinator's executor,
+        # gated on the first worker's row of system.runtime.nodes
+        cached = serving_props(schema, device_cache_enabled="true", device_profiling="true")
+        cclient = StatementClient(coord.base_url, cached)
+        kernels = {}
+        for q in OBSERVE_CACHED_QUERIES:
+            entry = expected[str(q)]
+            sql = observe_gated(entry["sql"], q, "ow0")
+            for label in ("cold", "warm"):
+                t0_tiers = tier_counts(M.FUSED_JOIN_SELECTIONS, TIERS)
+                rows, wall, d, ex = observe_execute(coord, cclient, sql, device, cap,
+                                                    ("observe", q, label))
+                tiers = {t: v - t0_tiers[t]
+                         for t, v in tier_counts(M.FUSED_JOIN_SELECTIONS, TIERS).items()}
+                check_rows(f"Q{q} (observe, cached, {label})", rows, entry["rows"],
+                           rel_tol=DIST_REL_TOL)
+                want_tiers = plane["tiers_cached"][str(q)][label] if plane else None
+                if want_tiers is not None and tiers != want_tiers:
+                    raise AssertionError(f"Q{q} (observe, cached, {label}) tiers {tiers} != "
+                                         f"{want_tiers}")
+                if ex.fast_path != "local-catalog":
+                    raise AssertionError(f"Q{q} (observe, cached) ran {ex.fast_path}")
+                krows = observe_sql(cclient, "select node_id, operator, launches, wall_seconds, "
+                                             "device_seconds, estimated from system.runtime."
+                                             f"kernels where query_id = '{ex.query_id}'")
+                joins = [r for r in krows if r[0] == "coordinator" and r[1] == "Join"]
+                if not joins or any(r[5] for r in joins) or \
+                        any(r[4] > r[3] + 1e-9 for r in krows):
+                    raise AssertionError(f"Q{q} (observe, cached): kernel rows {krows}")
+                if device.type == "cuda" and (want_tiers or {}).get("merge-pallas", 0) >= 1 \
+                        and d["merge_launches"] < 1:
+                    raise AssertionError(f"Q{q} (observe, cached): no merge launch")
+                out["launches"] += d["merge_launches"]
+                kernels[f"Q{q}_{label}"] = {"wall_s": wall, "merge_launches": d["merge_launches"],
+                                            "tiers": tiers, "join_rows": joins}
+        out["kernels"] = kernels
+        # no system scan leaves the card: a system page is on the device
+        session = coord.session_factory(dict(props))
+        page = Executor(session).execute_checked(
+            plan_sql(session, "select node_id from system.runtime.nodes"))
+        if page.columns[0].values.device.type != device.type:
+            raise AssertionError(f"observe: a system scan landed on {page.columns[0].values.device}")
+        # the compile ledger: Q17's CompiledQuery twice, read through SQL
+        ledger = adaptive_compile_ledger(device, expected, compiled, cap, schema,
+                                         path="observe_compiled")
+        out["launches"] += ledger["merge_launches"]
+        crows = observe_sql(client, "select cache, compile_seconds from system.runtime.compiles "
+                                    f"where fingerprint = '{ledger['fingerprint']}' and "
+                                    f"created_at >= {ledger['events'][0]['ts']} order by created_at")
+        if [r[0] for r in crows] != ["miss", "hit"] or crows[1][1] != 0:
+            raise AssertionError(f"observe: system.runtime.compiles {crows}")
+        out["compiles"] = crows
+        # the device cache's table equals the cache
+        dc = observe_sql(client, "select count(*), sum(entry_bytes) from system.runtime."
+                                 "device_cache where tier = 'hbm'")
+        if dc != [[len(DEVICE_CACHE.snapshot()), DEVICE_CACHE.cached_bytes()]] or not dc[0][0]:
+            raise AssertionError(f"observe: system.runtime.device_cache {dc} != "
+                                 f"{len(DEVICE_CACHE.snapshot())} entries, "
+                                 f"{DEVICE_CACHE.cached_bytes()} bytes")
+        out["device_cache"] = dc[0]
+        # a metric series through SQL equals the Prometheus page's
+        name = "trino_tpu_exchange_requests_total"
+        (value,) = observe_sql(client, f"select value from system.metrics where name = '{name}'")
+        page_text = urllib.request.urlopen(coord.base_url + "/v1/metrics").read().decode()
+        line = next(ln for ln in page_text.splitlines() if ln.startswith(name + " "))
+        if float(line.split()[-1]) != value[0] or value[0] <= 0:
+            raise AssertionError(f"observe: {name} {value} in SQL, {line!r} on /v1/metrics")
+        # a system query bypasses both caches
+        entries0 = len(coord.query_cache.results)
+        rc = StatementClient(coord.base_url, dict(props, result_cache_enabled="true"))
+        for _ in range(2):
+            rc.execute("select query_id, state from system.runtime.queries", timeout=120.0)
+            if rc.cache_status != "BYPASS":
+                raise AssertionError(f"observe: a system query's cache {rc.cache_status}")
+        if len(coord.query_cache.results) != entries0 or \
+                any(e["catalog"] == "system" for e in DEVICE_CACHE.snapshot()):
+            raise AssertionError("observe: a system query entered a cache")
+        # kill_query on a running Q18
+        victim = coord.submit(expected["18"]["sql"], dict(props, **(kill_props or {})))
+        deadline = time.time() + 120.0
+        while time.time() < deadline and not (
+                victim.state.get() == "RUNNING" and victim.query_stats()["totalSplits"]):
+            if victim.state.is_terminal():
+                raise AssertionError(f"observe: Q18 ended before the kill: {victim.failure}")
+            time.sleep(0.01)
+        (msg,) = observe_sql(client, f"call system.runtime.kill_query('{victim.query_id}', "
+                                     f"'{OBSERVE_KILL_REASON}')")
+        victim.state.wait_for_terminal(60.0)
+        state = observe_sql(client, "select state, failure from system.runtime.queries where "
+                                    f"query_id = '{victim.query_id}'")
+        gone = {wire.http_request("GET", f"{loc.base_url}/v1/task/{loc.task_id}/status",
+                                  timeout=5.0)[0]
+                for locs in victim.fragment_tasks.values() for loc in locs}
+        if msg != [f"killed {victim.query_id}"] or state[0][0] != "FAILED" or \
+                OBSERVE_KILL_REASON not in (state[0][1] or "") or gone != {404}:
+            raise AssertionError(f"observe: kill_query {msg}, {state}, task statuses {gone}")
+        out["kill"] = {"state": state[0][0], "task_statuses": sorted(gone)}
+        # EXPLAIN ANALYZE of Q18: its ledger and flow lines agree with the
+        # query's timeline and flows
+        _c, plan = client.execute("explain analyze " + expected["18"]["sql"], timeout=600.0)
+        text = [r[0] for r in plan]
+        ex = coord.get_query(client.query_id)
+        tl, flows = ex.timeline_dict(), ex.flows_dict()
+        ledger_line = next(ln for ln in text if ln.startswith("Phase ledger: "))
+        flow_line = next(ln for ln in text if ln.startswith("Data flow: "))
+        named = [part.rsplit(" ", 1)[0] for part in
+                 ledger_line[len("Phase ledger: "):].split(" (")[0].split(" · ")]
+        mb = {}
+        for r in flows["transfers"]:
+            mb[r["link"]] = mb.get(r["link"], 0) + r["bytes"]
+        shown = dict(part.split(" @ ")[0].split(" ") for part in
+                     flow_line[len("Data flow: "):].split(", "))
+        if not named or any(tl["phases"][p] <= 0 for p in named) or \
+                any(f"{mb.get(link, 0) / 1e6:.1f}MB" != v for link, v in shown.items()):
+            raise AssertionError(f"observe: EXPLAIN ANALYZE {ledger_line!r}, {flow_line!r} "
+                                 f"against {tl['phases']}, {mb}")
+        out["explain"] = {"phase_ledger": ledger_line, "data_flow": flow_line,
+                          "summary": summarize(tl)}
+        # the CLI as a subprocess: Q1's rows as the table, then a HIT
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = here + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH")
+                                    else "")
+        cli_props = dict(props, result_cache_enabled="true")
+        cols, rows = StatementClient(coord.base_url, cli_props).execute(
+            expected["1"]["sql"], timeout=600.0)
+        table = format_table(cols, rows)
+        cli = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "trino_tpu_torch.client.cli", "--server", coord.base_url,
+                 "--catalog", "tpch", "--schema", schema]
+                + [a for k, v in cli_props.items() if k not in ("catalog", "schema")
+                   for a in ("--session", f"{k}={v}")]
+                + ["--execute", expected["1"]["sql"]],
+                env=env, cwd=here, capture_output=True, text=True, timeout=300)
+            if res.returncode != 0 or not res.stdout.startswith(table + "\n"):
+                raise AssertionError(f"observe: the CLI printed {res.stdout[:600]!r} "
+                                     f"{res.stderr[-600:]!r}")
+            cli.append((time.perf_counter() - t0, res.stdout.strip().split("\n")[-1]))
+        if "[cache: HIT]" not in cli[1][1]:
+            raise AssertionError(f"observe: the CLI's repeat printed {cli[1][1]!r}")
+        out["cli"] = {"walls_s": [w for w, _ in cli], "summary": cli[1][1]}
+        dropped = sum(M.OTLP_DROPPED.value(r) for r in ("overflow", "send-error")) - dropped0
+        if dropped:
+            raise AssertionError(f"observe: the OTLP exporters dropped {dropped}")
+    finally:
+        cap.now = None
+        serving_stop(coord, workers)
+        collector.stop()
+    # the host cost of one flow-ledger record, against the records a query made
+    led = FlowLedger(node_id="cost")
+    n = 20000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        led.record_transfer("exchange-pull", "task:cost", 0, 0.0, pages=1)
+    us = (time.perf_counter() - t0) / n * 1e6
+    out["record_transfer_us"] = us
+    out["records_a_query"] = {k: d["records"] for k, d in out["flows"].items()}
+    out["walls_vs_distributed"] = {
+        f"Q{q}": {"observe_warm_s": out["walls"][f"Q{q}_warm_s"],
+                  "distributed_warm_s": dist_walls.get(q) if dist_walls else None}
+        for q in OBSERVE_DIST_QUERIES}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("observe", json.dumps(out, default=str), flush=True)
+    return out
+
+
 def check_random(session, device):
     """random() over every lineitem row at SF1, drawn on the card from the
     session's generator."""
@@ -3371,6 +3782,8 @@ def main() -> int:
         matview = phase_matview(device, mvexp, expected, cap, card)
         adaptive = phase_adaptive(device, expected, compiled, cap, card)
         serving = phase_serving(device, expected, plane, cap, card)
+        observe = phase_observe(device, expected, plane, compiled, cap, card,
+                                {q: dist_runs[q][1]["wall_s"] for q in OBSERVE_DIST_QUERIES})
     eager_merge = sorted(int(q) for q, e in expected.items()
                          if e["tiers"].get("merge-pallas", 0) >= 1)
     compiled_merge = sorted(f"Q{q}" for q, e in compiled["queries"].items()
@@ -3383,7 +3796,10 @@ def main() -> int:
         "distributed": dist_merge, "matview": matview_merge,
         "adaptive": ["Q17"] if "Q17" in compiled_merge else [],
         "serving": [q for q in (17, 18)
-                    if plane["tiers_cached"][str(q)]["cold"].get("merge-pallas", 0) >= 1]})
+                    if plane["tiers_cached"][str(q)]["cold"].get("merge-pallas", 0) >= 1],
+        "observe": [q for q in OBSERVE_CACHED_QUERIES
+                    if plane["tiers_cached"][str(q)]["cold"].get("merge-pallas", 0) >= 1],
+        "observe_compiled": ["Q17"] if "Q17" in compiled_merge else []})
     if profiling:
         tpch_sql = [(f"Q{q}", expected[str(q)]["sql"]) for q in range(1, 23)]
         phase_profile(session, tpch_sql, "uncached")
@@ -3424,7 +3840,8 @@ def main() -> int:
                            for run in runs),
         "matview": matview["q18"]["merge_launches"],
         "adaptive": adaptive["compile_ledger"]["merge_launches"],
-        "serving": serving["cache_shares"]["launches"]}
+        "serving": serving["cache_shares"]["launches"],
+        "observe": observe["launches"]}
     for path, n in launches_by_path.items():
         if n < 1 and path not in ("analytics", "scalar", "nested", "distributed", "matview"):
             raise AssertionError(f"the 22 queries of path {path} launched the merge kernel "

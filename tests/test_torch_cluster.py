@@ -413,10 +413,11 @@ def test_dbapi_qmark_parameters(cluster):
 
 def test_unported_tiers_are_refused(cluster):
     """The fault-tolerant tier, spooled results and the executor-process
-    plane are refused, and their routes answer 501. Adaptive execution and
-    distributed EXPLAIN ANALYZE are ported: a request setting
+    plane are refused, and the segment route answers 501. Adaptive
+    execution and distributed EXPLAIN ANALYZE are ported: a request setting
     ``adaptive_execution_enabled`` runs, and EXPLAIN ANALYZE answers with
-    the annotated fragments."""
+    the annotated fragments. The observability routes are ported: ``/ui``
+    serves its page and the trace route of an unknown query 404."""
     coord, _ = cluster
     from trino_tpu_torch.client.remote import RemoteQueryError
 
@@ -430,9 +431,9 @@ def test_unported_tiers_are_refused(cluster):
     _cols, plan = run(coord, "explain analyze select count(*) from region")
     text = "\n".join(r[0] for r in plan)
     assert text.startswith("Query wall time: ") and "TableScan tpch.tiny.region" in text
-    for path in ("/ui", "/v1/query/x/trace", "/v1/segment/x"):
+    for path, want in (("/ui", 200), ("/v1/query/x/trace", 404), ("/v1/segment/x", 501)):
         status, _, _ = wire.http_request("GET", coord.base_url + path, timeout=10.0)
-        assert status == 501, path
+        assert status == want, path
     from trino_tpu_torch.server.coordinator import CoordinatorServer
 
     with pytest.raises(NotImplementedError, match="executor_plane=process"):
@@ -537,9 +538,11 @@ class FakeExchangeClient:
     instances: List["FakeExchangeClient"] = []
     pages_to_serve: List[Page] = []
 
-    def __init__(self, locations, max_buffered_pages: int = 64, tracer=None, device="cpu"):
+    def __init__(self, locations, max_buffered_pages: int = 64, tracer=None, device="cpu",
+                 owner=None, stall_key=None):
         self.served = 0
         self.pulled_seconds = 0.0
+        self.stalled_seconds = 0.0
         FakeExchangeClient.instances.append(self)
 
     def start(self):

@@ -459,19 +459,19 @@ def test_filesystem_import_needs_no_pyarrow():
 
 
 def test_registry_matches_the_reference(tmp_path, monkeypatch):
-    """The port registers the reference's catalogs (but ``system``, which
-    waits for the server-side modules), ``sqlite`` only with
-    TRINO_TPU_SQLITE_DB, and the filesystem root from TRINO_TPU_FS_ROOT."""
+    """The port registers the reference's catalogs (``system`` included),
+    ``sqlite`` only with TRINO_TPU_SQLITE_DB, and the filesystem root from
+    TRINO_TPU_FS_ROOT."""
     for env in ("TRINO_TPU_SQLITE_DB", "TRINO_TPU_FS_ROOT"):
         monkeypatch.delenv(env, raising=False)
-    assert set(default_catalogs()) == set(jax_default_catalogs()) - {"system"}
+    assert set(default_catalogs()) == set(jax_default_catalogs())
     assert "sqlite" not in default_catalogs()
     db = str(tmp_path / "env.sqlite")
     sqlite3.connect(db).close()
     monkeypatch.setenv("TRINO_TPU_SQLITE_DB", db)
     monkeypatch.setenv("TRINO_TPU_FS_ROOT", str(tmp_path / "fsroot"))
     port, ref = default_catalogs(), jax_default_catalogs()
-    assert set(port) == set(ref) - {"system"}
+    assert set(port) == set(ref)
     assert isinstance(port["sqlite"], TorchSqlite) and port["sqlite"]._path == db
     assert port["filesystem"].root == ref["filesystem"].root == str(tmp_path / "fsroot")
     assert port["memory"].supports_transactions and not port["blackhole"].supports_transactions

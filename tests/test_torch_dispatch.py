@@ -15,8 +15,9 @@ Left out by name: the five process-plane cases
 ``_owner_catalog_bounces``, ``_dml_invalidation_crosses_processes``,
 ``_deallocate_replicates``; the port refuses ``executor_plane="process"``),
 and of ``test_dispatch_queue_phase_and_serving_table`` the phase ledger and
-the ``system.runtime.serving`` query (the timeline and the system catalog
-are not ported; the serving rows are read from the dispatcher instead).
+the ``system.runtime.serving`` query, which
+tests/test_torch_system_catalog.py holds (here the serving rows are read
+from the dispatcher).
 """
 import threading
 import time

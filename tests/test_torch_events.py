@@ -16,8 +16,8 @@ postmortem.
 Left out by name from tests/test_flight_recorder.py:
 ``test_span_cap_drops_counted_without_breaking_callers`` (obs/trace.py is
 a copy held since the first slice) and
-``test_recorder_param_on_live_query_merges_live_rings`` (the
-``/v1/query/{id}/trace`` route is not ported).
+``test_recorder_param_on_live_query_merges_live_rings``, which
+tests/test_torch_observability.py holds.
 """
 import re
 import time

@@ -18,11 +18,11 @@ header is held here), ``test_sync_procedure_requires_internal_signature``
 and ``test_process_plane_registry_replication`` (the process plane and its
 system procedure, item 5) and ``test_matview_bench_check`` (a wall-clock
 gate of the JAX package). Two cases lose a statement over the system
-catalog, which the port does not have yet (item 8):
-``test_create_validation``'s view over ``system.runtime.queries`` and the
-``system.metadata.materialized_views`` reads of
+catalog: ``test_create_validation``'s view over ``system.runtime.queries``
+and the ``system.metadata.materialized_views`` reads of
 ``test_coordinator_lifecycle_and_stats``, whose freshness is read from
-``staleness_reason`` instead.
+``staleness_reason`` here; tests/test_torch_system_catalog.py reads the
+view's row through SQL on both clusters.
 
 Also the writer of the expected data of chip_smoke.py's phase matview, on
 a machine without JAX:

@@ -14,8 +14,8 @@ with ``?`` for their constants: the warm EXECUTE is a plan-cache hit and
 its rows equal the plain SELECT's.
 
 Left out by name: ``test_system_prepared_statements_table_and_metrics``'s
-system-table half (the system catalog, ROADMAP queue 1, item 8; its
-metric half is kept) and the parse and local-session cases, which
+system-table half, which tests/test_torch_system_catalog.py holds (its
+metric half is kept), and the parse and local-session cases, which
 tests/test_torch_statements.py holds.
 """
 import os

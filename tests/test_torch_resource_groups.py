@@ -17,9 +17,9 @@ port's query history recording it.
 Left out by name: of ``test_coordinator_group_wiring_end_to_end`` the
 ``system.runtime.resource_groups`` and ``system.runtime.queries`` queries,
 and of ``test_queue_aging_fails_typed_with_ledger_and_history`` the phase
-ledger and the ``system.runtime.queries`` query (the system catalog and
-the timeline are not ported): the tree's ``table_rows`` and the port's
-``CoordinatorServer.history`` are read instead.
+ledger and the ``system.runtime.queries`` query: the tree's ``table_rows``
+and ``CoordinatorServer.history`` are read here, and
+tests/test_torch_system_catalog.py holds both tables through SQL.
 """
 import json
 import random

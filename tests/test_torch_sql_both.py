@@ -146,7 +146,13 @@ NAMED_MODULES = (
     "trino_tpu_torch.server.cluster_memory", "trino_tpu_torch.server.auth",
     "trino_tpu_torch.server.events", "trino_tpu_torch.obs.memledger",
     "trino_tpu_torch.obs.flightrecorder", "trino_tpu_torch.obs.metrics",
-    "trino_tpu_torch.devcache.hostcache")
+    "trino_tpu_torch.devcache.hostcache",
+    # the observability plane and the system catalog
+    "trino_tpu_torch.obs.timeline", "trino_tpu_torch.obs.flowledger",
+    "trino_tpu_torch.obs.listeners", "trino_tpu_torch.obs.otlp",
+    "trino_tpu_torch.connector.system", "trino_tpu_torch.connector.system.connector",
+    "trino_tpu_torch.connector.system.schemas", "trino_tpu_torch.server.system_tables",
+    "trino_tpu_torch.client.cli")
 
 
 def test_port_loads_neither_jax_nor_the_jax_package():

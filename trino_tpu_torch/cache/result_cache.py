@@ -215,6 +215,13 @@ class ResultCache:
         if flight is not None:
             flight._resolve(None, ok=False)
 
+    def invalidate_all(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._group_bytes.clear()
+            self._bytes = 0
+            M.RESULT_CACHE_BYTES.set(0)
+
 
 class PlanCache:
     """Optimized-plan LRU keyed by canonical SQL + session-property
@@ -277,6 +284,10 @@ class PlanCache:
             self._entries.move_to_end(key)
             while len(self._entries) > self.max_entries:
                 self._entries.popitem(last=False)
+
+    def invalidate_all(self) -> None:
+        with self._lock:
+            self._entries.clear()
 
 
 class QueryCache:

@@ -47,6 +47,7 @@ import numpy as np
 
 from trino_tpu_torch.obs import metrics as M
 from trino_tpu_torch.obs import trace as tracing
+from trino_tpu_torch.obs.flowledger import FLOW_LEDGER
 from trino_tpu_torch.obs.memledger import MEMORY_LEDGER, POOL_DEVICE
 
 # default target bytes per split when the session does not set
@@ -444,12 +445,43 @@ def blocked_transfer(device, profile: Optional[StageProfile] = None,
     path. Either way the result is bitwise the concatenation. A transfer
     of more than two blocks holds its output as in-flight scratch until
     the copy ends: the memory ledger's ``staging`` owner on the ``device``
-    pool reserves its bytes for that time."""
+    pool reserves its bytes for that time. Each transfer is one
+    ``staging-transfer`` flow-ledger record of the bytes that crossed (the
+    bytes ``STAGED_H2D_BYTES`` counts) and the host wall of issuing the
+    copies, without a synchronization of its own."""
     import torch
 
     from trino_tpu_torch.data.page import torch_dtype
 
     device = torch.device(device)
+
+    def copy(parts, dtype, n, nbytes, block_rows):
+        """(tensor, blocks, how) of one transfer."""
+        if n > 2 * block_rows:
+            MEMORY_LEDGER.record_event("reserve", POOL_DEVICE, "staging", nbytes)
+            try:
+                if device.type != "cuda":
+                    return _host_copy(parts, dtype, device), 1, "single-shot"
+                out, blocks = _blocked_copy(parts, dtype, n, device, block_rows,
+                                            _pinned_pair(device, block_bytes))
+                if profile is not None:
+                    profile.transfer_blocks += blocks
+                return out, blocks, "blocked"
+            finally:
+                MEMORY_LEDGER.record_event("release", POOL_DEVICE, "staging", nbytes)
+        if device.type != "cuda":
+            return _host_copy(parts, dtype, device), 1, "single-shot"
+        # at most two blocks: one plain copy a part, into its slice
+        out = torch.empty((n,), dtype=torch_dtype(dtype), device=device)
+        off = 0
+        for p in parts:
+            if len(p):
+                host = np.ascontiguousarray(p, dtype=dtype)
+                if not host.flags.writeable:
+                    host = host.copy()
+                out[off:off + len(p)].copy_(torch.from_numpy(host))
+            off += len(p)
+        return out, 1, "single-shot"
 
     def transfer(parts, dtype=None):
         if isinstance(parts, np.ndarray):
@@ -462,31 +494,11 @@ def blocked_transfer(device, profile: Optional[StageProfile] = None,
         if profile is not None:
             profile.h2d_bytes += nbytes
         M.STAGED_H2D_BYTES.inc(nbytes)
-        block_rows = max(1, block_bytes // dtype.itemsize)
-        if n > 2 * block_rows:
-            MEMORY_LEDGER.record_event("reserve", POOL_DEVICE, "staging", nbytes)
-            try:
-                if device.type != "cuda":
-                    return _host_copy(parts, dtype, device)
-                out, blocks = _blocked_copy(parts, dtype, n, device, block_rows,
-                                            _pinned_pair(device, block_bytes))
-                if profile is not None:
-                    profile.transfer_blocks += blocks
-                return out
-            finally:
-                MEMORY_LEDGER.record_event("release", POOL_DEVICE, "staging", nbytes)
-        if device.type != "cuda":
-            return _host_copy(parts, dtype, device)
-        # at most two blocks: one plain copy a part, into its slice
-        out = torch.empty((n,), dtype=torch_dtype(dtype), device=device)
-        off = 0
-        for p in parts:
-            if len(p):
-                host = np.ascontiguousarray(p, dtype=dtype)
-                if not host.flags.writeable:
-                    host = host.copy()
-                out[off:off + len(p)].copy_(torch.from_numpy(host))
-            off += len(p)
+        t0 = time.perf_counter()
+        out, blocks, how = copy(parts, dtype, n, nbytes, max(1, block_bytes // dtype.itemsize))
+        FLOW_LEDGER.record_transfer(
+            "staging-transfer", "staging", nbytes, time.perf_counter() - t0, pages=blocks,
+            src="host", dst="device", direction="send", status=how)
         return out
 
     return transfer

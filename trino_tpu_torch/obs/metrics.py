@@ -5,9 +5,13 @@ The port of trino_tpu/obs/metrics.py. Every metric has the reference's
 ``snapshot`` surface. The series of the serving plane (dispatch, executor
 lanes, resource groups, the coordinator's query gauges, the memory ledger's
 pressure and peak series, the process self-metrics) are declared in
-``REGISTRY`` with the reference's names, help strings and label names, and
+``REGISTRY`` with the reference's names, help strings and label names, as
+are those of the observability plane (the flow ledger's transfer, stall and
+straggler series, the phase ledger's histogram, the exchange requests and
+retries, the per-operator rollups, the fast-path paths and the OTLP drops).
 ``render_registry`` renders them as the Prometheus text page that
-``GET /v1/metrics`` serves on the coordinator and the workers, so both
+``GET /v1/metrics`` serves on the coordinator and the workers, and
+``registry_samples`` as the rows of ``system.metrics.metrics``, so both
 packages' pages carry the same series. The other counters are plain and
 unregistered: the tests and ``chip_smoke.py`` read them to show which join
 tier a query took, what the staging and device-cache plane moved, and what
@@ -85,9 +89,14 @@ class Metric:
                 for key, v in sorted(children.items())]
 
     def render(self) -> List[str]:
-        """The header, then one line a touched series (a metric never
-        touched renders no series)."""
-        return self.header() + [_series(n, lab, v) for n, lab, v in self.samples()]
+        return _render_flat(self)
+
+
+def _render_flat(metric: Metric) -> List[str]:
+    """The header (the name is declared), then one line a touched series:
+    a metric never touched renders no series, so a worker does not export
+    the coordinator's gauges pinned at 0."""
+    return metric.header() + [_series(n, lab, v) for n, lab, v in metric.samples()]
 
 
 class Counter(Metric):
@@ -180,6 +189,10 @@ class MetricsRegistry:
 
     def histogram(self, name, help, labelnames=(), buckets=LATENCY_BUCKETS_S) -> Histogram:
         return self._register(Histogram(name, help, labelnames, buckets))
+
+    def get(self, name: str) -> Optional[Metric]:
+        with self._lock:
+            return self._metrics.get(name)
 
     def names(self) -> List[str]:
         with self._lock:
@@ -404,6 +417,55 @@ PROCESS_GC_COLLECTIONS = REGISTRY.gauge(
     "Python GC collections per generation since process start "
     "(point-in-time read of gc.get_stats)", ("generation",))
 
+# the distributed path's exchange requests and retries (server/
+# exchange_client.py), the per-operator rollups fed at task completion
+# (server/task.py), and the control-plane path of each SELECT
+EXCHANGE_REQUESTS = REGISTRY.counter(
+    "trino_tpu_exchange_requests_total",
+    "exchange pull HTTP requests issued")
+EXCHANGE_RETRIES = REGISTRY.counter(
+    "trino_tpu_exchange_retries_total",
+    "exchange pull attempts retried after transient failures")
+OPERATOR_WALL_SECONDS = REGISTRY.histogram(
+    "trino_tpu_operator_wall_seconds",
+    "per-task operator wall time by operator kind, observed at task "
+    "completion", ("operator",))
+OPERATOR_ROWS = REGISTRY.counter(
+    "trino_tpu_operator_rows_total",
+    "rows output by operator kind, accumulated at task completion",
+    ("operator",))
+# declared as the reference's; the port has no SPMD exchange to count
+EXCHANGE_OVERLAPPED = REGISTRY.counter(
+    "trino_tpu_exchange_overlapped_total",
+    "probe-side exchanges compiled as double-buffered send-block pipelines "
+    "(all-to-all of block k+1 overlapped with join compute on block k); "
+    "counted per program trace, not per run", ("blocks",))
+FAST_PATH_QUERIES = REGISTRY.counter(
+    "trino_tpu_fast_path_queries_total",
+    "SELECT executions by control-plane path (fast-path = single-stage "
+    "plan run coordinator-local, skipping task round-trips; distributed = "
+    "fragment/schedule/execute across workers; local-catalog = forced "
+    "coordinator-local by a process-local catalog)", ("path",))
+
+# the phase ledger (obs/timeline.py): each terminal query's exclusive
+# wall by phase
+QUERY_PHASE_SECONDS = REGISTRY.histogram(
+    "trino_tpu_query_phase_seconds",
+    "exclusive query wall seconds attributed to each phase by the "
+    "completion-time phase ledger (queued | dispatch-queue | dispatch | "
+    "parse-analyze | plan-optimize | prepare-bind | schedule | "
+    "device-staging | device-execute | exchange-wait | "
+    "result-serialization | segment-fetch | client-drain | "
+    "unattributed)", ("phase",))
+
+# OTLP export (obs/otlp.py): what the background exporter dropped
+# instead of blocking the query path, by reason
+OTLP_DROPPED = REGISTRY.counter(
+    "trino_tpu_otlp_dropped_total",
+    "OTLP export spans/metric batches dropped instead of blocking "
+    "(reason = overflow: bounded queue full; send-error: collector "
+    "unreachable or non-2xx)", ("reason",))
+
 # fixed byte buckets for memory-size histograms: 64 KiB .. 64 GiB in
 # powers of four
 MEMORY_BUCKETS_BYTES = (
@@ -431,6 +493,31 @@ QUERY_PEAK_MEMORY_BYTES = REGISTRY.histogram(
     "per-query peak device-pool bytes (max over tasks/stages), observed "
     "once per terminal query", ("state",),
     buckets=MEMORY_BUCKETS_BYTES)
+
+
+# the data-plane flow ledger (obs/flowledger.py): every cross-boundary
+# byte by link class, the producers' and consumers' backpressure stalls,
+# and the straggler detector's verdicts at query completion
+TRANSFER_BYTES = REGISTRY.counter(
+    "trino_tpu_transfer_bytes_total",
+    "bytes moved across a data-plane link, by link class (exchange-pull "
+    "| spool-write | segment-fetch | staging-transfer | client-drain | "
+    "control) and direction (send | recv, from this process's "
+    "viewpoint)", ("link", "direction"))
+TRANSFER_SECONDS = REGISTRY.counter(
+    "trino_tpu_transfer_seconds",
+    "wall seconds spent moving bytes on a data-plane link (cumulative "
+    "across concurrent transfers, so bytes/seconds is the per-stream "
+    "effective rate, not the aggregate)", ("link",))
+BACKPRESSURE_STALL_SECONDS = REGISTRY.counter(
+    "trino_tpu_backpressure_stall_seconds_total",
+    "seconds producers spent blocked on full output buffers plus "
+    "consumers spent on empty exchange polls, by stage", ("stage",))
+STRAGGLER_TASKS = REGISTRY.counter(
+    "trino_tpu_straggler_tasks_total",
+    "tasks flagged by the straggler detector at query completion, by "
+    "dominant cause (transfer-bound | device-bound | queue-bound)",
+    ("cause",))
 
 
 def current_rss_bytes():
@@ -480,3 +567,19 @@ def render_registry() -> str:
     the coordinator's once its gauges refreshed)."""
     refresh_process_gauges()
     return REGISTRY.render()
+
+
+def registry_samples() -> List[tuple]:
+    """Every touched series as ``(name, type, labels, value, help)``: the
+    row view of the Prometheus page that ``system.metrics`` serves, built
+    from the same per-metric ``samples()`` the text rendering reads, so
+    the table and ``/v1/metrics`` cannot diverge."""
+    refresh_process_gauges()
+    with REGISTRY._lock:
+        metrics = list(REGISTRY._metrics.values())
+    out: List[tuple] = []
+    with RENDER_LOCK:
+        for m in metrics:
+            out.extend((name, m.type_name, labels, value, m.help)
+                       for name, labels, value in m.samples())
+    return out

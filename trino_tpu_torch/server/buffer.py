@@ -1,5 +1,5 @@
 """Task output buffers: token-addressed page streams with at-least-once pull
-(trino_tpu/server/buffer.py without the flow-ledger hooks).
+(a copy of trino_tpu/server/buffer.py).
 
 Reference: the producer side of the pipelined shuffle —
 ``execution/buffer/PartitionedOutputBuffer.java`` /
@@ -25,6 +25,8 @@ import threading
 import time
 from typing import List, Optional, Tuple
 
+from trino_tpu_torch.obs.flowledger import FLOW_LEDGER
+
 
 # default producer-blocking watermark (reference: sink.max-buffer-size /
 # OutputBufferMemoryManager's 32MB default)
@@ -42,7 +44,8 @@ class OutputBuffer:
     the same flow control on a thread-per-fragment worker)."""
 
     def __init__(self, consumer_count: int = 1,
-                 max_buffer_bytes: int = DEFAULT_MAX_BUFFER_BYTES):
+                 max_buffer_bytes: int = DEFAULT_MAX_BUFFER_BYTES,
+                 stall_key=None):
         assert consumer_count >= 1
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
@@ -54,6 +57,8 @@ class OutputBuffer:
         self._max_bytes = max_buffer_bytes
         self._bytes = 0  # un-GC'd page bytes
         self.peak_buffered_bytes = 0
+        # flow-ledger label for full-wait stall samples: (stage, partition)
+        self._stall_key = stall_key if stall_key is not None else (None, None)
         self.stalled_seconds = 0.0  # cumulative producer full-wait
 
     def enqueue(self, page_bytes: bytes, timeout: float = 300.0) -> None:
@@ -64,7 +69,8 @@ class OutputBuffer:
             if self._aborted is not None:
                 return  # writes to a destroyed buffer are discarded
             assert not self._complete, "enqueue after set_complete"
-            # about to block? time this full-wait
+            # about to block? sample this full-wait into the backpressure
+            # timeline (the ledger append happens OUTSIDE the lock below)
             t0 = (time.perf_counter()
                   if self._bytes >= self._max_bytes else None)
             if t0 is not None:
@@ -88,6 +94,10 @@ class OutputBuffer:
                 self._cond.notify_all()
         if waited_s > 0.0:
             self.stalled_seconds += waited_s
+            stage, partition = self._stall_key
+            FLOW_LEDGER.record_stall(
+                "buffer-enqueue", stage, partition, waited_s,
+                depth_bytes=depth, limit_bytes=self._max_bytes)
         if timed_out:
             raise TimeoutError(
                 f"output buffer full for {timeout}s "
@@ -162,14 +172,19 @@ class PartitionedOutputBuffer:
     consumer."""
 
     def __init__(self, partitions: int,
-                 max_buffer_bytes: int = DEFAULT_MAX_BUFFER_BYTES):
+                 max_buffer_bytes: int = DEFAULT_MAX_BUFFER_BYTES,
+                 stall_stage=None):
         assert partitions >= 1
         self._parts = [
-            OutputBuffer(1, max_buffer_bytes=max(max_buffer_bytes // partitions, 1 << 16))
-            for _ in range(partitions)
+            OutputBuffer(1, max_buffer_bytes=max(max_buffer_bytes // partitions, 1 << 16),
+                         stall_key=(stall_stage, pid))
+            for pid in range(partitions)
         ]
         # cumulative serialized bytes enqueued per partition (never
-        # decremented by GC), reported in task stats
+        # decremented by GC), reported in task stats. NOT the skew
+        # detection signal — serde compression inverts bytes under a
+        # constant hot key, so detection runs on partitionRows; the
+        # re-planner uses this series only to cap replication cost
         self._enqueued_bytes = [0] * partitions
 
     def enqueue_partition(self, pid: int, page_bytes: bytes, timeout: float = 300.0) -> None:

@@ -55,20 +55,37 @@ Workers announce their per-query reservations and pools; the cluster
 memory manager (server/cluster_memory.py) kills the largest query of a
 worker over its pool (``QueryExecution.kill``, EXCEEDED_CLUSTER_MEMORY),
 and a FAILED query keeps a postmortem of the coordinator's and its
-workers' flight-recorder rings and memory-ledger snapshots. With an
-``authenticator`` (server/auth.py) every public route asks for Basic or
-Bearer credentials (401) and a query's routes answer only its owner (403).
-``GET /v1/metrics`` serves the Prometheus page.
+workers' flight-recorder rings, memory-ledger, device-profiler and
+flow-ledger snapshots. With an ``authenticator`` (server/auth.py) every
+public route asks for Basic or Bearer credentials (401) and a query's
+routes answer only its owner (403). ``GET /v1/metrics`` serves the
+Prometheus page.
+
+The observability plane: each query's trace merges the coordinator's spans
+with its tasks' (``GET /v1/task/{id}/spans`` on the workers, parented
+under the schedule span through the traceparent header), and at its end
+the phase ledger (obs/timeline.py) attributes every instant of its wall to
+one phase; the flow ledger (obs/flowledger.py) types every byte that moved
+(exchange pulls, staging copies, client drains, control calls) and flags
+straggler tasks. ``GET /v1/query/{id}/trace[?recorder=1]``, ``/profile``
+and ``/flows`` serve them, ``/ui`` a status page, distributed EXPLAIN
+ANALYZE prints them as its "Phase ledger", "Data flow" and "Straggler"
+lines, and the ``system`` catalog (connector/system/, fed by
+server/system_tables.py) serves queries, tasks, nodes, kernels, compiles,
+transfers, stragglers and the rest as SQL tables, with the procedures
+``kill_query`` and ``sync_materialized_view``. Completed queries go to the
+event listeners (the slow-query log, the JSONL query log named by
+``TRINO_TPU_QUERY_LOG``) and, with ``TRINO_TPU_OTLP_ENDPOINT`` set, to an
+OTLP collector.
 
 The coordinator runs on one torch device: CUDA unless it is given another
 (``device="cpu"`` in the tests); asked for CUDA without a usable GPU it
 raises.
 
 Not ported (each refused, never ignored): ``retry_policy=TASK`` (the
-fault-tolerant tier), spooled result segments, the executor-process plane
-(``executor_plane="process"``), the flow ledger and the phase timeline,
-the system catalog, and the ``/v1/query/{id}/trace|profile|flows``,
-``/ui`` and ``/v1/segment`` routes (501).
+fault-tolerant tier), spooled result segments and their ``/v1/segment``
+route (501), and the executor-process plane
+(``executor_plane="process"``).
 
     python -m trino_tpu_torch.server.coordinator [--port N] [--device cuda|cpu]
 
@@ -78,13 +95,13 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
 import re
 import threading
 import time
 import traceback
 import uuid
 import weakref
-from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler
 from typing import Dict, List, Optional
 
@@ -106,7 +123,10 @@ from trino_tpu_torch.sql.planner.fragmenter import RemoteSourceNode, fragment_pl
 _ANNOUNCE_RE = re.compile(r"^/v1/announce/([^/]+)$")
 _RESULT_RE = re.compile(r"^/v1/statement/executing/([^/]+)/(\d+)$")
 _QUERY_RE = re.compile(r"^/v1/query/([^/]+)$")
-_NOT_PORTED_RE = re.compile(r"^(/v1/query/[^/]+/(trace|profile|flows)|/ui/?|/v1/segment/[^/]+)$")
+_TRACE_RE = re.compile(r"^/v1/query/([^/]+)/trace$")
+_PROFILE_RE = re.compile(r"^/v1/query/([^/]+)/profile$")
+_FLOWS_RE = re.compile(r"^/v1/query/([^/]+)/flows$")
+_NOT_PORTED_RE = re.compile(r"^/v1/segment/[^/]+$")
 
 # the WWW-Authenticate challenge of a 401
 AUTH_CHALLENGE = 'Basic realm="trino-tpu", Bearer'
@@ -159,6 +179,16 @@ class NodeRegistry:
         with self._lock:
             return [{"nodeId": nid, **info} for nid, info in sorted(self._nodes.items())
                     if now - info["last_seen"] <= self.max_age]
+
+    def snapshot(self) -> List[dict]:
+        """Every known node with its last announce payload and heartbeat
+        age, dead entries included (``system.runtime.nodes`` shows them)."""
+        now = time.monotonic()
+        with self._lock:
+            return [{"nodeId": nid, "url": info["url"], "info": dict(info.get("info") or {}),
+                     "ageS": now - info["last_seen"],
+                     "alive": now - info["last_seen"] <= self.max_age}
+                    for nid, info in sorted(self._nodes.items())]
 
     def wait_for_workers(self, count: int, timeout: float = 30.0) -> bool:
         """Block until ``count`` workers are alive (False at the timeout)."""
@@ -249,6 +279,16 @@ class QueryExecution:
         # postmortem a FAILED query keeps
         self.recorder = None
         self.postmortem: Optional[dict] = None
+        # the phase ledger (obs/timeline.py QueryTimeline), computed once
+        # from the merged span tree at the end; when the client last
+        # fetched a result page (the ledger's client-drain, outside the
+        # wall); the straggler verdicts frozen at the end; the server's
+        # pool for parallel pulls of the workers' span dumps and rings
+        self._timeline = None
+        self.last_drain_at: Optional[float] = None
+        self._stragglers: Optional[List[dict]] = None
+        self._flows_folded = False
+        self.io_pool = None
 
     def cancel(self) -> None:
         self.ended_at = self.ended_at or time.time()
@@ -273,8 +313,12 @@ class QueryExecution:
         try:
             with tracing.activate(self.tracer, root_span.span_id):
                 self._run_lifecycle()
+            # the trace closes, the clock stops and the phase ledger is
+            # computed (it pulls the workers' span dumps) before the
+            # terminal transition, whose listeners read the cached ledger
             self.tracer.end_span(root_span)
             self.ended_at = time.time()
+            self._warm_timeline()
             self.fold_kernel_profile()
             self.state.set("FINISHED")
         except Exception as e:  # noqa: BLE001 — reported through query info
@@ -282,16 +326,21 @@ class QueryExecution:
             if self.failure is None:
                 self.failure = f"{type(e).__name__}: {e}\n{traceback.format_exc()}"
             root_span.set("error", str(e).split("\n")[0][:300])
-            self.tracer.end_span(root_span)
             self._cancel_tasks()
+            self.tracer.end_span(root_span)
+            self._warm_timeline()
             self.fold_kernel_profile()
             # the postmortem before FAILED is visible: the workers' rings
             # still hold the context around the failure
             try:
-                self.capture_postmortem()
+                self.capture_postmortem(timeout=self.COMPLETION_PULL_TIMEOUT)
             except Exception:  # noqa: BLE001 — best-effort forensics
                 pass
             self.state.set("FAILED")
+        finally:
+            # a kill or cancel from another thread may have won the latch:
+            # the root span records the state that stuck
+            root_span.set("state", self.state.get())
 
     def _run_lifecycle(self) -> None:
         from trino_tpu_torch.exec.query import run_query
@@ -302,6 +351,9 @@ class QueryExecution:
         refuse_unported(self.session_properties)
         session = self.session_factory(self.session_properties)
         session.identity = Identity(self.user)
+        # procedures resolve the calling query through the session:
+        # system.runtime.kill_query refuses to kill its own query
+        session.query_id = self.query_id
         # statement-kind probe, unspanned: plan_sql parses again under its
         # own "parse" span
         stmt = parse_statement(self.sql)
@@ -635,16 +687,20 @@ class QueryExecution:
         and run the root fragment."""
         if any(isinstance(n, P.TableScanNode) and session.catalogs[n.catalog].coordinator_only
                for n in P.walk_plan(root)):
-            self._run_local(session, root, "local-catalog")
+            # process-local catalogs (memory, system) cannot ship to the
+            # workers; RUNNING is set, so a query reading
+            # system.runtime.queries sees itself as it runs
+            self._run_local(session, root, "local-catalog", "execute/coordinator-local")
             return
         from trino_tpu_torch.server import fastpath
 
         take, reason = fastpath.fast_path_decision(session, root)
         if take:
             self.fast_path_reason = reason
-            self._run_local(session, root, "fast-path")
+            self._run_local(session, root, "fast-path", "fastpath/execute", reason=reason)
             return
         self.fast_path = "distributed"
+        M.FAST_PATH_QUERIES.inc(1, "distributed")
         with self.tracer.span("fragment") as sp:
             fragments = self.fragments = fragment_plan(root, session)
             sp.set("fragments", len(fragments))
@@ -668,13 +724,19 @@ class QueryExecution:
         self.columns = fragments[-1].root.column_names
         self._materialize_result(session, result_page)
 
-    def _run_local(self, session, root, path: str) -> None:
+    def _run_local(self, session, root, path: str, span_name: str,
+                   reason: Optional[str] = None) -> None:
+        """The whole plan on the coordinator's own executor (a process-local
+        catalog, or the short-query fast path), under ``span_name``."""
         from trino_tpu_torch.exec.executor import Executor
 
         self.fast_path = path
+        M.FAST_PATH_QUERIES.inc(1, path)
         self.state.set("RUNNING")
         t0 = time.perf_counter()
-        with self.tracer.span("execute/coordinator-local"):
+        with self.tracer.span(span_name) as sp:
+            if reason is not None:
+                sp.set("reason", reason)
             ex = Executor(session, collect_stats=self._collect_stats or None)
             page = ex.execute_checked(root)
         self._local_executor = ex  # EXPLAIN ANALYZE's annotation source
@@ -708,7 +770,9 @@ class QueryExecution:
         """The result page as Python rows, refusing one over
         ``inline_result_max_bytes`` (the rows would all sit in this
         process)."""
-        rows = page.to_pylist()
+        with self.tracer.span("result/serialize") as sp:
+            rows = page.to_pylist()
+            sp.set("rows", len(rows))
         cap = int(session.properties.get("inline_result_max_bytes", 256 << 20))
         est = len(rows) * int(page.row_byte_estimate())
         if est > cap:
@@ -891,8 +955,11 @@ class QueryExecution:
             skew_spread_partitions=frag.skew_spread_partitions,
             skew_replicate_partitions=frag.skew_replicate_partitions,
             collect_stats=self._collect_stats)
+        # trace-context propagation: the worker parents its task span under
+        # the coordinator's current (schedule) span
         status, resp, _ = wire.http_request(
-            "POST", f"{worker['url']}/v1/task/{task_id}", req.to_bytes())
+            "POST", f"{worker['url']}/v1/task/{task_id}", req.to_bytes(),
+            headers={tracing.TRACEPARENT_HEADER: self.tracer.traceparent()})
         if status >= 400:
             raise RuntimeError(f"task create failed on {worker['nodeId']}: "
                                f"{resp[:300].decode(errors='replace')}")
@@ -1016,6 +1083,80 @@ class QueryExecution:
             e["workerUri"] = url_by_task.get(e["taskId"])
         return entries
 
+    # ------------------------------------------------------- phase ledger
+    def worker_spans(self, timeout: float = 3.0) -> List[dict]:
+        """Every scheduled task's span dump, fetched in parallel on the
+        server's pool with a short timeout: a worker that is gone loses its
+        spans, never the whole read."""
+        locations = [loc for locs in list(self.fragment_tasks.values()) for loc in list(locs)]
+        if not locations:
+            return []
+
+        def fetch(loc):
+            try:
+                status, body, _ = wire.http_request(
+                    "GET", f"{loc.base_url}/v1/task/{loc.task_id}/spans", timeout=timeout)
+                if status < 400:
+                    return json.loads(body).get("spans", ())
+            except Exception:  # noqa: BLE001 — a worker gone reads as no spans
+                pass
+            return ()
+
+        spans: List[dict] = []
+        if self.io_pool is not None:
+            try:
+                for dump in self.io_pool.map(fetch, locations):
+                    spans.extend(dump)
+                return spans
+            except RuntimeError:  # the pool shut down with the server
+                pass
+        for loc in locations:
+            spans.extend(fetch(loc))
+        return spans
+
+    # the pulls made before the terminal state is published (the ledger,
+    # the postmortem) wait at most this long for a worker
+    COMPLETION_PULL_TIMEOUT = 1.5
+
+    def _warm_timeline(self) -> None:
+        """Compute and cache the ledger (needs ``ended_at``): on the query
+        thread just before the terminal transition, so its listeners and
+        every later read get the cached result. Never fails the query."""
+        if self._timeline is not None or self.ended_at is None:
+            return
+        try:
+            from trino_tpu_torch.obs.timeline import compute_timeline
+
+            spans = (self.tracer.to_dicts()
+                     + self.worker_spans(timeout=self.COMPLETION_PULL_TIMEOUT))
+            self._timeline = compute_timeline(spans, self.created_at, self.ended_at)
+        except Exception:  # noqa: BLE001 — observability only
+            pass
+
+    def timeline_dict(self) -> Optional[dict]:
+        """The phase ledger: None while the query runs; computed once at
+        its end (a kill from another thread computes it on the first read).
+        ``client-drain`` is refreshed on every read: pages keep draining
+        after the wall ends."""
+        if not self.state.is_terminal() or self.ended_at is None:
+            return None
+        if self._timeline is None:
+            self._warm_timeline()
+        tl = self._timeline
+        if tl is None:
+            return None
+        if self.last_drain_at is not None:
+            tl.client_drain_s = max(0.0, self.last_drain_at - self.ended_at)
+        return tl.to_dict()
+
+    def _timeline_now(self) -> dict:
+        """A ledger over the spans recorded so far (EXPLAIN ANALYZE renders
+        its header before the query's wall closes)."""
+        from trino_tpu_torch.obs.timeline import compute_timeline
+
+        spans = self.tracer.to_dicts() + self.worker_spans()
+        return compute_timeline(spans, self.created_at, time.time()).to_dict()
+
     def query_stats(self, stages: Optional[List[dict]] = None) -> dict:
         """The query-level rollup: live while the query runs, frozen once
         it is terminal (polling stops and a FINISHED slot never changes)."""
@@ -1037,11 +1178,37 @@ class QueryExecution:
         qs["mvHits"] = len(self.mv_substitutions)
         if self.mv_substitutions:
             qs["mvNames"] = list(self.mv_substitutions)
+        # the phase ledger: per-phase exclusive wall, None until terminal
+        qs["timeline"] = self.timeline_dict()
         qs["memory"] = {"peakBytes": int(qs.get("peakBytes") or 0),
                         "shedBytes": int(qs.get("shedBytes") or 0),
                         "yieldEvents": int(qs.get("yieldEvents") or 0),
                         "spills": int(qs.get("spills") or 0)}
+        # the data-plane block: drain throughput and the straggler count
+        # (left out on a ledger hiccup rather than failing a stats poll)
+        try:
+            qs["flows"] = self.flow_stats_block()
+        except Exception:  # noqa: BLE001 — observability only
+            pass
         return qs
+
+    def flow_stats_block(self) -> dict:
+        """The protocol's ``stats.flows`` block: this query's client-drain
+        bytes and effective MB/s, and its straggler count."""
+        from trino_tpu_torch.obs.flowledger import FLOW_LEDGER
+
+        owner = f"drain:{self.query_id}"
+        drain_bytes = 0
+        drain_s = 0.0
+        for r in FLOW_LEDGER.transfer_rows():
+            if r["owner"] == owner:
+                drain_bytes += r["bytes"]
+                drain_s += r["seconds"]
+        return {
+            "drainBytes": drain_bytes,
+            "drainMbPerS": round(drain_bytes / drain_s / 1e6, 3) if drain_s > 0 else None,
+            "stragglers": len(self.straggler_rows()),
+        }
 
     # ---------------------------------------------------- flight recorder
     def capture_postmortem(self, store: bool = True, timeout: float = 3.0) -> dict:
@@ -1066,8 +1233,12 @@ class QueryExecution:
                 "nodeId": getattr(self.recorder, "node_id", "coordinator"),
                 "records": self.recorder.snapshot() if self.recorder is not None else [],
                 "memory": MEMORY_LEDGER.memory_snapshot(),
+                # the newest compile events and the utilization counters,
+                # and what was moving (and who waited on whom)
+                "profiler": _profiler_snapshot(),
+                "flows": _flows_snapshot(),
             },
-            "workers": pull_worker_rings(locations, timeout=timeout),
+            "workers": pull_worker_rings(locations, timeout=timeout, pool=self.io_pool),
         }
         if store:
             self.postmortem = pm
@@ -1116,6 +1287,90 @@ class QueryExecution:
         except Exception:  # noqa: BLE001 — observability only
             pass
 
+    def profile_dict(self) -> dict:
+        """``GET /v1/query/{id}/profile``: the merged kernel rows, this
+        query's compile events, recent utilization samples, the profiler's
+        counters and the phase ledger."""
+        from trino_tpu_torch.obs.devprofiler import DEVICE_PROFILER
+
+        kernels = (DEVICE_PROFILER.kernel_rows(self.query_id) if self._kernels_folded
+                   else self.kernel_rows_live())
+        return {
+            "queryId": self.query_id,
+            "state": self.state.get(),
+            "kernels": kernels,
+            "compiles": DEVICE_PROFILER.compile_rows(query_id=self.query_id),
+            "utilization": DEVICE_PROFILER.utilization_rows(limit=8),
+            "counters": DEVICE_PROFILER.counters(),
+            "timeline": self.timeline_dict(),
+        }
+
+    # ------------------------------------------------------- flow ledger
+    def _owns_flow(self, owner: str) -> bool:
+        """Whether a flow-ledger owner is this query's:
+        ``task:<query>.<fragment>.<slot>.a<n>``, ``task:<query>.root``,
+        ``query:<query>`` or ``drain:<query>``."""
+        return (owner == f"query:{self.query_id}" or owner == f"drain:{self.query_id}"
+                or owner.startswith(f"task:{self.query_id}."))
+
+    def _straggler_multiple(self) -> float:
+        """The ``straggler_multiple`` session property (a malformed value
+        falls back to the ledger's default)."""
+        from trino_tpu_torch.obs.flowledger import DEFAULT_STRAGGLER_MULTIPLE
+
+        try:
+            return float(self.session_properties.get("straggler_multiple",
+                                                     DEFAULT_STRAGGLER_MULTIPLE))
+        except (TypeError, ValueError):
+            return DEFAULT_STRAGGLER_MULTIPLE
+
+    def flow_rows_live(self) -> List[dict]:
+        """This query's per-link transfer rollups across the cluster: the
+        workers' from their announces (``flows``), the coordinator's from
+        its own ledger, each process once (a worker sharing this process
+        shares its ledger: server/system_tables.cluster_rows)."""
+        from trino_tpu_torch.obs.flowledger import FLOW_LEDGER
+        from trino_tpu_torch.server.system_tables import cluster_rows
+
+        return [dict(r, nodeId=nid) for nid, r in cluster_rows(
+                    self.registry, "flows", FLOW_LEDGER.transfer_rows,
+                    FLOW_LEDGER.node_id or "coordinator")
+                if self._owns_flow(str(r.get("owner", "")))]
+
+    def straggler_rows(self) -> List[dict]:
+        """Straggler verdicts over this query's task records: frozen at
+        the end by ``fold_flow_profile``, detected live before."""
+        if self._stragglers is not None:
+            return self._stragglers
+        from trino_tpu_torch.obs.flowledger import detect_stragglers
+
+        return detect_stragglers(self.task_records(), multiple=self._straggler_multiple())
+
+    def fold_flow_profile(self) -> None:
+        """Freeze the straggler verdicts once, at the end, and count them
+        by cause."""
+        if self._flows_folded:
+            return
+        self._flows_folded = True
+        self._stragglers = self.straggler_rows()
+        for f in self._stragglers:
+            M.STRAGGLER_TASKS.inc(1, f["cause"])
+
+    def flows_dict(self) -> dict:
+        """``GET /v1/query/{id}/flows``: this query's transfer rows across
+        the cluster, its straggler verdicts, and the process's stall
+        rollups and net totals."""
+        from trino_tpu_torch.obs.flowledger import FLOW_LEDGER
+
+        return {
+            "queryId": self.query_id,
+            "state": self.state.get(),
+            "transfers": self.flow_rows_live(),
+            "stragglers": self.straggler_rows(),
+            "stalls": FLOW_LEDGER.stall_rows(),
+            "net": FLOW_LEDGER.net_totals(),
+        }
+
     # ------------------------------------------------- EXPLAIN ANALYZE
     def _explain_analyze(self, session, stmt) -> str:
         """Distributed EXPLAIN ANALYZE: plan, execute through the real
@@ -1144,6 +1399,13 @@ class QueryExecution:
         mv_lines = mv_notes_header(self.mv_notes)
         if mv_lines:
             header.extend(mv_lines.rstrip("\n").split("\n"))
+        # the phase ledger over the spans recorded so far (this statement
+        # is still running while its header renders)
+        from trino_tpu_torch.obs.timeline import summarize
+
+        ledger = summarize(self._timeline_now())
+        if ledger:
+            header.append(f"Phase ledger: {ledger}")
         if self.fragments is None:
             # a process-local catalog or a fast-path plan ran on the
             # coordinator's own executor: annotate from it
@@ -1175,6 +1437,9 @@ class QueryExecution:
             f" input rows: {qs['totalRows']},"
             f" peak task memory: {qs['peakBytes'] // 1024}KiB,"
             f" spills: {qs['spills']}")
+        if qs.get("shedBytes"):
+            header.append(f"Memory pressure: {qs['shedBytes'] // 1024}KiB shed from revocable "
+                          f"caches across {qs.get('yieldEvents', 0)} yield event(s)")
         # the largest task peak each worker reached: the skewed node a
         # cluster-wide rollup hides
         node_peaks: Dict[str, int] = {}
@@ -1186,6 +1451,25 @@ class QueryExecution:
         if node_peaks:
             header.append("Peak task memory by node: " + ", ".join(
                 f"{node} {pb // 1024}KiB" for node, pb in sorted(node_peaks.items())))
+        # the flow ledger: bytes and effective rate a link for this query,
+        # then each straggler with its dominant cause
+        try:
+            by_link: Dict[str, list] = {}
+            for r in self.flow_rows_live():
+                agg = by_link.setdefault(r["link"], [0, 0.0])
+                agg[0] += int(r["bytes"])
+                agg[1] += float(r["seconds"])
+            if by_link:
+                header.append("Data flow: " + ", ".join(
+                    f"{link} {b / 1e6:.1f}MB" + (f" @ {b / s / 1e6:.1f}MB/s" if s > 0 else "")
+                    for link, (b, s) in sorted(by_link.items())))
+            for f in self.straggler_rows():
+                header.append(
+                    f"Straggler: task {f['taskId']} {f['elapsedS']:.2f}s"
+                    f" vs stage median {f['stageMedianS']:.2f}s"
+                    f" ({f['ratio']:.1f}x, {f['cause']})")
+        except Exception:  # noqa: BLE001 — annotations are observability
+            pass
         kern = None
         if stmt.verbose:
             kern = P.kernel_annotations(self.kernel_rows_live())
@@ -1209,8 +1493,12 @@ class QueryExecution:
         remote_pages: Dict[int, list] = {}
         for node in P.walk_plan(root_frag.root):
             if isinstance(node, RemoteSourceNode):
+                # the root gather is this query's exchange pull: its owner's
+                # "task:<query>." prefix groups it with the workers' pulls
                 client = ExchangeClient(self.fragment_tasks[node.fragment_id],
-                                        device=session.device)
+                                        device=session.device, tracer=self.tracer,
+                                        owner=f"task:{self.query_id}.root",
+                                        stall_key=(root_frag.id, None))
                 client.start()
                 remote_pages[node.fragment_id] = client.pages()
         ex = FragmentExecutor(session, {}, remote_pages, collect_stats=self._collect_stats or None)
@@ -1296,57 +1584,6 @@ class PlanMetaStore:
                                  if v[0]() is not None}
 
 
-class QueryHistory:
-    """Bounded ring of completed-query records (the reference's
-    ``QueryTracker`` expiry): the oldest go past ``MAX_HISTORY``."""
-
-    MAX_HISTORY = 100
-
-    def __init__(self):
-        self._entries: "OrderedDict[str, dict]" = OrderedDict()
-        self._lock = threading.Lock()
-
-    def __len__(self) -> int:
-        with self._lock:
-            return len(self._entries)
-
-    def record(self, entry: dict) -> None:
-        evicted = 0
-        with self._lock:
-            self._entries[entry["queryId"]] = entry
-            self._entries.move_to_end(entry["queryId"])
-            while len(self._entries) > self.MAX_HISTORY:
-                self._entries.popitem(last=False)
-                evicted += 1
-        if evicted:
-            M.QUERY_HISTORY_EVICTIONS.inc(evicted)
-
-    def snapshot(self) -> List[dict]:
-        """Newest first."""
-        with self._lock:
-            return list(reversed(self._entries.values()))
-
-
-def query_record(execution: QueryExecution, state: str, ended_at: float) -> dict:
-    """One terminal query's history record."""
-    qs = execution.query_stats(execution.stage_stats(include_operators=False))
-    return {
-        "queryId": execution.query_id,
-        "state": state,
-        "user": execution.user,
-        "source": execution.source,
-        "query": execution.sql,
-        "resourceGroup": execution.resource_group,
-        "createdAt": float(execution.created_at),
-        "endedAt": float(ended_at),
-        "elapsedMs": int(qs.get("elapsedMs", 0)),
-        "peakBytes": int(qs.get("peakBytes") or 0),
-        "resultRows": len(execution.rows),
-        "cacheStatus": execution.cache_status,
-        "failure": (execution.failure or "").split("\n")[0] or None,
-    }
-
-
 class CoordinatorServer:
     """The coordinator process: discovery registry, dispatch, statement
     protocol.
@@ -1375,8 +1612,10 @@ class CoordinatorServer:
                  executor_plane=None, executor_processes=None,
                  resource_groups_config=None, device=None):
         from trino_tpu_torch.connector.registry import default_catalogs
+        from trino_tpu_torch.obs import otlp
         from trino_tpu_torch.obs.devprofiler import DEVICE_PROFILER
         from trino_tpu_torch.obs.flightrecorder import FlightRecorder
+        from trino_tpu_torch.obs.flowledger import FLOW_LEDGER
         from trino_tpu_torch.obs.memledger import MEMORY_LEDGER
         from trino_tpu_torch.server.cluster_memory import (ClusterMemoryManager,
                                                            total_reservation_killer)
@@ -1417,7 +1656,13 @@ class CoordinatorServer:
         self.queries: Dict[str, QueryExecution] = {}
         self._qlock = threading.Lock()
         self._qid = itertools.count(1)
+        # the system catalog: the completed-query history ring, and the
+        # live provider that feeds system.runtime.* and system.metrics
+        # from this server's state at scan time
+        from trino_tpu_torch.server.system_tables import CoordinatorSystemTables, QueryHistory
+
         self.history = QueryHistory()
+        self.catalogs["system"].attach_live_provider(CoordinatorSystemTables(self))
         # admission: the resource-group tree (selector-routed, weighted-fair,
         # per-group concurrency, queue and memory limits), or an injected
         # flat gate
@@ -1437,16 +1682,34 @@ class CoordinatorServer:
             self.resource_group = self.resource_groups
         self.authenticator = authenticator
         self.events = ev.EventListenerManager()
+        # slow queries log with their slowest spans (threshold: the
+        # slow_query_log_threshold_ms session property, else
+        # TRINO_TPU_SLOW_QUERY_MS, else 30 s), and TRINO_TPU_QUERY_LOG
+        # names a JSONL query log; a listener's failure never fails a query
+        from trino_tpu_torch.obs.listeners import QueryLogListener, SlowQueryLogListener
+
+        self.events.add(SlowQueryLogListener())
+        query_log_path = os.environ.get("TRINO_TPU_QUERY_LOG")
+        if query_log_path:
+            self.events.add(QueryLogListener(query_log_path))
         self.queries_submitted = 0
         self.start_time = time.time()
         # this process's flight recorder; the process memory ledger and
         # device profiler take the first server's identity and mirror their
         # events into it
         self.recorder = FlightRecorder(node_id="coordinator")
-        for ledger in (MEMORY_LEDGER, DEVICE_PROFILER):
+        for ledger in (MEMORY_LEDGER, DEVICE_PROFILER, FLOW_LEDGER):
             if not ledger.node_id:
                 ledger.node_id = "coordinator"
             ledger.attach_recorder(self.recorder)
+        # OTLP export, on only when TRINO_TPU_OTLP_ENDPOINT is set: a
+        # completed query's coordinator spans go to the collector from a
+        # background exporter, never from the query path
+        self.otlp = otlp.exporter_from_env("trino-tpu-coordinator")
+        # the pool of parallel pulls from the workers (span dumps, flight-
+        # recorder rings), made on first use and shut down with the server
+        self._io_pool = None
+        self._io_pool_lock = threading.Lock()
         # executor_processes sizes the process plane, which resolve_plane refuses
         self.dispatcher = Dispatcher(
             self, lanes=executor_lanes, queue_capacity=dispatch_queue_capacity,
@@ -1456,6 +1719,16 @@ class CoordinatorServer:
         self.base_url = f"http://127.0.0.1:{self.port}"
         self._serve_thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
 
+    @property
+    def io_pool(self):
+        """The server's pool of parallel pulls (made on first use)."""
+        with self._io_pool_lock:
+            if self._io_pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                self._io_pool = ThreadPoolExecutor(max_workers=16, thread_name_prefix="coord-io")
+            return self._io_pool
+
     def start(self) -> None:
         self._serve_thread.start()
         self.dispatcher.ensure_lanes()
@@ -1464,6 +1737,13 @@ class CoordinatorServer:
         self.httpd.shutdown()
         self.httpd.server_close()
         self.dispatcher.shutdown()
+        with self._io_pool_lock:
+            pool, self._io_pool = self._io_pool, None
+        if pool is not None:
+            pool.shutdown(wait=False)
+        if self.otlp is not None:
+            # flush and stop the exporter: a stopped server reports nothing
+            self.otlp.shutdown()
 
     def submit(self, sql: str, properties: Optional[dict] = None,
                user: str = "anonymous", source: str = "") -> QueryExecution:
@@ -1483,6 +1763,7 @@ class CoordinatorServer:
         execution.source = source
         execution.recorder = self.recorder
         execution.tracer.recorder = self.recorder
+        execution.io_pool = self.io_pool
         self.recorder.record("admission", "submitted", queryId=query_id, user=user)
         with self._qlock:
             if len(self.queries) > self.MAX_QUERY_HISTORY:
@@ -1511,9 +1792,10 @@ class CoordinatorServer:
         return execution
 
     def _on_terminal(self, execution: QueryExecution, state: str, created_at: float) -> None:
-        """The terminal listener: serving-index upkeep, the wall and peak
-        histograms, the history record, the postmortem of a FAILED query
-        killed from another thread, and the completed event."""
+        """The terminal listener: serving-index upkeep, the wall, peak and
+        phase histograms, the frozen straggler verdicts, the postmortem of
+        a FAILED query killed from another thread, the completed event, the
+        OTLP export and the history record."""
         if state not in ("FINISHED", "FAILED", "CANCELED"):
             return
         try:
@@ -1525,11 +1807,21 @@ class CoordinatorServer:
         M.QUERY_SECONDS.observe(wall, state)
         self.recorder.record("event", "query-completed", queryId=execution.query_id,
                              state=state, wallS=round(wall, 6))
+        from trino_tpu_torch.obs.timeline import observe_phases
+        from trino_tpu_torch.server.system_tables import (DEFAULT_MAX_HISTORY,
+                                                          DEFAULT_MIN_EXPIRE_AGE_MS, query_record)
+
+        timeline = None
         try:
             peak = int(execution.query_stats().get("peakBytes") or 0)
             if peak:
                 M.QUERY_PEAK_MEMORY_BYTES.observe(peak, state)
-            self.history.record(query_record(execution, state, now))
+            # the phase ledger, computed once, feeds the phase histogram
+            timeline = execution.timeline_dict()
+            if timeline is not None:
+                observe_phases(timeline)
+            execution.fold_kernel_profile()
+            execution.fold_flow_profile()
         except Exception:  # noqa: BLE001 — observability never disturbs the transition
             pass
         if state == "FAILED" and execution.postmortem is None:
@@ -1542,7 +1834,34 @@ class CoordinatorServer:
             len(execution.rows), execution.failure,
             spans=tuple(execution.tracer.to_dicts()),
             session_properties=dict(execution.session_properties),
-            postmortem=execution.postmortem))
+            timeline=timeline, postmortem=execution.postmortem))
+        if self.otlp is not None:
+            # the coordinator's half of the trace (each task exports its
+            # own), with the query's bytes a link and its straggler count
+            attrs = {"query_id": execution.query_id, "query.user": execution.user,
+                     "query.state": state}
+            try:
+                by_link: Dict[str, int] = {}
+                for r in execution.flow_rows_live():
+                    by_link[r["link"]] = by_link.get(r["link"], 0) + int(r["bytes"])
+                for link, nbytes in sorted(by_link.items()):
+                    attrs[f"flow.{link}.bytes"] = nbytes
+                attrs["flow.stragglers"] = len(execution.straggler_rows())
+            except Exception:  # noqa: BLE001 — observability only
+                pass
+            self.otlp.export_spans(execution.tracer.to_dicts(), execution.tracer.trace_id, attrs)
+        # the history ring is shared: a session's retention properties may
+        # only grow it beyond the server's defaults, never shrink it
+        try:
+            props = execution.session_properties
+            self.history.record(
+                query_record(execution, state=state, ended_at=now),
+                max_history=max(DEFAULT_MAX_HISTORY, _int_property(
+                    props, "query_max_history", DEFAULT_MAX_HISTORY)),
+                min_expire_age_ms=max(DEFAULT_MIN_EXPIRE_AGE_MS, _int_property(
+                    props, "query_min_expire_age_ms", DEFAULT_MIN_EXPIRE_AGE_MS)))
+        except Exception:  # noqa: BLE001 — observability never disturbs the transition
+            pass
 
     ADMISSION_DEADLINE_S = 600.0
 
@@ -1602,6 +1921,31 @@ class CoordinatorServer:
     def get_query(self, query_id: str) -> Optional[QueryExecution]:
         with self._qlock:
             return self.queries.get(query_id)
+
+    def query_trace(self, query_id: str, include_recorder: bool = False) -> Optional[dict]:
+        """The query's span tree across processes: the coordinator's spans
+        and each task's dump (pulled now), with the phase ledger once the
+        query ended. ``include_recorder`` attaches the flight-recorder
+        postmortem: the one taken at FAILED, else a live merge of the
+        rings."""
+        from trino_tpu_torch.obs.trace import build_tree
+
+        q = self.get_query(query_id)
+        if q is None:
+            return None
+        spans = q.tracer.to_dicts() + q.worker_spans()
+        trace = {
+            "queryId": q.query_id,
+            "traceId": q.tracer.trace_id,
+            "state": q.state.get(),
+            "spanCount": len(spans),
+            "timeline": q.timeline_dict(),
+            "root": build_tree(spans),
+        }
+        if include_recorder:
+            trace["postmortem"] = (q.postmortem if q.postmortem is not None
+                                   else q.capture_postmortem(store=False))
+        return trace
 
     def query_state_counts(self):
         """(queries by state, result rows held by FINISHED queries)."""
@@ -1663,12 +2007,138 @@ def _result_payload(server: CoordinatorServer, q: QueryExecution, token: int) ->
         payload["deallocatedPreparedStatements"] = list(q.deallocated_prepared)
     start = token * RESULT_PAGE_ROWS
     chunk = q.rows[start:start + RESULT_PAGE_ROWS]
+    # the phase ledger's client-drain: the wall is over, the client still
+    # fetches pages
+    q.last_drain_at = time.time()
     payload["columns"] = [{"name": c} for c in q.columns]
     payload["data"] = [[_jsonable(v) for v in row] for row in chunk]
     if start + RESULT_PAGE_ROWS < len(q.rows):
         payload["nextUri"] = (f"{server.base_url}/v1/statement/executing/"
                               f"{q.query_id}/{token + 1}")
     return payload
+
+
+def _drain_body(server: CoordinatorServer, q: QueryExecution, token: int) -> bytes:
+    """One statement-protocol response, serialized; a response that carries
+    rows charges its bytes and serialize wall to the query's
+    ``client-drain`` flow (the socket write is the client's)."""
+    t0 = time.perf_counter()
+    payload = _result_payload(server, q, token)
+    body = json.dumps(payload).encode()
+    if "data" in payload:
+        try:
+            from trino_tpu_torch.obs.flowledger import FLOW_LEDGER
+
+            FLOW_LEDGER.record_transfer(
+                "client-drain", f"drain:{q.query_id}", len(body), time.perf_counter() - t0,
+                pages=len(payload["data"]), src=FLOW_LEDGER.node_id or "coordinator",
+                dst="client", direction="send")
+            if "nextUri" not in payload:
+                # the last page: its stats count this response's own bytes
+                payload["stats"]["flows"] = q.flow_stats_block()
+                body = json.dumps(payload).encode()
+        except Exception:  # noqa: BLE001 — accounting never fails serving
+            pass
+    return body
+
+
+def _profiler_snapshot() -> dict:
+    """The postmortem's device-profiler block: the newest compile events
+    and the utilization counters."""
+    try:
+        from trino_tpu_torch.obs.devprofiler import DEVICE_PROFILER
+
+        return {"compiles": DEVICE_PROFILER.compile_rows(limit=16),
+                "counters": DEVICE_PROFILER.counters()}
+    except Exception:  # noqa: BLE001 — best-effort forensics
+        return {}
+
+
+def _flows_snapshot() -> dict:
+    """The postmortem's flow-ledger block: per-link rollups, net totals,
+    the newest transfers and the stall rollups."""
+    try:
+        from trino_tpu_torch.obs.flowledger import FLOW_LEDGER
+
+        return FLOW_LEDGER.flow_snapshot()
+    except Exception:  # noqa: BLE001 — best-effort forensics
+        return {}
+
+
+def _int_property(properties: dict, name: str, default: int) -> int:
+    """An integer session property from the raw (wire-string) map; a
+    malformed value falls back to the default."""
+    try:
+        return int(properties.get(name, default))
+    except (TypeError, ValueError):
+        return default
+
+
+def _render_ui(server: CoordinatorServer) -> str:
+    """The coordinator's status page: live queries with their progress and
+    stages, the resource groups, the workers and the recent queries of the
+    history ring (the reference's web UI, rendered on the server)."""
+    import html
+
+    rows = []
+    with server._qlock:
+        queries = sorted(server.queries.items(), reverse=True)
+    for qid, q in queries[:50]:
+        state = q.state.get()
+        stage_list = q.stage_stats(include_operators=False)
+        qs = q.query_stats(stage_list)
+        stages = " ".join(f"f{s['stageId']}: {s['outputRows']} rows/{s['wallS'] * 1e3:.0f}ms"
+                          for s in stage_list) or "—"
+        progress = (f"{qs['completedSplits']}/{qs['totalSplits']} splits, "
+                    f"{qs['elapsedMs'] / 1e3:.1f}s")
+        rows.append(
+            f"<tr><td>{html.escape(qid)}</td><td class='s {state}'>{state}</td>"
+            f"<td>{html.escape(q.user)}</td>"
+            f"<td><code>{html.escape(q.sql.strip()[:120])}</code></td>"
+            f"<td>{html.escape(progress)}</td><td>{html.escape(stages)}</td></tr>")
+    nodes = "".join(f"<tr><td>{html.escape(n['nodeId'])}</td><td>{html.escape(n['url'])}</td></tr>"
+                    for n in server.registry.alive())
+    recent = []
+    for rec in server.history.snapshot()[:50]:
+        recent.append(
+            f"<tr><td>{html.escape(rec['queryId'])}</td>"
+            f"<td class='s {rec['state']}'>{rec['state']}</td>"
+            f"<td>{rec['elapsedMs'] / 1e3:.1f}s</td><td>{rec['resultRows']}</td>"
+            f"<td>{html.escape(rec['cacheStatus'] or '—')}</td><td>{rec['adaptations']}</td>"
+            f"<td><code>{html.escape((rec['query'] or '').strip()[:100])}</code></td></tr>")
+    recent_html = "".join(recent) or "<tr><td colspan='7'>no completed queries yet</td></tr>"
+    rg = server.resource_group.info()
+    group_rows = "".join(
+        f"<tr><td>{html.escape(gname)}</td><td>{g['state']}</td><td>{g['running']}</td>"
+        f"<td>{g['queued']}</td><td>{g['served']}</td><td>{g['weight']}</td></tr>"
+        for gname, g in sorted(rg.get("groups", {}).items()))
+    groups_html = (
+        "<h2>resource groups <small>(<code>select * from system.runtime.resource_groups"
+        "</code>)</small></h2><table><tr><th>group</th><th>state</th><th>running</th>"
+        f"<th>queued</th><th>served</th><th>weight</th></tr>{group_rows}</table>"
+        if group_rows else "")
+    return f"""<!doctype html><html><head><meta http-equiv="refresh" content="3">
+<title>trino-tpu</title><style>
+body{{font-family:monospace;margin:2em;background:#111;color:#ddd}}
+table{{border-collapse:collapse;margin:1em 0;width:100%}}
+td,th{{border:1px solid #333;padding:4px 10px;text-align:left}}
+.s.FINISHED{{color:#6c6}}.s.FAILED{{color:#e66}}.s.RUNNING{{color:#6ae}}
+h1,h2{{color:#fff}}</style></head><body>
+<h1>trino-tpu coordinator</h1>
+<p>device {html.escape(str(server.device))}; resource group "{rg['name']}": {rg['running']}
+running, {rg['queued']} queued (limit {rg['hardConcurrencyLimit']})</p>
+{groups_html}
+<h2>workers</h2><table><tr><th>node</th><th>url</th></tr>{nodes}</table>
+<h2>queries <small>(<a href="#recent" style="color:#6ae">recent queries</a> ·
+<code>select * from system.runtime.queries</code>)</small></h2>
+<table>
+<tr><th>query id</th><th>state</th><th>user</th><th>query</th>
+<th>progress</th><th>stages (rows/wall)</th></tr>
+{''.join(rows)}</table>
+<h2 id="recent">recent queries</h2><table>
+<tr><th>query id</th><th>state</th><th>elapsed</th><th>rows</th>
+<th>cache</th><th>adaptations</th><th>query</th></tr>
+{recent_html}</table></body></html>"""
 
 
 def _make_handler(server: CoordinatorServer):
@@ -1765,8 +2235,7 @@ def _make_handler(server: CoordinatorServer):
                 # a short query finishes inside this wait: one round trip
                 if not q.state.is_terminal():
                     q.state.wait_for_terminal(0.5)
-                self._send(200, json.dumps(_result_payload(server, q, 0)).encode(),
-                           headers=_cache_header(q))
+                self._send(200, _drain_body(server, q, 0), headers=_cache_header(q))
                 return
             self._send(404)
 
@@ -1783,9 +2252,34 @@ def _make_handler(server: CoordinatorServer):
                     return
                 if not q.state.is_terminal():
                     q.state.wait_for_terminal(0.5)
-                self._send(200, json.dumps(
-                    _result_payload(server, q, int(m.group(2)))).encode(),
-                    headers=_cache_header(q))
+                self._send(200, _drain_body(server, q, int(m.group(2))),
+                           headers=_cache_header(q))
+                return
+            # the trace route takes a query string (?recorder=1 attaches
+            # the flight-recorder postmortem)
+            from urllib.parse import parse_qs, urlsplit
+
+            url_parts = urlsplit(self.path)
+            for regex, kind in ((_TRACE_RE, "trace"), (_PROFILE_RE, "profile"),
+                                (_FLOWS_RE, "flows")):
+                m = regex.match(url_parts.path)
+                if not m:
+                    continue
+                q = server.get_query(m.group(1))
+                if not self._authenticated(query=q):
+                    return
+                body = None
+                if q is not None and kind == "trace":
+                    recorder = parse_qs(url_parts.query).get("recorder", ["0"])[0]
+                    body = server.query_trace(
+                        m.group(1), include_recorder=recorder not in ("0", "", "false"))
+                elif q is not None:
+                    body = q.profile_dict() if kind == "profile" else q.flows_dict()
+                if body is None:
+                    # an eviction between the two lookups too: never 200 null
+                    self._send(404, b'{"error": "no such query"}')
+                    return
+                self._send(200, json.dumps(body).encode())
                 return
             m = _QUERY_RE.match(self.path)
             if m:
@@ -1806,6 +2300,9 @@ def _make_handler(server: CoordinatorServer):
                 return
             if self.path == "/v1/metrics":
                 self._send(200, ev.render_metrics(server).encode(), "text/plain; version=0.0.4")
+                return
+            if self.path in ("/ui", "/ui/"):
+                self._send(200, _render_ui(server).encode(), "text/html")
                 return
             self._send(404)
 

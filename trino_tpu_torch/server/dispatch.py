@@ -184,6 +184,7 @@ class DispatchQueue:
         from trino_tpu_torch.obs import metrics as M
 
         with self._lock:
+            # lint: allow(blocking-under-lock) Condition.wait_for RELEASES the lock while parked
             self._cond.wait_for(
                 lambda: self._dq or self._closed, timeout)
             if not self._dq:
@@ -585,8 +586,7 @@ class Dispatcher:
     # ----------------------------------------------------------- ownership
     def serving_rows(self) -> List[tuple]:
         """Rows of ``system.runtime.serving``: every shared serving-plane
-        structure with its owner (the reference's row shape; the port has
-        no system catalog yet, so its callers read the rows directly)."""
+        structure with its owner (the reference's row shape)."""
         s = self._server
         owner = "dispatch-process"
         shard = "dispatch-process"

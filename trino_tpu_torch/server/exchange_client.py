@@ -5,8 +5,11 @@ The port of trino_tpu/server/exchange_client.py (reference:
 one puller thread per upstream location, token-acknowledged
 at-least-once pulls, a bounded client queue for backpressure. Pulled
 pages are decoded onto the consumer's device (one host->device copy an
-array). The reference's fault-tolerant tier (reading a failed producer's
-spooled output) and its flow-ledger records are not ported.
+array). Each pull stream is one ``exchange/pull`` span under the span that
+made the client, and one ``exchange-pull`` flow-ledger record of the bytes
+it pulled (the bytes ``EXCHANGE_BYTES`` counts); an empty poll is an
+``exchange-poll`` stall sample. The reference's fault-tolerant tier
+(reading a failed producer's spooled output) is not ported.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ from typing import List, Optional
 from trino_tpu_torch.data.page import Page
 from trino_tpu_torch.data.serde import deserialize_page
 from trino_tpu_torch.obs import metrics as M
+from trino_tpu_torch.obs import trace as tracing
+from trino_tpu_torch.obs.flowledger import FLOW_LEDGER
 from trino_tpu_torch.server import wire
 
 
@@ -42,11 +47,15 @@ class ExchangeClient:
     ``max_buffered_pages`` is the backpressure bound: pullers block once the
     local queue is full, which stalls their token advance, which leaves
     pages queued in the upstream OutputBuffer. ``device``: where decoded
-    pages land.
+    pages land. ``owner`` names the pulled bytes in the flow ledger
+    (``task:<id>``), ``stall_key`` labels the empty-poll samples
+    (stage, partition); the spans go to ``tracer`` (default: the ambient
+    one of the constructing thread).
     """
 
     def __init__(self, locations: List[TaskLocation], max_buffered_pages: int = 64,
-                 device="cpu"):
+                 device="cpu", tracer: Optional["tracing.Tracer"] = None,
+                 owner: Optional[str] = None, stall_key=None):
         self._locations = list(locations)
         self._queue: "queue.Queue" = queue.Queue(maxsize=max_buffered_pages)
         self._lock = threading.Lock()
@@ -56,6 +65,16 @@ class ExchangeClient:
         # producer had nothing ready: consumer-side backpressure)
         self.pulled_seconds = 0.0
         self.stalled_seconds = 0.0
+        self._owner = owner or "exchange"
+        self._stall_key = stall_key if stall_key is not None else (None, None)
+        # the span context is taken here, on the consumer's thread: the
+        # pullers' spans parent under the span that made the client
+        if tracer is None:
+            ambient = tracing.current()
+            if ambient is not None:
+                tracer = ambient[0]
+        self._tracer = tracer
+        self._parent_span_id = tracer.current_span_id() if tracer is not None else None
         # named by the upstream task, whose id starts with its query's
         self._threads = [threading.Thread(target=self._pull, args=(loc,), daemon=True,
                                           name=f"exchange:{loc.task_id}")
@@ -70,14 +89,20 @@ class ExchangeClient:
     def _request_with_retry(self, loc: TaskLocation, token: int):
         """Retry transient failures with the SAME token (re-reading an
         un-acked token is safe; only the token advance is an ack). Returns
-        (body, headers); a terminal failure names every attempt."""
+        (body, headers, attempts, last status); a terminal failure names
+        every attempt."""
         delay = 0.2
         history: List[str] = []
+        trace_headers = ({tracing.TRACEPARENT_HEADER: self._tracer.traceparent(
+            self._parent_span_id)} if self._tracer is not None else None)
         for attempt in range(self.MAX_ATTEMPTS):
+            M.EXCHANGE_REQUESTS.inc()
+            if attempt:
+                M.EXCHANGE_RETRIES.inc()
             t0 = time.perf_counter()
             try:
                 status, body, headers = wire.http_request(
-                    "GET", loc.results_url(token), timeout=120.0)
+                    "GET", loc.results_url(token), timeout=120.0, headers=trace_headers)
             except Exception as e:  # noqa: BLE001 — socket-level failure
                 history.append(f"#{attempt + 1} {type(e).__name__} after "
                                f"{time.perf_counter() - t0:.3f}s: {str(e)[:120]}")
@@ -97,27 +122,41 @@ class ExchangeClient:
             if status >= 400:
                 raise RuntimeError(
                     f"exchange pull {loc} -> {status}: {body[:300].decode(errors='replace')}")
-            return body, headers
+            return body, headers, attempt + 1, str(status)
         raise RuntimeError(f"exchange pull {loc}: retries exhausted after "
                            f"{len(history)} attempts [{'; '.join(history)}]")
 
     def _pull(self, loc: TaskLocation) -> None:
         token = 0
+        # one span a location, over its whole pull stream
+        sp = (self._tracer.start_span("exchange/pull", parent_id=self._parent_span_id,
+                                      task=loc.task_id, buffer=loc.buffer_id)
+              if self._tracer is not None else tracing.NOOP_SPAN)
+        pulled_bytes = pulled_pages = retries = 0
+        pull_seconds = 0.0
+        last_status: Optional[str] = None
         try:
             while True:
                 t0 = time.perf_counter()
-                body, headers = self._request_with_retry(loc, token)
+                body, headers, attempts, last_status = self._request_with_retry(loc, token)
                 waited = time.perf_counter() - t0
+                pull_seconds += waited
+                retries += attempts - 1
                 with self._lock:
                     self.pulled_seconds += waited
                 failed = headers.get(wire.H_TASK_FAILED)
                 if failed:
                     raise RuntimeError(f"upstream task {loc.task_id} failed: {failed}")
                 M.EXCHANGE_BYTES.inc(len(body))
+                pulled_bytes += len(body)
                 frames = wire.unframe_pages(body)
                 if not frames:
+                    # the producer had nothing ready: a consumer-starved sample
+                    stage, partition = self._stall_key
+                    FLOW_LEDGER.record_stall("exchange-poll", stage, partition, waited)
                     with self._lock:
                         self.stalled_seconds += waited
+                pulled_pages += len(frames)
                 for pb in frames:
                     self._queue.put(deserialize_page(pb, self._device))
                 token = int(headers.get(wire.H_NEXT_TOKEN, token))
@@ -126,10 +165,21 @@ class ExchangeClient:
                     wire.http_request("DELETE", loc.results_url(token), timeout=10.0)
                     break
         except Exception as e:  # noqa: BLE001 — surfaced to the consumer
+            sp.set("error", str(e)[:300])
             with self._lock:
                 if self._failure is None:
                     self._failure = str(e)
         finally:
+            sp.set("bytes", pulled_bytes)
+            sp.set("pages", pulled_pages)
+            if self._tracer is not None:
+                self._tracer.end_span(sp)
+            # one flow record a pull stream: the whole conversation with
+            # this upstream location
+            FLOW_LEDGER.record_transfer(
+                "exchange-pull", self._owner, pulled_bytes, pull_seconds, pages=pulled_pages,
+                src=loc.base_url, dst=FLOW_LEDGER.node_id or None, retries=retries,
+                status=last_status)
             self._queue.put(None)  # wake the consumer
 
     def iter_pages(self):

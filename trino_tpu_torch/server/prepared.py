@@ -61,9 +61,8 @@ def count_parameters(stmt) -> int:
 
 @dataclasses.dataclass
 class PreparedStatement:
-    """One registered statement: the parsed inner AST plus bookkeeping (the
-    reference's ``system.runtime.prepared_statements`` table surfaces it;
-    the port's system catalog waits for ROADMAP queue 1, item 8)."""
+    """One registered statement: the parsed inner AST plus bookkeeping the
+    ``system.runtime.prepared_statements`` table surfaces."""
 
     user: str
     name: str

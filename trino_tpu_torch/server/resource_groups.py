@@ -598,6 +598,7 @@ class ResourceGroupTree:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     return None
+                # lint: allow(blocking-under-lock) Condition.wait RELEASES the lock while parked
                 self._cond.wait(remaining)
         # metric fan-out OUTSIDE the lock (lock-discipline gate)
         self._publish_gauges(*gauges)

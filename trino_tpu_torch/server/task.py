@@ -24,9 +24,18 @@ launches work. Each rise of the task's peak is a memory-ledger
 ends; ``TaskManager.query_memory`` is the worker's per-query reservation
 that its announce carries to the coordinator's cluster memory manager.
 
-Not ported: the fault-tolerant tier (spooled task output, retries), the
-spooled result segments and the flow ledger; the coordinator refuses the
-session properties that ask for them.
+A task's spans (``task``, then ``device/staging`` a scan and
+``device/execute`` a body, its pulls' ``exchange/pull``) join the query's
+trace under the coordinator's schedule span, named in the traceparent
+header of the task's creation; ``GET /v1/task/{id}/spans`` serves them and,
+with an OTLP exporter, the finished task ships them to the collector. Its
+pulls and its output buffer's full-waits are flow-ledger records labelled
+with its stage. At its end, its operators' walls and rows feed the
+per-operator series.
+
+Not ported: the fault-tolerant tier (spooled task output, retries) and the
+spooled result segments; the coordinator refuses the session properties
+that ask for them.
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ from trino_tpu_torch.exec.executor import Executor
 from trino_tpu_torch.exec.memory import page_bytes
 from trino_tpu_torch.exec.operator_stats import OperatorStats
 from trino_tpu_torch.obs import metrics as M
+from trino_tpu_torch.obs import trace as tracing
 from trino_tpu_torch.obs.devprofiler import merge_kernel_rows
 from trino_tpu_torch.obs.memledger import MEMORY_LEDGER, POOL_DEVICE
 from trino_tpu_torch.server.buffer import (DEFAULT_MAX_BUFFER_BYTES, OutputBuffer,
@@ -118,10 +128,14 @@ class FragmentExecutor(Executor):
             M.STAGING_SECONDS.inc(time.perf_counter() - t0)
             return page, rows, _mem.page_bytes(page), len(splits)
 
-        # the task's split set is the cache entry's shard: the next query
-        # over the same splits finds it warm
-        ent, disposition = devcache.cached_stage(
-            self.session, node, constraint, {}, devcache.splits_shard(splits), load)
+        with tracing.span("device/staging", table=node.table, splits=len(splits)) as sp:
+            # the task's split set is the cache entry's shard: the next
+            # query over the same splits finds it warm
+            ent, disposition = devcache.cached_stage(
+                self.session, node, constraint, {}, devcache.splits_shard(splits), load)
+            # a warm scan staged nothing
+            sp.set("staged_rows", 0 if disposition == "hit" else ent.rows)
+            sp.set("cache", disposition)
         self.scan_stats[node.id] = ent.rows
         self.scan_cache[node.id] = disposition
         if self.collect_stats:
@@ -150,16 +164,31 @@ class SqlTask:
     PLANNED -> RUNNING -> FLUSHING (body done, buffer draining) ->
     FINISHED (TaskState.java:21)."""
 
-    def __init__(self, request: TaskRequest, session_factory):
+    def __init__(self, request: TaskRequest, session_factory,
+                 traceparent: Optional[str] = None, recorder=None, otlp=None):
         self.request = request
         self.state: StateMachine[str] = task_state_machine()
+        # the worker's half of the query's trace: its trace id, the spans
+        # rooted under the coordinator's propagated (schedule) span; no
+        # header starts a detached trace (a task posted directly)
+        ctx = tracing.parse_traceparent(traceparent)
+        self.tracer = tracing.Tracer(trace_id=ctx[0] if ctx else None,
+                                     root_parent_id=ctx[1] if ctx else None)
+        # closed spans mirror into the worker's flight recorder; the
+        # finished task's spans go to the OTLP exporter when there is one
+        self.tracer.recorder = recorder
+        self._otlp = otlp
         sink_max = int(request.session_properties.get("sink_max_buffer_bytes")
                        or DEFAULT_MAX_BUFFER_BYTES)
+        # the flow ledger's stall samples carry this task's stage
+        self.stage_id = _task_stage_id(request.task_id)
         if request.output_partition_channels is not None:
             self.output = PartitionedOutputBuffer(request.consumer_count,
-                                                  max_buffer_bytes=sink_max)
+                                                  max_buffer_bytes=sink_max,
+                                                  stall_stage=self.stage_id)
         else:
-            self.output = OutputBuffer(request.consumer_count, max_buffer_bytes=sink_max)
+            self.output = OutputBuffer(request.consumer_count, max_buffer_bytes=sink_max,
+                                       stall_key=(self.stage_id, None))
         self.failure: Optional[str] = None
         # the largest peak of this task's executors (they run one after
         # another), and the one running now
@@ -303,24 +332,48 @@ class SqlTask:
             self._thread.start()
 
     def _run(self) -> None:
+        task_span = self.tracer.start_span("task", task_id=self.request.task_id,
+                                           query_id=self.request.query_id)
         try:
-            self._run_body()
+            with tracing.activate(self.tracer, task_span.span_id):
+                self._run_body()
         except Exception as e:  # noqa: BLE001 — reported through task status
             self.failure = f"{e}\n{traceback.format_exc()}"
+            task_span.set("error", str(e).split("\n")[0][:300])
             self.output.abort(str(e))
             self.state.set("FAILED")
         finally:
             self.ended_at = time.monotonic()
+            self._observe_operator_metrics()
             if self.peak_memory_bytes:
                 MEMORY_LEDGER.record_event("release", POOL_DEVICE,
                                            f"query:{self.request.query_id}",
                                            self.peak_memory_bytes, reason="done")
+            task_span.set("state", self.state.get())
+            self.tracer.end_span(task_span)
+            if self._otlp is not None:
+                self._otlp.export_spans(
+                    self.tracer.to_dicts(), self.tracer.trace_id,
+                    {"query_id": self.request.query_id, "task_id": self.request.task_id,
+                     "task.state": self.state.get()})
+
+    def _observe_operator_metrics(self) -> None:
+        """The per-operator-kind series from the task's accumulated stats,
+        once, at its end."""
+        with self._stats_lock:
+            snapshot = [(st.operator, st.wall_s, st.output_rows)
+                        for st in self.operator_stats.values()]
+        for operator, wall_s, rows in snapshot:
+            M.OPERATOR_WALL_SECONDS.observe(wall_s, operator)
+            if rows:
+                M.OPERATOR_ROWS.inc(rows, operator)
 
     def _exchange_client(self, locations, device):
         from trino_tpu_torch.server.exchange_client import ExchangeClient, TaskLocation
 
         client = ExchangeClient([TaskLocation(u, t, b) for u, t, b in locations],
-                                device=device)
+                                device=device, owner=f"task:{self.request.task_id}",
+                                stall_key=(self.stage_id, None))
         with self._stats_lock:
             self._exchange_clients.append(client)
         client.start()
@@ -328,6 +381,17 @@ class SqlTask:
 
     def _run_body(self) -> None:
         req = self.request
+        # fault injection, keyed by a substring of the task id (the
+        # reference's FailureInjector): ``failure_injection`` fails the
+        # task, ``slow_injection`` ("substr:seconds") delays it
+        inject = str(req.session_properties.get("failure_injection") or "")
+        if inject and inject in req.task_id:
+            raise RuntimeError(f"injected failure for {req.task_id}")
+        slow = str(req.session_properties.get("slow_injection") or "")
+        if slow:
+            sub, _, secs = slow.partition(":")
+            if sub and sub in req.task_id:
+                time.sleep(float(secs or "5"))
         session = self._session_factory(req.session_properties)
         if self._try_streaming(req, session):
             return
@@ -337,9 +401,13 @@ class SqlTask:
             fid: self._exchange_client(locations, session.device).pages()
             for fid, locations in req.upstream.items()}
         ex = self._executor(session, req.splits, remote_pages)
-        t0 = time.perf_counter()
-        page = ex.execute_checked(req.fragment_root)
-        device_s = time.perf_counter() - t0
+        with tracing.span("device/execute") as sp:
+            t0 = time.perf_counter()
+            page = ex.execute_checked(req.fragment_root)
+            device_s = time.perf_counter() - t0
+            sp.set("device_seconds", round(device_s, 6))
+            sp.set("staged_rows", sum(ex.scan_stats.values()))
+            sp.set("output_rows", int(page.num_rows))
         remote_rows = sum(p.num_rows for pages in remote_pages.values() for p in pages)
         self._retire_executor(ex, splits=self.total_splits,
                               input_rows=sum(ex.scan_stats.values()) + remote_rows,
@@ -469,14 +537,24 @@ class SqlTask:
         splits = req.splits[scan.id]
         if len(splits) <= 1:
             return False
-        for split in splits:
-            ex = self._executor(session, {scan.id: [split]}, {})
-            t0 = time.perf_counter()
-            out = ex.execute_checked(req.fragment_root)
-            split_s = time.perf_counter() - t0
-            self._retire_executor(ex, splits=1, input_rows=sum(ex.scan_stats.values()),
-                                  device_s=split_s)
-            self._enqueue_out(out)
+        # the span covers the stage, the enqueues' backpressure included;
+        # its device_seconds only the executions
+        with tracing.span("device/execute", mode="split-streaming") as sp:
+            device_s = 0.0
+            staged_rows = 0
+            for split in splits:
+                ex = self._executor(session, {scan.id: [split]}, {})
+                t0 = time.perf_counter()
+                out = ex.execute_checked(req.fragment_root)
+                split_s = time.perf_counter() - t0
+                device_s += split_s
+                staged_rows += sum(ex.scan_stats.values())
+                self._retire_executor(ex, splits=1, input_rows=sum(ex.scan_stats.values()),
+                                      device_s=split_s)
+                self._enqueue_out(out)
+            sp.set("device_seconds", round(device_s, 6))
+            sp.set("staged_rows", staged_rows)
+            sp.set("splits", len(splits))
         self._finish()
         return True
 
@@ -543,22 +621,31 @@ class SqlTask:
                 return out
 
             running: Optional[Page] = None
-            for batch, rows in batches():
-                page = _concat(batch if running is None else [running] + batch)
+            with tracing.span("device/execute", mode="streaming-fold") as sp:
+                in_rows = 0
+                for batch, rows in batches():
+                    page = _concat(batch if running is None else [running] + batch)
+                    ex = self._executor(session, {}, {})
+                    running = folded(ex, ex.aggregate_intermediate, page, rows)
+                    in_rows += rows
+                if running is None:
+                    running = Page.all_dead(src.types, session.device)
                 ex = self._executor(session, {}, {})
-                running = folded(ex, ex.aggregate_intermediate, page, rows)
-            if running is None:
-                running = Page.all_dead(src.types, session.device)
-            ex = self._executor(session, {}, {})
-            out = folded(ex, ex.aggregate_final, running, running.num_rows, is_final=True)
+                out = folded(ex, ex.aggregate_final, running, running.num_rows, is_final=True)
+                sp.set("input_rows", in_rows)
             prepared = self._prepare_out(out)
             self.state.set("FLUSHING")
             self._emit(prepared)
             self._finish()
             return True
-        for batch, rows in batches():
-            ex = self._executor(session, {}, {src.fragment_id: [_concat(batch)]})
-            self._enqueue_out(timed(ex, ex.execute_checked, req.fragment_root, input_rows=rows))
+        with tracing.span("device/execute", mode="streaming") as sp:
+            in_rows = 0
+            for batch, rows in batches():
+                ex = self._executor(session, {}, {src.fragment_id: [_concat(batch)]})
+                self._enqueue_out(timed(ex, ex.execute_checked, req.fragment_root,
+                                        input_rows=rows))
+                in_rows += rows
+            sp.set("input_rows", in_rows)
         self._finish()
         return True
 
@@ -579,6 +666,18 @@ class SqlTask:
             "memoryBytes": self.memory_bytes,
             "stats": self.stats_snapshot(),
         }
+
+
+def _task_stage_id(task_id: str):
+    """The fragment (stage) id in a coordinator task id
+    (``<query>.<fragment>.<worker>.a<attempt>``); None for another id."""
+    parts = task_id.split(".")
+    if len(parts) >= 4 and parts[-1].startswith("a"):
+        try:
+            return int(parts[-3])
+        except ValueError:
+            return None
+    return None
 
 
 def _chunk_pages(page: Page, chunk_rows: int):
@@ -641,14 +740,16 @@ class TaskManager:
 
     MAX_TASK_HISTORY = 200  # terminal tasks kept for status queries
 
-    def __init__(self, session_factory, recorder=None):
+    def __init__(self, session_factory, recorder=None, otlp=None):
         self._tasks: Dict[str, SqlTask] = {}
         self._lock = threading.Lock()
         self._session_factory = session_factory
-        # the worker's flight recorder (obs/flightrecorder.py)
+        # the worker's flight recorder (obs/flightrecorder.py) and OTLP
+        # exporter (obs/otlp.py), or None
         self._recorder = recorder
+        self._otlp = otlp
 
-    def create_task(self, request: TaskRequest) -> SqlTask:
+    def create_task(self, request: TaskRequest, traceparent: Optional[str] = None) -> SqlTask:
         with self._lock:
             terminal = [tid for tid, t in self._tasks.items() if t.state.is_terminal()]
             for tid in terminal[: max(0, len(terminal) - self.MAX_TASK_HISTORY)]:
@@ -656,7 +757,8 @@ class TaskManager:
             task = self._tasks.get(request.task_id)
             created = task is None
             if created:
-                task = SqlTask(request, self._session_factory)
+                task = SqlTask(request, self._session_factory, traceparent=traceparent,
+                               recorder=self._recorder, otlp=self._otlp)
                 self._tasks[request.task_id] = task
         if created:
             M.TASKS_TOTAL.inc()

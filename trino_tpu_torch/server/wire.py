@@ -1,5 +1,5 @@
 """Wire helpers of the distributed path: framed page bodies + internal auth
-(a copy of trino_tpu/server/wire.py without the flow-ledger accounting).
+(a copy of trino_tpu/server/wire.py, with ``ServerHTTP``).
 
 Reference: ``application/X-trino-pages`` bodies (concatenated serialized
 pages) with sequence-id headers (``server/InternalHeaders.java:21-25``,
@@ -254,8 +254,28 @@ def _urllib_request(method, url, body, content_type, timeout, headers):
 
 
 def json_request(method: str, url: str, payload=None, timeout: float = 30.0):
+    import time as _time
+
     body = json.dumps(payload).encode() if payload is not None else b""
+    t0 = _time.perf_counter()
     status, data, _ = http_request(method, url, body, "application/json", timeout)
+    elapsed = _time.perf_counter() - t0
+    # control-plane flow accounting (announce, task submit/status,
+    # cancel): rollup-only (ring=False), so heartbeats at 2/s/worker do
+    # not evict the data-plane records a postmortem wants. The wall is
+    # charged to the response leg so link seconds never double-count.
+    try:
+        from trino_tpu_torch.obs.flowledger import FLOW_LEDGER
+
+        if body:
+            FLOW_LEDGER.record_transfer(
+                "control", "control", len(body), 0.0, direction="send",
+                ring=False)
+        FLOW_LEDGER.record_transfer(
+            "control", "control", len(data), elapsed, direction="recv",
+            status=str(status), ring=False)
+    except Exception:  # noqa: BLE001 — accounting never fails work
+        pass
     if status >= 400:
         raise RuntimeError(f"{method} {url} -> {status}: {data[:500].decode(errors='replace')}")
     return json.loads(data) if data else None

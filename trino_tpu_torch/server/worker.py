@@ -3,18 +3,25 @@
 The port of trino_tpu/server/worker.py (reference:
 ``server/TaskResource.java``): ``POST /v1/task/{taskId}`` creates a task,
 ``GET /v1/task/{taskId}/results/{bufferId}/{token}`` streams its pages,
-``GET /v1/task/{taskId}/status`` reports it, ``DELETE`` acknowledges a
-buffer or cancels the task, ``GET /v1/task/{taskId}/recorder`` returns
-the process's flight-recorder ring and memory-ledger snapshot (for a
-FAILED query's postmortem), ``GET /v1/metrics`` the Prometheus page,
-``GET /v1/info`` lists the tasks; and the announce loop that registers
-the worker with its coordinator.
+``GET /v1/task/{taskId}/status`` reports it, ``GET /v1/task/{taskId}/spans``
+returns its spans (the coordinator merges them into the query's trace),
+``DELETE`` acknowledges a buffer or cancels the task,
+``GET /v1/task/{taskId}/recorder`` returns the process's flight-recorder
+ring and memory- and flow-ledger snapshots (for a FAILED query's
+postmortem), ``GET /v1/metrics`` the Prometheus page, ``GET /v1/info``
+lists the tasks; and the announce loop that registers the worker with its
+coordinator.
 
 Each announce carries the worker's memory: its live per-query
 reservations (``TaskManager.query_memory``) against its pool
 (``memory_limit_bytes``, or ``TRINO_TPU_WORKER_MEMORY_BYTES``), the
 card's capacity and the device and host caches' bytes; the coordinator's
 cluster memory manager kills the largest query of a worker over its pool.
+It also carries the device profiler's newest compile events and the flow
+ledger's per-link rollups, stall rollups and byte totals, which
+``system.runtime.compiles``, ``transfers`` and ``nodes`` read; with
+``TRINO_TPU_OTLP_ENDPOINT`` set, each finished task's spans go to that
+OTLP collector.
 Before that, the announce sheds the device cache (the revocable tier)
 when the queries and the warm tables together overflow the pool, and
 both cache tiers, host first, when the process's RSS crosses
@@ -40,15 +47,20 @@ import time
 from http.server import BaseHTTPRequestHandler
 from typing import Optional
 
+from trino_tpu_torch.obs import otlp
+from trino_tpu_torch.obs import trace as tracing
 from trino_tpu_torch.obs.devprofiler import DEVICE_PROFILER
 from trino_tpu_torch.obs.flightrecorder import FlightRecorder
+from trino_tpu_torch.obs.flowledger import FLOW_LEDGER
 from trino_tpu_torch.obs.memledger import MEMORY_LEDGER, TOTAL_OWNER
 from trino_tpu_torch.server import wire
+from trino_tpu_torch.server.system_tables import process_id
 from trino_tpu_torch.server.task import TaskManager, TaskRequest
 
 _RESULTS_RE = re.compile(r"^/v1/task/([^/]+)/results/(\d+)/(\d+)$")
 _TASK_RE = re.compile(r"^/v1/task/([^/]+)$")
 _STATUS_RE = re.compile(r"^/v1/task/([^/]+)/status$")
+_SPANS_RE = re.compile(r"^/v1/task/([^/]+)/spans$")
 _RECORDER_RE = re.compile(r"^/v1/task/([^/]+)/recorder$")
 _SEGMENT_RE = re.compile(r"^/v1/segment/([^/]+)$")
 
@@ -94,17 +106,21 @@ class WorkerServer:
                  memory_limit_bytes: Optional[int] = None, device=None):
         self.device = resolve_device(device)
         self.node_id = node_id or f"worker-{time.time_ns() & 0xFFFFFF:x}"
-        # this worker's flight recorder; the process device profiler and
-        # memory ledger take the first server's identity (in-process test
-        # clusters share them, as the metrics) and mirror their events
-        # into the recorder
+        # this worker's flight recorder; the process device profiler,
+        # memory ledger and flow ledger take the first server's identity
+        # (in-process test clusters share them, as the metrics) and mirror
+        # their events into the recorder
         self.recorder = FlightRecorder(node_id=self.node_id)
-        for ledger in (DEVICE_PROFILER, MEMORY_LEDGER):
+        for ledger in (DEVICE_PROFILER, MEMORY_LEDGER, FLOW_LEDGER):
             if not ledger.node_id:
                 ledger.node_id = self.node_id
             ledger.attach_recorder(self.recorder)
+        # OTLP export, on only when TRINO_TPU_OTLP_ENDPOINT is set: each
+        # finished task ships its spans under the query's propagated trace
+        # id, so they parent into the coordinator's trace in the collector
+        self.otlp = otlp.exporter_from_env("trino-tpu-worker", instance_id=self.node_id)
         self.tasks = TaskManager(session_factory or shared_catalog_session_factory(self.device),
-                                 recorder=self.recorder)
+                                 recorder=self.recorder, otlp=self.otlp)
         self.coordinator_url = coordinator_url
         # the worker's memory pool (None = unlimited) and its optional
         # host-RAM ceiling
@@ -129,6 +145,9 @@ class WorkerServer:
         self._stop.set()
         self.httpd.shutdown()
         self.httpd.server_close()
+        if self.otlp is not None:
+            # flush and stop the exporter: a stopped worker reports nothing
+            self.otlp.shutdown()
 
     def _announce_loop(self) -> None:
         """Periodic announce: discovery and liveness in one (the worker
@@ -145,9 +164,10 @@ class WorkerServer:
     def announce_payload(self) -> dict:
         """One announce tick: relieve memory pressure, sample the memory
         ledger, and the payload (discovery, the memory fields the
-        coordinator's ClusterMemoryManager reads, and one device-profiler
-        utilization sample since the last tick)."""
-        from trino_tpu_torch import devcache
+        coordinator's ClusterMemoryManager reads, one device-profiler
+        utilization sample since the last tick and the newest compile
+        events, and the flow ledger's rollups and byte totals)."""
+        from trino_tpu_torch import __version__, devcache
         from trino_tpu_torch.obs import metrics as M
 
         qmem = self.tasks.query_memory()
@@ -171,6 +191,7 @@ class WorkerServer:
                 devcache.shed_revocable(over_host)
         mem_rows = self._sample_memory(qmem, rss)
         M.refresh_process_gauges()
+        net = FLOW_LEDGER.net_totals()
         return {
             "url": self.base_url, "tasks": len(self.tasks.list_info()),
             "device": str(self.device),
@@ -187,6 +208,18 @@ class WorkerServer:
             "memoryOwners": mem_rows,
             "rssBytes": rss,
             "profiler": DEVICE_PROFILER.sample_utilization(),
+            # system.runtime.compiles' rows of this node
+            "compileEvents": DEVICE_PROFILER.compile_rows(limit=64),
+            # system.runtime.transfers' rows of this node, its stall
+            # rollups (the /flows route) and its byte totals (nodes)
+            "flows": FLOW_LEDGER.transfer_rows(),
+            "flowStalls": FLOW_LEDGER.stall_rows(),
+            "netBytesSent": net["sent"],
+            "netBytesReceived": net["received"],
+            "version": __version__,
+            # the process whose ledgers these are: workers sharing a
+            # process share them, and the coordinator counts it once
+            "processId": process_id(),
         }
 
     def _sample_memory(self, qmem: dict, rss: Optional[int]) -> list:
@@ -268,7 +301,11 @@ def _make_handler(server: WorkerServer):
                 if not wire.verify(body, self.headers.get(wire.H_INTERNAL_AUTH)):
                     self._send(401, b'{"error": "bad internal signature"}')
                     return
-                task = server.tasks.create_task(TaskRequest.from_bytes(body))
+                # the coordinator's schedule span rides in on the traceparent
+                # header: the task's spans parent into the query's trace
+                task = server.tasks.create_task(
+                    TaskRequest.from_bytes(body),
+                    traceparent=self.headers.get(tracing.TRACEPARENT_HEADER))
                 self._send(200, json.dumps(task.info()).encode())
                 return
             self._send(404)
@@ -305,6 +342,18 @@ def _make_handler(server: WorkerServer):
                     return
                 self._send(200, json.dumps(task.info()).encode())
                 return
+            m = _SPANS_RE.match(self.path)
+            if m:
+                if not self._authorized():
+                    return
+                task = server.tasks.get(m.group(1))
+                if task is None:
+                    self._send(404, b'{"error": "no such task"}')
+                    return
+                self._send(200, json.dumps({"taskId": task.request.task_id,
+                                            "traceId": task.tracer.trace_id,
+                                            "spans": task.tracer.to_dicts()}).encode())
+                return
             m = _RECORDER_RE.match(self.path)
             if m:
                 if not self._authorized():
@@ -316,7 +365,8 @@ def _make_handler(server: WorkerServer):
                     "nodeId": server.node_id, "taskId": m.group(1),
                     "taskKnown": server.tasks.get(m.group(1)) is not None,
                     "records": server.recorder.snapshot(),
-                    "memory": MEMORY_LEDGER.memory_snapshot()}).encode())
+                    "memory": MEMORY_LEDGER.memory_snapshot(),
+                    "flows": FLOW_LEDGER.flow_snapshot()}).encode())
                 return
             if self.path == "/v1/metrics":
                 from trino_tpu_torch.obs.metrics import render_registry
