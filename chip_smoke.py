@@ -321,6 +321,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``[cache: HIT]``; the OTLP exporters dropped nothing. Recorded: the
    walls beside phase distributed's, the host microseconds of one
    ``record_transfer`` and the records a query.
+18. fte (after phase observe, before phase mainpath): the fault-tolerant
+   tier and the spooled result protocol at SF1 on a port coordinator with
+   two in-process workers, ``TRINO_TPU_SPOOL_DIR`` a fresh directory. Q1,
+   Q3, Q9 and Q18 under ``retry_policy=TASK``, cold and warm: rows as
+   expected, read by their consumers off the spool, and no file of the
+   query (``.tmp`` ones included) left once the client has its answer;
+   their warm walls beside phase distributed's. Q3 with the first attempt
+   of slot 0 of its hash stage failing and Q18 with that of its source
+   stage: rows as expected, that attempt the one retried, the winner's
+   attempt 1; then ``torch.cuda.memory_allocated()`` (once the frees
+   deferred behind the staging copy's stream have landed) back at the
+   phase's start and at its value after the clean runs, but for the device
+   cache's growth, and no worker reservation left.
+   Every attempt of one slot failing: "failed after 3 attempts" and no file
+   left. Q1's stages run through the coordinator's scheduler seam, their
+   tasks deleted from the workers (404), and the root fragment's gather
+   reading their spool files (``SPOOL_READS`` one a file,
+   ``EXCHANGE_BYTES`` unmoved), Q1's rows. Q1 with its first source
+   attempt of slot 0 sleeping 60 s and the speculation constants at 0.5 s
+   and 1.5x: finished in under 30 s with the rows, ``.0.0.a1`` in the
+   speculation history, nothing left in flight, the loser gone from its
+   worker. The hot-key join of phase adaptive under the tier: one
+   skew-mitigation change from the scheduler itself, the hot partition over
+   4x the rest, rows equal to adaptation off. Spooled results: an export of
+   lineitem's four integer columns written by the workers (2 MiB segments,
+   at least 6), fetched in parallel by a StatementClient, its row count and
+   column sums equal an eager Session's, every segment acked (0 bytes held),
+   ``/flows``' spool-write and segment-fetch bytes equal to the
+   ``RESULT_SEGMENT_BYTES`` written and served deltas, a segment-fetch phase
+   in its timeline; a ``Range`` GET 206 with the whole GET's bytes and 416
+   past the end; orders sorted by key through the coordinator's store, in
+   order. Last, the cached Q18 joined with a row of system.runtime.nodes
+   runs on the coordinator's executor and spools there, cold and warm: rows
+   as expected, at least one merge launch each (the cold run's inputs to
+   phase mainpath, path ``fte``). Recorded: walls, spool bytes a query, the
+   segment fetch rate.
 
 With ``--profile`` it also runs each query once more (warm) in each of the
 five sessions (tpch, cache, analytics, scalar, nested) under
@@ -3231,6 +3267,402 @@ def phase_observe(device, expected, plane, compiled, cap, card, dist_walls, sche
     return out
 
 
+FTE_QUERIES = (1, 3, 9, 18)
+FTE_RUNS = ("cold", "warm")
+# speculation as the reference's test patches it: a first attempt past
+# 1.5x its siblings' median (0.5 s at least) gets a twin
+FTE_SPECULATION = (0.5, 1.5)
+FTE_SLOW_S = 60
+# the export shape (a pass-through of lineitem's integer columns) and the
+# sorted shape spooled through the coordinator's store; the segment target
+# a scale (several a worker at SF1, where a 4 MiB chunk of these columns
+# compresses to about 1 MiB; one a worker at tiny)
+FTE_EXPORT_SQL = "select l_orderkey, l_partkey, l_suppkey, l_linenumber from lineitem"
+FTE_EXPORT_CHECK = ("select count(*), sum(l_orderkey), sum(l_partkey), sum(l_suppkey), "
+                    "sum(l_linenumber) from lineitem")
+FTE_SORTED_SQL = "select o_orderkey, o_custkey from orders order by o_orderkey"
+FTE_SORTED_CHECK = "select count(*), sum(o_orderkey), sum(o_custkey) from orders"
+FTE_SEGMENT_BYTES = {"sf1": 2 << 20, "tiny": 64 << 10}
+FTE_MIN_SEGMENTS = {"sf1": 6, "tiny": 2}
+
+
+def spool_files(spool, query_id):
+    """The files of ``query_id`` in the spool directory and its segment
+    store, ``.tmp`` files included."""
+    out = []
+    for d in (spool, os.path.join(spool, "result-segments")):
+        if os.path.isdir(d):
+            out += [f for f in os.listdir(d) if f.startswith(query_id + ".")]
+    return sorted(out)
+
+
+def fte_execute(coord, props, sql, device, spool, what, cap=None, label=None):
+    """(rows, wall, query, deltas) of one statement through the coordinator:
+    no file of the query left in the spool, no failed adaptive rule, the
+    merge launches counted from 0 and the spool counters' deltas."""
+    from trino_tpu_torch.client.remote import StatementClient
+    from trino_tpu_torch.obs import metrics as M
+    from trino_tpu_torch.ops import merge
+
+    client = StatementClient(coord.base_url, {k: str(v) for k, v in props.items()})
+    merge.launches = 0
+    c0 = (M.SPOOL_READS.value(), M.SPOOL_BYTES.value(), M.EXCHANGE_BYTES.value())
+    if cap is not None:
+        cap.now = label
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        _cols, rows = client.execute(sql, timeout=600.0)
+        sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        if cap is not None:
+            cap.now = None
+    q = coord.get_query(client.query_id)
+    adapt_failures(q, what)
+    left = spool_files(spool, q.query_id)
+    if left:
+        raise AssertionError(f"{what}: files of the query left in the spool: {left}")
+    d = {"merge_launches": merge.launches, "spool_reads": M.SPOOL_READS.value() - c0[0],
+         "spool_bytes": M.SPOOL_BYTES.value() - c0[1],
+         "exchange_bytes": M.EXCHANGE_BYTES.value() - c0[2]}
+    return rows, wall, q, d, client
+
+
+def fte_stage(coord, props, sql, partitioning):
+    """The id of the first fragment of ``sql``'s distributed plan with that
+    partitioning (source or hash)."""
+    from trino_tpu_torch.exec.query import plan_sql
+    from trino_tpu_torch.sql.planner.fragmenter import fragment_plan
+
+    session = coord.session_factory({k: str(v) for k, v in props.items()})
+    frags = fragment_plan(plan_sql(session, sql), session)
+    return next(f.id for f in frags if f.partitioning == partitioning)
+
+
+def fte_retry(coord, props, q, entry, partitioning, device, spool):
+    """``entry``'s query with its first attempt of slot 0 of a stage of
+    ``partitioning`` failing: the expected rows, that attempt the one retry
+    (a CUDA error would be another), the winner's attempt 1."""
+    fid = fte_stage(coord, props, entry["sql"], partitioning)
+    key = f".{fid}.0.a0"
+    rows, wall, ex, d, _c = fte_execute(coord, {**props, "failure_injection": key}, entry["sql"],
+                                        device, spool, f"Q{q} (fte retry {key})")
+    check_rows(f"Q{q} (fte, retried {partitioning} stage)", rows, entry["rows"],
+               rel_tol=DIST_REL_TOL)
+    slot = f"{ex.query_id}.{fid}.0"
+    if ex.retried_tasks != [slot + ".a0"] or ex.task_attempts.get(slot + ".a1") != 1:
+        raise AssertionError(f"Q{q} (fte retry): retried {ex.retried_tasks}, attempts "
+                             f"{ex.task_attempts}")
+    return {"query": f"Q{q}", "stage": partitioning, "key": key, "wall_s": wall,
+            "retried": [t.replace(ex.query_id, "<q>") for t in ex.retried_tasks]}
+
+
+def fte_read_back(coord, workers, props, entry, device, spool):
+    """A consumer reads finished producers' outputs from the spool after
+    their tasks are gone from the workers: Q1's source stage runs under the
+    tier through the task seam, its tasks are deleted (404), and the root
+    fragment's gather reads the spool files (``SPOOL_READS`` up by each,
+    ``EXCHANGE_BYTES`` not counting them) and gives Q1's rows."""
+    from trino_tpu_torch.exec.query import plan_sql
+    from trino_tpu_torch.obs import metrics as M
+    from trino_tpu_torch.server import wire
+    from trino_tpu_torch.server.coordinator import QueryExecution
+    from trino_tpu_torch.sql.planner import plan as P
+    from trino_tpu_torch.sql.planner.fragmenter import RemoteSourceNode, fragment_plan
+
+    props = {k: str(v) for k, v in props.items()}
+    q = QueryExecution(f"fteread{time.time_ns() & 0xFFFFFF:x}", "", dict(props), coord.registry,
+                       coord.session_factory)
+    session = coord.session_factory(dict(props))
+    fragments = fragment_plan(plan_sql(session, entry["sql"]), session)
+    workers_alive = coord.registry.alive()
+    counts = {node.fragment_id: (len(workers_alive) if f.partitioning in ("source", "hash")
+                                 else 1)
+              for f in fragments for node in P.walk_plan(f.root)
+              if isinstance(node, RemoteSourceNode)}
+    q.fragments = fragments
+    try:
+        for frag in fragments:
+            q._schedule_fragment(session, frag, workers_alive, counts, fte=True)
+        producers = [loc for locs in q.fragment_tasks.values() for loc in locs]
+        for loc in producers:
+            q._cancel_attempt(loc)
+            status = wire.http_request("GET", f"{loc.base_url}/v1/task/{loc.task_id}/status",
+                                       timeout=10.0)[0]
+            if status != 404:
+                raise AssertionError(f"fte read-back: task {loc.task_id} still answers {status}")
+        root_inputs = {node.fragment_id for node in P.walk_plan(fragments[-1].root)
+                       if isinstance(node, RemoteSourceNode)}
+        c0 = (M.SPOOL_READS.value(), M.SPOOL_BYTES.value(), M.EXCHANGE_BYTES.value())
+        rows = jsonable_rows(q._run_root_fragment(session, fragments).to_pylist())
+        reads = M.SPOOL_READS.value() - c0[0]
+        nbytes = M.SPOOL_BYTES.value() - c0[1]
+        exch = M.EXCHANGE_BYTES.value() - c0[2]
+    finally:
+        q._cancel_tasks()
+        q._cleanup_spool()
+    check_rows("Q1 (fte read-back)", rows, entry["rows"], rel_tol=DIST_REL_TOL)
+    want_reads = sum(len(q.fragment_tasks[fid]) for fid in root_inputs)
+    if reads != want_reads or nbytes <= 0 or exch != 0:
+        raise AssertionError(f"fte read-back: {reads} spool reads (want {want_reads}), "
+                             f"{nbytes} spool bytes, {exch} exchange bytes")
+    if spool_files(spool, q.query_id):
+        raise AssertionError(f"fte read-back: files left {spool_files(spool, q.query_id)}")
+    return {"spool_reads": reads, "spool_bytes": nbytes, "exchange_bytes": exch}
+
+
+def fte_spooled(coord, workers, props, schema, sql, check_sql, mode, device, spool, what):
+    """One spooled SELECT fetched by a StatementClient: its mode, at least
+    ``FTE_MIN_SEGMENTS`` segments (the export), the row count and column
+    sums equal an eager Session's, every segment acked (no bytes held), the
+    flow ledger's spool-write and segment-fetch bytes equal the segment
+    counters' deltas, and a segment-fetch phase in the timeline."""
+    from trino_tpu_torch.client.session import Session
+    from trino_tpu_torch.obs import metrics as M
+
+    w0 = (M.RESULT_SEGMENT_BYTES.value("written"), M.RESULT_SEGMENT_BYTES.value("served"))
+    rows, wall, q, _d, client = fte_execute(coord, props, sql, device, spool, what)
+    written = M.RESULT_SEGMENT_BYTES.value("written") - w0[0]
+    served = M.RESULT_SEGMENT_BYTES.value("served") - w0[1]
+    if client.stats["spooled"] != mode or q.spooled != mode:
+        raise AssertionError(f"{what}: spooled {client.stats['spooled']}, want {mode}")
+    segments = len(q.result_segments)
+    if mode == "worker-direct" and segments < FTE_MIN_SEGMENTS[schema]:
+        raise AssertionError(f"{what}: {segments} segments")
+    (want,) = Session({"catalog": "tpch", "schema": schema}, device=device).execute(
+        check_sql).rows
+    got = [len(rows)] + [sum(r[i] for r in rows) for i in range(len(want) - 1)]
+    if got != [int(v) for v in want]:
+        raise AssertionError(f"{what}: count and sums {got}, the eager session's {list(want)}")
+    if mode == "coordinator" and any(rows[i][0] >= rows[i + 1][0] for i in range(len(rows) - 1)):
+        raise AssertionError(f"{what}: rows out of order")
+    held = [w.segments.held_bytes() for w in workers] + [coord.segments.held_bytes()]
+    if any(held):
+        raise AssertionError(f"{what}: segment bytes still held after the acks: {held}")
+    flows = {}
+    for r in q.flows_dict()["transfers"]:
+        flows[r["link"]] = flows.get(r["link"], 0) + r["bytes"]
+    if flows.get("spool-write", 0) != written or flows.get("segment-fetch", 0) != served or \
+            written != served or written != sum(e["bytes"] for e in q.result_segments):
+        raise AssertionError(f"{what}: /flows spool-write {flows.get('spool-write')} and "
+                             f"segment-fetch {flows.get('segment-fetch')}, counters written "
+                             f"{written} served {served}")
+    tl = q.timeline_dict()
+    if not tl["phases"].get("segment-fetch", 0) > 0:
+        raise AssertionError(f"{what}: no segment-fetch phase in {tl['phases']}")
+    return {"wall_s": wall, "rows": len(rows), "segments": segments, "bytes": written,
+            "fetch_s": client.segment_fetch_s,
+            "fetch_mb_s": client.spooled_bytes / client.segment_fetch_s / 1e6
+            if client.segment_fetch_s > 0 else None,
+            "segment_fetch_phase_s": tl["phases"]["segment-fetch"]}
+
+
+def fte_ranges(coord, props, sql):
+    """``Range`` on a worker's segment: 206 with the same bytes as a whole
+    GET, 416 past the end; then every segment acked."""
+    from trino_tpu_torch.server import wire
+
+    q = coord.submit(sql, {k: str(v) for k, v in props.items()})
+    if q.state.wait_for_terminal(600.0) != "FINISHED" or not q.result_segments:
+        raise AssertionError(f"fte ranges: {q.state.get()} {q.failure}")
+    try:
+        seg = q.result_segments[0]
+        status, full, _h = wire.http_request("GET", seg["uri"], timeout=60.0)
+        s206, part, h206 = wire.http_request("GET", seg["uri"], timeout=60.0,
+                                             headers={"Range": "bytes=4-1027"})
+        s416, _b, _h = wire.http_request("GET", seg["uri"], timeout=60.0,
+                                         headers={"Range": f"bytes={seg['bytes']}-"})
+    finally:
+        for e in q.result_segments:
+            wire.http_request("DELETE", e["ackUri"], timeout=10.0)
+    if (status, len(full), s206, part, s416) != (200, seg["bytes"], 206, full[4:1028], 416) or \
+            h206.get("Content-Range") != f"bytes 4-1027/{seg['bytes']}":
+        raise AssertionError(f"fte ranges: {status} {len(full)}/{seg['bytes']}, {s206} "
+                             f"{h206.get('Content-Range')}, {s416}")
+    return {"segments": len(q.result_segments), "statuses": [status, s206, s416]}
+
+
+def settled_allocated(device):
+    """``torch.cuda.memory_allocated`` once the frees deferred behind a side
+    stream have landed: a tensor staged on the pinned copy's stream
+    (``record_stream``) is returned to the allocator only when it next
+    allocates and finds that stream's work done."""
+    import torch
+
+    sync(device)
+    torch.empty((1,), device=device)
+    return torch.cuda.memory_allocated(device)
+
+
+def phase_fte(device, expected, plane, cap, card, dist_walls, schema="sf1", extra_props=None):
+    """The fault-tolerant tier and the spooled result protocol on a port
+    coordinator with two in-process workers, with TRINO_TPU_SPOOL_DIR a
+    fresh directory. ``extra_props``: session properties of every query (the
+    CPU test's plan shapes at tiny)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from trino_tpu_torch.devcache import DEVICE_CACHE
+    from trino_tpu_torch.server import wire
+    from trino_tpu_torch.server.coordinator import QueryExecution
+
+    t_phase = time.perf_counter()
+    spool = tempfile.mkdtemp(prefix="trino-tpu-spool-")
+    old_spool = os.environ.get("TRINO_TPU_SPOOL_DIR")
+    os.environ["TRINO_TPU_SPOOL_DIR"] = spool  # before the servers: their segment stores
+    cuda = device.type == "cuda"
+    coord = workers = None
+    out = {"card": card, "launches": 0}
+    try:
+        coord, workers = serving_cluster(device, 2, "fw")
+        base = {**serving_props(schema), **(extra_props or {})}
+        fte = {**base, "retry_policy": "TASK"}
+        mem0 = (settled_allocated(device), DEVICE_CACHE.cached_bytes()) if cuda else None
+        # the four queries under the tier, rows as expected
+        walls = {}
+        for q in FTE_QUERIES:
+            entry = expected[str(q)]
+            for label in FTE_RUNS:
+                rows, wall, ex, d, _c = fte_execute(coord, fte, entry["sql"], device, spool,
+                                                    f"Q{q} (fte, {label})")
+                check_rows(f"Q{q} (fte, {label})", rows, entry["rows"], rel_tol=DIST_REL_TOL)
+                if ex.fast_path != "distributed" or ex.retried_tasks or d["spool_reads"] < 1:
+                    raise AssertionError(f"Q{q} (fte, {label}): path {ex.fast_path}, retried "
+                                         f"{ex.retried_tasks}, spool reads {d['spool_reads']}")
+                walls[f"Q{q}_{label}_s"] = wall
+                out.setdefault("spool", {})[f"Q{q}_{label}"] = {
+                    "reads": d["spool_reads"], "bytes": d["spool_bytes"],
+                    "exchange_bytes": d["exchange_bytes"]}
+        out["walls"] = walls
+        if cuda:
+            mem_clean = (settled_allocated(device), DEVICE_CACHE.cached_bytes())
+        out["walls_vs_distributed"] = {
+            f"Q{q}": {"fte_warm_s": walls[f"Q{q}_{FTE_RUNS[-1]}_s"],
+                      "distributed_warm_s": (dist_walls or {}).get(q)} for q in FTE_QUERIES}
+        # retries: the first attempt of one hash-stage task of Q3, and of one
+        # source-stage task of Q18
+        out["retries"] = [fte_retry(coord, fte, 3, expected["3"], "hash", device, spool),
+                          fte_retry(coord, fte, 18, expected["18"], "source", device, spool)]
+        if cuda:
+            # the failed, retried and finished attempts keep no tensor: the
+            # card holds what it held at the phase's start (and after the
+            # same queries ran clean), but for the device cache's growth
+            mem1 = (settled_allocated(device), DEVICE_CACHE.cached_bytes())
+            if max(mem1[0] - mem0[0], mem1[0] - mem_clean[0]) > max(0, mem1[1] - mem0[1]):
+                raise AssertionError(f"fte: memory_allocated {mem0[0]} at the start, "
+                                     f"{mem_clean[0]} after the clean runs, {mem1[0]} after "
+                                     f"the retries; device cache {mem_clean[1]} -> {mem1[1]}")
+            out["memory_allocated"] = {"start": mem0[0], "clean": mem_clean[0],
+                                       "after_retries": mem1[0]}
+        if any(w.tasks.query_memory() for w in workers):
+            raise AssertionError(f"fte: reservations left {[w.tasks.query_memory() for w in workers]}")
+        # retries run out: every attempt of slot 0 of Q1's source stage fails
+        from trino_tpu_torch.client.remote import RemoteQueryError, StatementClient
+
+        client = StatementClient(coord.base_url, {**fte, "failure_injection": ".0.0.a"})
+        try:
+            client.execute(expected["1"]["sql"], timeout=600.0)
+            raise AssertionError("fte: Q1 with every attempt failing finished")
+        except RemoteQueryError as e:
+            if "failed after 3 attempts" not in str(e):
+                raise
+        ex = coord.get_query(client.query_id)
+        if spool_files(spool, ex.query_id) or ex.retried_tasks != [
+                f"{ex.query_id}.0.0.a{i}" for i in range(3)]:
+            raise AssertionError(f"fte: out of attempts, retried {ex.retried_tasks}, files "
+                                 f"{spool_files(spool, ex.query_id)}")
+        out["out_of_attempts"] = str(ex.failure).split("\n")[0]
+        # the spool read-back of gone producers
+        out["read_back"] = fte_read_back(coord, workers, base, expected["1"], device, spool)
+        # speculation: slot 0's first attempt of Q1's source stage sleeps
+        saved = (QueryExecution.SPECULATION_MIN_S, QueryExecution.SPECULATION_FACTOR)
+        QueryExecution.SPECULATION_MIN_S, QueryExecution.SPECULATION_FACTOR = FTE_SPECULATION
+        try:
+            rows, wall, ex, _d, _c = fte_execute(
+                coord, {**fte, "slow_injection": f".0.0.a0:{FTE_SLOW_S}"}, expected["1"]["sql"],
+                device, spool, "Q1 (fte, speculation)")
+        finally:
+            QueryExecution.SPECULATION_MIN_S, QueryExecution.SPECULATION_FACTOR = saved
+        check_rows("Q1 (fte, speculation)", rows, expected["1"]["rows"], rel_tol=DIST_REL_TOL)
+        loser = f"{ex.query_id}.0.0.a0"
+        statuses = {w.base_url: wire.http_request("GET", f"{w.base_url}/v1/task/{loser}/status",
+                                                  timeout=10.0)[0] for w in workers}
+        if wall > FTE_SLOW_S / 2 or f"{ex.query_id}.0.0.a1" not in ex.speculation_history or \
+                ex.speculative_tasks or set(statuses.values()) != {404}:
+            raise AssertionError(f"fte speculation: wall {wall}, history "
+                                 f"{list(ex.speculation_history)}, in flight "
+                                 f"{ex.speculative_tasks}, the loser's statuses {statuses}")
+        out["speculation"] = {"wall_s": wall, "history": [
+            t.replace(ex.query_id, "<q>") for t in ex.speculation_history]}
+        # skew salting through the scheduler
+        skew = {**fte, **ADAPTIVE_SKEW_PROPS}
+        off, off_s, _q, _d, _c = fte_execute(coord, {**skew, "adaptive_execution_enabled": "false"},
+                                             ADAPTIVE_SKEW_SQL, device, spool,
+                                             "hot-key join (fte, adaptation off)")
+        rows, wall, ex, _d, _c = fte_execute(coord, skew, ADAPTIVE_SKEW_SQL, device, spool,
+                                             "hot-key join (fte)")
+        check_rows("hot-key join (fte, salted)", rows, off)
+        changes = [c for c in ex.plan_versions if c["rule"] == "skew-mitigation"]
+        if len(changes) != 1:
+            raise AssertionError(f"fte hot-key join: plan changes {ex.plan_versions}")
+        detail = changes[0]["detail"]
+        pr, hot = detail["probePartitionRows"], detail["hotPartitions"]
+        if len(hot) != 1 or pr[hot[0]] <= 4 * (sum(pr) - pr[hot[0]]):
+            raise AssertionError(f"fte hot-key join: hot {hot} of probe rows {pr}")
+        spread = [sum(col) for col in zip(*(
+            e["stats"]["partitionRows"] for e in ex.task_stats.values()
+            if e["fragment"] == changes[0]["newFragments"][0] and e["state"] == "FINISHED"))]
+        out["skew"] = {"off_wall_s": off_s, "wall_s": wall, "hot": hot,
+                       "probe_partition_rows": pr, "salted_probe_partition_rows": spread}
+        # spooled results: worker-direct, then the coordinator's store
+        spooled = {**base, "spooled_results_enabled": "true",
+                   "spooled_results_threshold_bytes": "1",
+                   "spooled_results_segment_bytes": str(FTE_SEGMENT_BYTES[schema])}
+        out["worker_direct"] = fte_spooled(coord, workers, spooled, schema, FTE_EXPORT_SQL,
+                                           FTE_EXPORT_CHECK, "worker-direct", device, spool,
+                                           "export (worker-direct)")
+        out["ranges"] = fte_ranges(coord, spooled, FTE_EXPORT_SQL)
+        out["coordinator"] = fte_spooled(coord, workers, spooled, schema, FTE_SORTED_SQL,
+                                         FTE_SORTED_CHECK, "coordinator", device, spool,
+                                         "sorted (coordinator)")
+        # the kernel on this path: the cached Q18 joined with a row of
+        # system.runtime.nodes runs on the coordinator's executor and spools
+        # into the coordinator's store
+        kprops = {**spooled, "device_cache_enabled": "true"}
+        sql = observe_gated(expected["18"]["sql"], 18, "fw0")
+        kernel = {}
+        for label in ("cold", "warm"):
+            rows, wall, ex, d, client = fte_execute(coord, kprops, sql, device, spool,
+                                                    f"Q18 (fte, spooled, {label})", cap,
+                                                    ("fte", 18, label))
+            check_rows(f"Q18 (fte, spooled, {label})", rows, expected["18"]["rows"],
+                       rel_tol=DIST_REL_TOL)
+            if ex.fast_path != "local-catalog" or ex.spooled != "coordinator":
+                raise AssertionError(f"Q18 (fte, spooled): {ex.fast_path}, {ex.spooled}")
+            if cuda and d["merge_launches"] < 1:
+                raise AssertionError(f"Q18 (fte, spooled, {label}): no merge launch")
+            out["launches"] += d["merge_launches"]
+            kernel[label] = {"wall_s": wall, "merge_launches": d["merge_launches"],
+                             "segments": len(ex.result_segments)}
+        out["kernel"] = kernel
+    finally:
+        if cap is not None:
+            cap.now = None
+        if coord is not None:
+            serving_stop(coord, workers)
+        if old_spool is None:
+            os.environ.pop("TRINO_TPU_SPOOL_DIR", None)
+        else:
+            os.environ["TRINO_TPU_SPOOL_DIR"] = old_spool
+        shutil.rmtree(spool, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("fte", json.dumps(out, default=str), flush=True)
+    return out
+
+
 def check_random(session, device):
     """random() over every lineitem row at SF1, drawn on the card from the
     session's generator."""
@@ -3784,6 +4216,8 @@ def main() -> int:
         serving = phase_serving(device, expected, plane, cap, card)
         observe = phase_observe(device, expected, plane, compiled, cap, card,
                                 {q: dist_runs[q][1]["wall_s"] for q in OBSERVE_DIST_QUERIES})
+        fte = phase_fte(device, expected, plane, cap, card,
+                        {q: dist_runs[q][1]["wall_s"] for q in FTE_QUERIES})
     eager_merge = sorted(int(q) for q, e in expected.items()
                          if e["tiers"].get("merge-pallas", 0) >= 1)
     compiled_merge = sorted(f"Q{q}" for q, e in compiled["queries"].items()
@@ -3799,7 +4233,8 @@ def main() -> int:
                     if plane["tiers_cached"][str(q)]["cold"].get("merge-pallas", 0) >= 1],
         "observe": [q for q in OBSERVE_CACHED_QUERIES
                     if plane["tiers_cached"][str(q)]["cold"].get("merge-pallas", 0) >= 1],
-        "observe_compiled": ["Q17"] if "Q17" in compiled_merge else []})
+        "observe_compiled": ["Q17"] if "Q17" in compiled_merge else [],
+        "fte": [18]})
     if profiling:
         tpch_sql = [(f"Q{q}", expected[str(q)]["sql"]) for q in range(1, 23)]
         phase_profile(session, tpch_sql, "uncached")
@@ -3841,7 +4276,8 @@ def main() -> int:
         "matview": matview["q18"]["merge_launches"],
         "adaptive": adaptive["compile_ledger"]["merge_launches"],
         "serving": serving["cache_shares"]["launches"],
-        "observe": observe["launches"]}
+        "observe": observe["launches"],
+        "fte": fte["launches"]}
     for path, n in launches_by_path.items():
         if n < 1 and path not in ("analytics", "scalar", "nested", "distributed", "matview"):
             raise AssertionError(f"the 22 queries of path {path} launched the merge kernel "

@@ -411,19 +411,25 @@ def test_dbapi_qmark_parameters(cluster):
         cur.execute("select count(*) from nation where n_regionkey = ?", (1, 2))
 
 
-def test_unported_tiers_are_refused(cluster):
-    """The fault-tolerant tier, spooled results and the executor-process
-    plane are refused, and the segment route answers 501. Adaptive
-    execution and distributed EXPLAIN ANALYZE are ported: a request setting
+def test_unported_tiers_are_refused(cluster, monkeypatch):
+    """Only the executor-process plane is refused. The fault-tolerant tier
+    and spooled results are ported: a request setting ``retry_policy=TASK``
+    without a spool directory fails with the reference's message, one with
+    ``spooled_results_enabled`` runs, and the segment route answers an
+    unknown id 404, as the reference's does. Adaptive execution and
+    distributed EXPLAIN ANALYZE are ported: a request setting
     ``adaptive_execution_enabled`` runs, and EXPLAIN ANALYZE answers with
     the annotated fragments. The observability routes are ported: ``/ui``
     serves its page and the trace route of an unknown query 404."""
     coord, _ = cluster
     from trino_tpu_torch.client.remote import RemoteQueryError
 
-    for prop, value in (("retry_policy", "TASK"), ("spooled_results_enabled", "true")):
-        with pytest.raises(RemoteQueryError, match="not ported"):
-            run(coord, "select count(*) from region", {**TINY, prop: value})
+    monkeypatch.delenv("TRINO_TPU_SPOOL_DIR", raising=False)
+    with pytest.raises(RemoteQueryError, match="requires the spooled exchange"):
+        run(coord, "select count(*) from region", {**TINY, "retry_policy": "TASK"})
+    _cols, rows = run(coord, "select count(*) from region",
+                      {**TINY, "spooled_results_enabled": "true"})
+    assert rows == [[5]]
     for value in ("true", "false"):
         _cols, rows = run(coord, "select count(*) from region",
                           {**TINY, "adaptive_execution_enabled": value})
@@ -431,9 +437,11 @@ def test_unported_tiers_are_refused(cluster):
     _cols, plan = run(coord, "explain analyze select count(*) from region")
     text = "\n".join(r[0] for r in plan)
     assert text.startswith("Query wall time: ") and "TableScan tpch.tiny.region" in text
-    for path, want in (("/ui", 200), ("/v1/query/x/trace", 404), ("/v1/segment/x", 501)):
+    for path, want in (("/ui", 200), ("/v1/query/x/trace", 404), ("/v1/segment/x", 404)):
         status, _, _ = wire.http_request("GET", coord.base_url + path, timeout=10.0)
         assert status == want, path
+    status, _, _ = wire.http_request("DELETE", coord.base_url + "/v1/segment/x", timeout=10.0)
+    assert status == 204  # an ack of a gone segment is still an ack
     from trino_tpu_torch.server.coordinator import CoordinatorServer
 
     with pytest.raises(NotImplementedError, match="executor_plane=process"):

@@ -215,8 +215,8 @@ def test_query_stats_live_while_running_then_frozen(clusters, monkeypatch):
 
 
 # the reference's statement stats keys that read what the port does not
-# have: spooled results
-UNPORTED_STATS_KEYS = {"spooled"}
+# have: none since the spooled result protocol was ported
+UNPORTED_STATS_KEYS = set()
 
 
 def test_statement_protocol_carries_the_reference_stats(clusters):

@@ -7,7 +7,8 @@ output, running either against an embedded in-process session (default, on
 protocol (``--server URL``). After each statement it prints the row count
 and wall, the summary of the protocol's stats block (stages, rows, memory,
 cache and group, drain rate, stragglers, the phase ledger) and, remotely,
-the result-cache disposition (``[cache: HIT]``).
+the spooled segments it fetched (``--fetch-streams`` at a time) and the
+result-cache disposition (``[cache: HIT]``).
 
 Usage:
     python -m trino_tpu_torch.client.cli [--server URL] [--catalog C] [--schema S]
@@ -155,7 +156,8 @@ class Console:
         if args.server:
             from trino_tpu_torch.client.remote import StatementClient
 
-            self._client = StatementClient(args.server, props)
+            self._client = StatementClient(args.server, props,
+                                           fetch_streams=getattr(args, "fetch_streams", 4))
             self._session = None
         else:
             from trino_tpu_torch.client.session import Session
@@ -202,6 +204,14 @@ class Console:
         dt = time.monotonic() - t0
         summary = f"({len(rows)} row{'s' if len(rows) != 1 else ''} in {dt:.2f}s)"
         summary += render_summary(getattr(self._client, "stats", None))
+        nseg = getattr(self._client, "spooled_segments", 0)
+        if nseg:
+            # the spooled protocol's client side: the segment bytes fetched
+            # in parallel and the rate they came at
+            mb = getattr(self._client, "spooled_bytes", 0) / 1e6
+            fetch_s = getattr(self._client, "segment_fetch_s", 0.0)
+            rate = f" @ {mb / fetch_s:.0f}MB/s" if fetch_s > 0 else ""
+            summary += f" [fetched {nseg} segments, {mb:.1f}MB{rate}]"
         cache = getattr(self._client, "cache_status", None)
         if cache:
             # result-cache disposition from the X-Trino-Tpu-Cache header
@@ -241,6 +251,9 @@ def main(argv=None) -> int:
     ap.add_argument("--catalog", default="tpch")
     ap.add_argument("--schema", default="tiny")
     ap.add_argument("--execute", "-e", default=None, help="run one statement and exit")
+    ap.add_argument("--fetch-streams", type=int, default=4,
+                    help="parallel spooled-segment fetch streams "
+                         "(remote servers with spooled_results_enabled)")
     ap.add_argument("--device", default=None,
                     help="torch device of the embedded session (default cuda)")
     ap.add_argument("--session", action="append", default=[], metavar="NAME=VALUE",

@@ -38,10 +38,12 @@ class DatabaseError(Error):
 
 class Connection:
     def __init__(self, coordinator_url: Optional[str] = None, session=None,
-                 catalog: str = "tpch", schema: str = "tiny",
+                 catalog: str = "tpch", schema: str = "tiny", fetch_streams: int = 4,
                  user: Optional[str] = None, source: Optional[str] = None,
                  password: Optional[str] = None, token: Optional[str] = None,
                  device=None, **properties):
+        # ``fetch_streams`` is a client knob (the width of the parallel
+        # fetch of spooled result segments), never a session property;
         # ``user`` and ``source`` ride the X-Trino-User and X-Trino-Source
         # headers (resource-group selector inputs), ``password`` or
         # ``token`` Basic or Bearer credentials; ``device`` is the embedded
@@ -50,8 +52,9 @@ class Connection:
             from trino_tpu_torch.client.remote import StatementClient
 
             props = {"catalog": catalog, "schema": schema, **properties}
-            self._client = StatementClient(coordinator_url, props, user=user, source=source,
-                                           password=password, token=token)
+            self._client = StatementClient(coordinator_url, props, fetch_streams=fetch_streams,
+                                           user=user, source=source, password=password,
+                                           token=token)
             self._session = None
         else:
             if session is None:

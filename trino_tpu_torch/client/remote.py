@@ -10,10 +10,13 @@ PREPARE/DEALLOCATE round-trip into the client's later requests, and the
 the client waits the server's retry guidance and resubmits until its
 deadline, then raises ``QueueFullError``. ``user`` and ``source`` ride the
 X-Trino-User and X-Trino-Source headers (resource-group selector inputs);
-``password`` or ``token`` sends Basic or Bearer credentials. The value
-decoders turn framed serde pages into the inline protocol's JSON values.
-A coordinator answering with a spooled segment manifest is refused: the
-spooled result protocol is not ported.
+``password`` or ``token`` sends Basic or Bearer credentials. Under the
+spooled result protocol a response carries a manifest of segments instead
+of rows: the client fetches them from the producers in parallel
+(``fetch_streams`` at a time), each with one transparent retry, decodes
+them into the inline protocol's JSON values, keeps manifest order, and acks
+each one so its producer deletes it; a segment missing or truncated after
+the retry raises ``SegmentFetchError``.
 """
 from __future__ import annotations
 
@@ -43,15 +46,33 @@ class QueueFullError(RemoteQueryError):
         self.queued_ahead = queued_ahead
 
 
+class SegmentFetchError(RemoteQueryError):
+    """A spooled result segment could not be fetched or decoded (missing,
+    truncated or unreachable) after the one transparent retry."""
+
+    def __init__(self, message: str, segment_id: Optional[str] = None):
+        super().__init__(message)
+        self.segment_id = segment_id
+
+
 class StatementClient:
-    """Submit one statement at a time and gather its results."""
+    """Submit one statement at a time and gather its results.
+    ``fetch_streams`` is the width of the parallel fetch of spooled result
+    segments."""
 
     def __init__(self, coordinator_url: str,
                  session_properties: Optional[Dict[str, str]] = None,
+                 fetch_streams: int = 4,
                  user: Optional[str] = None, source: Optional[str] = None,
                  password: Optional[str] = None, token: Optional[str] = None):
         self.coordinator_url = coordinator_url.rstrip("/")
         self.session_properties = dict(session_properties or {})
+        self.fetch_streams = max(1, int(fetch_streams))
+        # the last statement's spooled segments: how many, their bytes and
+        # the fetch and decode wall
+        self.spooled_segments = 0
+        self.spooled_bytes = 0
+        self.segment_fetch_s = 0.0
         self.user = user
         self.source = source
         # Basic credentials (user and password) or a Bearer token
@@ -111,6 +132,9 @@ class StatementClient:
         self.query_id = None
         self.response_bytes = 0
         self.submit_retries = 0
+        self.spooled_segments = 0
+        self.spooled_bytes = 0
+        self.segment_fetch_s = 0.0
         deadline = time.monotonic() + timeout
         while True:
             status, body, resp_headers = wire.http_request(
@@ -157,7 +181,7 @@ class StatementClient:
                 columns = [c["name"] for c in payload["columns"]]
             rows.extend(payload.get("data", []))
             if payload.get("segments"):
-                raise NotImplementedError("spooled result segments are not ported")
+                rows.extend(self._fetch_segments(payload["segments"]))
             next_uri = payload.get("nextUri")
             if next_uri is None:
                 return columns, rows
@@ -177,6 +201,67 @@ class StatementClient:
         for k, v in (resp_headers or {}).items():
             if k.lower() == "x-trino-tpu-cache":
                 self.cache_status = v
+
+    # ------------------------------------------------- spooled segments
+    def _fetch_segments(self, segments: List[dict]) -> List[list]:
+        """Fetch and decode every segment of a manifest, ``fetch_streams``
+        at a time, the rows in manifest order (the first failure
+        propagates)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        t0 = time.monotonic()
+        self.spooled_segments = len(segments)
+        self.spooled_bytes = sum(int(s.get("bytes", 0)) for s in segments)
+        if len(segments) == 1 or self.fetch_streams == 1:
+            parts = [self._fetch_one_segment(seg) for seg in segments]
+        else:
+            with ThreadPoolExecutor(max_workers=min(self.fetch_streams, len(segments)),
+                                    thread_name_prefix="segment-fetch") as pool:
+                parts = list(pool.map(self._fetch_one_segment, segments))
+        self.segment_fetch_s = time.monotonic() - t0
+        return [row for part in parts for row in part]
+
+    def _fetch_one_segment(self, seg: dict) -> list:
+        """One segment: GET its frames, decode them into rows, ack it. A
+        transport or decode failure is retried once, then raised typed."""
+        last_err: Optional[str] = None
+        for _attempt in range(2):
+            try:
+                status, body, _ = wire.http_request("GET", seg["uri"], timeout=120.0)
+            except Exception as e:  # noqa: BLE001 — transport failure
+                last_err = f"fetch failed: {e}"
+                continue
+            if status >= 400:
+                last_err = f"status {status}: {body[:200].decode(errors='replace')}"
+                continue
+            try:
+                rows = _decode_segment(body, int(seg.get("rows", -1)))
+            except Exception as e:  # noqa: BLE001 — truncated or corrupt
+                last_err = f"decode failed: {e}"
+                continue
+            self._ack_segment(seg)
+            return rows
+        raise SegmentFetchError(f"segment {seg.get('id')} unavailable after retry ({last_err})",
+                                segment_id=seg.get("id"))
+
+    @staticmethod
+    def _ack_segment(seg: dict) -> None:
+        """Best-effort ack (DELETE): the producer deletes the segment now
+        rather than at its TTL."""
+        try:
+            wire.http_request("DELETE", seg.get("ackUri") or seg["uri"], timeout=10.0)
+        except Exception:  # noqa: BLE001 — the TTL is the backstop
+            pass
+
+
+def _decode_segment(body: bytes, expected_rows: int = -1) -> list:
+    """A segment's framed pages -> rows (``decode_pages``), checked against
+    the manifest's row count (a truncated file decodes short)."""
+    rows = decode_pages(body)
+    if expected_rows >= 0 and len(rows) != expected_rows:
+        raise ValueError(f"segment decoded {len(rows)} rows, manifest says {expected_rows} "
+                         "(truncated?)")
+    return rows
 
 
 def decode_pages(body: bytes) -> list:

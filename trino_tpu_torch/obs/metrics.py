@@ -8,14 +8,19 @@ pressure and peak series, the process self-metrics) are declared in
 ``REGISTRY`` with the reference's names, help strings and label names, as
 are those of the observability plane (the flow ledger's transfer, stall and
 straggler series, the phase ledger's histogram, the exchange requests and
-retries, the per-operator rollups, the fast-path paths and the OTLP drops).
+retries, the per-operator rollups, the fast-path paths and the OTLP drops)
+and those of the fault-tolerant tier and the spooled result protocol (spool
+reads, result segments, inline-result rejections), and the series the
+reference registers for the join tiers, the staging, device-cache,
+compile, serde, result-cache, plan-cache and view counters: the port's
+registry has every series of the reference's.
 ``render_registry`` renders them as the Prometheus text page that
 ``GET /v1/metrics`` serves on the coordinator and the workers, and
 ``registry_samples`` as the rows of ``system.metrics.metrics``, so both
-packages' pages carry the same series. The other counters are plain and
-unregistered: the tests and ``chip_smoke.py`` read them to show which join
-tier a query took, what the staging and device-cache plane moved, and what
-the result cache, the plan cache and the materialized views decided.
+packages' pages carry the same series. The counters the reference has no
+series for are plain and unregistered (the host-to-device bytes, the host
+passes' and the serde's seconds, the views' warm rows): the tests and
+``chip_smoke.py`` read them.
 
 Server-derived gauges are refreshed from the owning server just before a
 render, under ``RENDER_LOCK`` (server/events.render_metrics), and cleared
@@ -210,38 +215,98 @@ class MetricsRegistry:
 
 REGISTRY = MetricsRegistry()
 
-PLAN_VALIDATION_FAILURES = Counter("plan_validation_failures_total")
-GENCACHE_HITS = Counter("tpch_gencache_hits_total")
-GENCACHE_MISSES = Counter("tpch_gencache_misses_total")
-GENCACHE_EVICTIONS = Counter("tpch_gencache_evictions_total")
+PLAN_VALIDATION_FAILURES = REGISTRY.counter(
+    "trino_tpu_plan_validation_failures_total",
+    "plan invariant violations raised by the plan-IR sanity checker", ('phase',))
+GENCACHE_HITS = REGISTRY.counter(
+    "trino_tpu_gencache_hits_total",
+    "generator scan ranges served entirely from the datagen cache")
+GENCACHE_MISSES = REGISTRY.counter(
+    "trino_tpu_gencache_misses_total",
+    "generator scan ranges that synthesized at least one column")
+GENCACHE_EVICTIONS = REGISTRY.counter(
+    "trino_tpu_gencache_evictions_total",
+    "datagen cache entries evicted by the LRU byte budget")
 # join kernel selections by the executor's tier gate (tier = dense | fused
 # | merge-sorted | merge-pallas | legacy)
-FUSED_JOIN_SELECTIONS = Counter("fused_join_selections_total")
-SPANS_DROPPED = Counter("trace_spans_dropped_total")
+FUSED_JOIN_SELECTIONS = REGISTRY.counter(
+    "trino_tpu_fused_join_selections_total",
+    "join kernel selections by the fused-tier cost gate (tier = dense | "
+    "fused | merge-sorted | merge-pallas | legacy); in the compiled/SPMD "
+    "tiers a selection is counted per program TRACE, not per cached-"
+    "executable run", ('tier',))
+SPANS_DROPPED = REGISTRY.counter(
+    "trino_tpu_spans_dropped_total",
+    "spans dropped by the per-tracer span cap (TRINO_TPU_TRACE_MAX_SPANS, "
+    "default 4096)")
 
 # the staging plane (exec/staging.py): rows staged from connectors into
 # device pages, bytes copied host->device for scanned columns, and the
 # staging wall by sub-phase (scan | decode | transfer | host-cache)
-STAGED_ROWS = Counter("staged_rows_total")
+STAGED_ROWS = REGISTRY.counter(
+    "trino_tpu_staged_rows_total",
+    "rows staged from connectors into pages")
 STAGED_H2D_BYTES = Counter("staged_h2d_bytes_total")
-STAGING_SECONDS = Counter("staging_seconds_total")
-STAGING_PHASE_SECONDS = Counter("staging_phase_seconds_total")
+STAGING_SECONDS = REGISTRY.counter(
+    "trino_tpu_staging_seconds_total",
+    "host-side staging seconds charged to queries: the compiled tier "
+    "charges dynamic-filter resolution + host domain application (bench's "
+    "staging_df_s — the host work a run repeats without the device cache; "
+    "CUMULATIVE across scan threads under the pipelined fan-out, so it can "
+    "exceed the staging wall); the worker tier charges the per-split "
+    "scan+assemble wall of FRESH stagings (device-cache hits charge "
+    "nothing)")
+STAGING_PHASE_SECONDS = REGISTRY.counter(
+    "trino_tpu_staging_phase_seconds_total",
+    "staging pipeline wall seconds by sub-phase: scan (parallel split "
+    "read+decode fan-out), decode (host assembly: concat + dictionary merge"
+    " + physical narrowing), transfer (double-buffered host->device "
+    "blocks), host-cache (host-tier probe)", ('phase',))
 
 # the warm device table cache (devcache/cache.py): hits include
 # single-flight followers; evictions count LRU pressure, yields to a
 # spilling query and stale data_version drops after DML
-DEVICE_CACHE_HITS = Counter("device_cache_hits_total")
-DEVICE_CACHE_MISSES = Counter("device_cache_misses_total")
-DEVICE_CACHE_EVICTIONS = Counter("device_cache_evictions_total")
-DEVICE_CACHE_BYTES = Gauge("device_cache_bytes")
+DEVICE_CACHE_HITS = REGISTRY.counter(
+    "trino_tpu_device_cache_hits_total",
+    "table stagings served from the device cache (including single-flight "
+    "followers served by a concurrent leader's transfer)")
+DEVICE_CACHE_MISSES = REGISTRY.counter(
+    "trino_tpu_device_cache_misses_total",
+    "cache-eligible table stagings that transferred host pages to device "
+    "and (budget permitting) filled the cache")
+DEVICE_CACHE_EVICTIONS = REGISTRY.counter(
+    "trino_tpu_device_cache_evictions_total",
+    "device-cache entries dropped (LRU byte budget, revocable-tier yield to"
+    " a running query, or a stale data_version after DML)")
+DEVICE_CACHE_BYTES = REGISTRY.gauge(
+    "trino_tpu_device_cache_bytes",
+    "device bytes held by the warm-HBM table cache (the revocable tier)")
 # joins served a cached sorted build (also counted as hits above)
-DEVICE_CACHE_BUILD_HITS = Counter("device_cache_build_hits_total")
+DEVICE_CACHE_BUILD_HITS = REGISTRY.counter(
+    "trino_tpu_device_cache_build_hits_total",
+    "joins served a SORTED build-side artifact from the device cache (the "
+    "warm repeated join skipped the build sort entirely; these also count "
+    "in the general device-cache hit counter — the artifacts share the "
+    "revocable-tier pool and byte budget)")
 
 # the host-RAM tier under it (devcache/hostcache.py): decoded split columns
-HOST_CACHE_HITS = Counter("host_cache_hits_total")
-HOST_CACHE_MISSES = Counter("host_cache_misses_total")
-HOST_CACHE_EVICTIONS = Counter("host_cache_evictions_total")
-HOST_CACHE_BYTES = Gauge("host_cache_bytes")
+HOST_CACHE_HITS = REGISTRY.counter(
+    "trino_tpu_host_cache_hits_total",
+    "split stagings served decoded columns from the host-RAM page cache "
+    "(including single-flight followers served by a concurrent leader's "
+    "scan) — the staging pipeline skipped the connector scan and decode")
+HOST_CACHE_MISSES = REGISTRY.counter(
+    "trino_tpu_host_cache_misses_total",
+    "cache-eligible split stagings that ran the connector scan+decode and "
+    "(budget permitting) filled the host-RAM page cache")
+HOST_CACHE_EVICTIONS = REGISTRY.counter(
+    "trino_tpu_host_cache_evictions_total",
+    "host-cache entries dropped (LRU byte budget, revocable-tier shed, or a"
+    " stale data_version after DML)")
+HOST_CACHE_BYTES = REGISTRY.gauge(
+    "trino_tpu_host_cache_bytes",
+    "host RAM held by the columnar page cache (the second revocable tier — "
+    "sheds before the warm-HBM tier under node pressure)")
 
 # host seconds of the scalar lowerings' passes over a vocabulary or a table
 # of days (ops/expr_lower.py): string work run once a distinct value on the
@@ -257,17 +322,37 @@ NESTED_HOST_SECONDS = Counter("nested_host_seconds_total")
 # COMPILE_SECONDS; a replay of the captured graph is a hit and its wall goes
 # to DEVICE_SECONDS. A build also charges its phase-1 dynamic-filter
 # seconds to STAGING_SECONDS above (its scans charge their own loads)
-COMPILE_CACHE_MISSES = Counter("compile_cache_misses_total")
-COMPILE_CACHE_HITS = Counter("compile_cache_hits_total")
-COMPILE_SECONDS = Counter("compile_seconds_total")
-DEVICE_SECONDS = Counter("device_seconds_total")
+COMPILE_CACHE_MISSES = REGISTRY.counter(
+    "trino_tpu_compile_cache_misses_total",
+    "compiled-query runs that traced+compiled (first run or capacity "
+    "regrowth)")
+COMPILE_CACHE_HITS = REGISTRY.counter(
+    "trino_tpu_compile_cache_hits_total",
+    "compiled-query runs reusing an already-built XLA executable")
+COMPILE_SECONDS = REGISTRY.counter(
+    "trino_tpu_compile_seconds_total",
+    "wall seconds of compiled-query runs that traced+compiled (kept out of "
+    "device seconds so one-time compiles don't skew throughput math)")
+DEVICE_SECONDS = REGISTRY.counter(
+    "trino_tpu_device_seconds_total",
+    "device execution wall seconds (fragment bodies / compiled runs)")
 # the device profiler (obs/devprofiler.py): launches and dispatch overhead
 # (wall minus device seconds) by operator, bumped when a query's kernel rows
 # fold, never per dispatch; compile seconds by tier and cache outcome, one
 # observation a compile event (a replay's is 0)
-KERNEL_LAUNCHES = Counter("kernel_launches_total")
-KERNEL_DISPATCH_OVERHEAD = Counter("kernel_dispatch_overhead_seconds")
-COMPILE_SECONDS_TIERED = Histogram("compile_seconds")
+KERNEL_LAUNCHES = REGISTRY.counter(
+    "trino_tpu_kernel_launches_total",
+    "device dispatches by operator kind, folded from the kernel ledger at "
+    "query completion", ('operator',))
+KERNEL_DISPATCH_OVERHEAD = REGISTRY.counter(
+    "trino_tpu_kernel_dispatch_overhead_seconds",
+    "per-operator wall minus device seconds (host dispatch overhead — the "
+    "number fragment megakernels must beat), folded from the kernel ledger "
+    "at query completion", ('operator',))
+COMPILE_SECONDS_TIERED = REGISTRY.histogram(
+    "trino_tpu_compile_seconds",
+    "per-event jit/Pallas compile seconds by execution tier and compile-"
+    "cache outcome (hit events observe ~0)", ('tier', 'cache'))
 
 # adaptive execution (adaptive/): plan changes by rule, applied at a stage
 # boundary by the re-planner (join-distribution | capacity-reseed |
@@ -275,10 +360,21 @@ COMPILE_SECONDS_TIERED = Histogram("compile_seconds")
 # (adaptive/reseed.py, also "capacity-reseed"); join flips by direction
 # (to_partitioned | to_broadcast); exchange sources stamped with actual
 # stage rows; hot partitions salted
-ADAPTIVE_ADAPTATIONS = Counter("adaptive_adaptations_total")
-ADAPTIVE_JOIN_FLIPS = Counter("adaptive_join_flips_total")
-ADAPTIVE_RESEEDED_SOURCES = Counter("adaptive_reseeded_sources_total")
-ADAPTIVE_SKEW_HOT_PARTITIONS = Counter("adaptive_skew_hot_partitions_total")
+ADAPTIVE_ADAPTATIONS = REGISTRY.counter(
+    "trino_tpu_adaptive_adaptations_total",
+    "plan changes applied by the adaptive re-planner at stage boundaries", ('rule',))
+ADAPTIVE_JOIN_FLIPS = REGISTRY.counter(
+    "trino_tpu_adaptive_join_flips_total",
+    "join-distribution switches (actual build rows contradicted the "
+    "estimate across join_max_broadcast_rows)", ('direction',))
+ADAPTIVE_RESEEDED_SOURCES = REGISTRY.counter(
+    "trino_tpu_adaptive_reseeded_sources_total",
+    "exchange sources stamped with actual upstream stage rows before their "
+    "consumer fragment scheduled")
+ADAPTIVE_SKEW_HOT_PARTITIONS = REGISTRY.counter(
+    "trino_tpu_adaptive_skew_hot_partitions_total",
+    "hot partitions salted by the adaptive skew mitigation (spread on the "
+    "probe producer, replicated on the build producer)")
 
 # the distributed path (data/serde.py, server/): wire bytes by direction
 # (encode | decode) and codec (zlib | none | logical, the uncompressed
@@ -286,39 +382,86 @@ ADAPTIVE_SKEW_HOT_PARTITIONS = Counter("adaptive_skew_hot_partitions_total")
 # whole, device<->host copies included; compress and decompress, zlib's
 # share of them) and of the producers' hash partitioning; exchange bytes
 # pulled; tasks created on workers
-SERDE_BYTES = Counter("serde_bytes_total")
+SERDE_BYTES = REGISTRY.counter(
+    "trino_tpu_serde_bytes_total",
+    "page serde column-block bytes by direction and codec (codec = zlib "
+    "compressed-wire | none raw-stored | logical uncompressed input/output;"
+    " ratio = (zlib + none) / logical)", ('direction', 'codec'))
 SERDE_SECONDS = Counter("serde_seconds_total")
 PARTITION_SECONDS = Counter("partition_seconds_total")
-EXCHANGE_BYTES = Counter("exchange_bytes_total")
-TASKS_TOTAL = Counter("tasks_total")
+EXCHANGE_BYTES = REGISTRY.counter(
+    "trino_tpu_exchange_bytes_total",
+    "serialized page bytes pulled from upstream task buffers")
+TASKS_TOTAL = REGISTRY.counter(
+    "trino_tpu_tasks_total",
+    "tasks created on this node")
 # the keep-alive pool of server/wire.py
-HTTP_CONNECTIONS_OPENED = Counter("http_connections_opened_total")
-HTTP_CONNECTION_REUSES = Counter("http_connection_reuses_total")
+HTTP_CONNECTIONS_OPENED = REGISTRY.counter(
+    "trino_tpu_http_connections_opened_total",
+    "fresh TCP connections opened by the keep-alive HTTP client pool")
+HTTP_CONNECTION_REUSES = REGISTRY.counter(
+    "trino_tpu_http_connection_reuses_total",
+    "HTTP requests served over a pooled keep-alive connection (no TCP "
+    "connect paid)")
 
 # the query caching subsystem (cache/): the coordinator's result cache
 # (hits include single-flight followers served by a concurrent leader;
 # bypasses are cache-enabled queries that may not use it: DML/DDL,
 # non-deterministic functions, table functions, unversioned tables) and
 # its logical-plan cache
-RESULT_CACHE_HITS = Counter("result_cache_hits_total")
-RESULT_CACHE_MISSES = Counter("result_cache_misses_total")
-RESULT_CACHE_BYPASSES = Counter("result_cache_bypasses_total")
-RESULT_CACHE_EVICTIONS = Counter("result_cache_evictions_total")
-RESULT_CACHE_BYTES = Gauge("result_cache_bytes")
-RESULT_CACHE_SINGLE_FLIGHT_WAITS = Counter("result_cache_single_flight_waits_total")
-PLAN_CACHE_HITS = Counter("plan_cache_hits_total")
-PLAN_CACHE_MISSES = Counter("plan_cache_misses_total")
+RESULT_CACHE_HITS = REGISTRY.counter(
+    "trino_tpu_result_cache_hits_total",
+    "queries answered from the coordinator result cache (including single-"
+    "flight followers served by a concurrent leader)")
+RESULT_CACHE_MISSES = REGISTRY.counter(
+    "trino_tpu_result_cache_misses_total",
+    "cache-eligible queries that executed and (re)filled the result cache")
+RESULT_CACHE_BYPASSES = REGISTRY.counter(
+    "trino_tpu_result_cache_bypasses_total",
+    "cache-enabled queries that bypassed the result cache (DML/DDL, non-"
+    "deterministic functions, table functions, unversioned tables)")
+RESULT_CACHE_EVICTIONS = REGISTRY.counter(
+    "trino_tpu_result_cache_evictions_total",
+    "result-cache entries evicted by the LRU byte budget")
+RESULT_CACHE_BYTES = REGISTRY.gauge(
+    "trino_tpu_result_cache_bytes",
+    "estimated bytes of result pages held by the coordinator result cache")
+RESULT_CACHE_SINGLE_FLIGHT_WAITS = REGISTRY.counter(
+    "trino_tpu_result_cache_single_flight_waits_total",
+    "queries that parked on a concurrent identical query's in-flight "
+    "execution instead of executing themselves")
+PLAN_CACHE_HITS = REGISTRY.counter(
+    "trino_tpu_plan_cache_hits_total",
+    "queries that reused a cached optimized logical plan (skipping "
+    "parse/analyze/plan/optimize)")
+PLAN_CACHE_MISSES = REGISTRY.counter(
+    "trino_tpu_plan_cache_misses_total",
+    "plan-cache lookups that planned from scratch (first sight, changed "
+    "session properties, or a data-version mismatch)")
 # prepared statements (server/prepared.py): the registry's size and the
 # per-EXECUTE bind seconds (constant folding plus the plan substitution)
-PREPARED_STATEMENTS = Gauge("prepared_statements")
-EXECUTE_BIND_SECONDS = Histogram("execute_bind_seconds")
+PREPARED_STATEMENTS = REGISTRY.gauge(
+    "trino_tpu_prepared_statements",
+    "prepared statements held by the coordinator registry (all users)")
+EXECUTE_BIND_SECONDS = REGISTRY.histogram(
+    "trino_tpu_execute_bind_seconds",
+    "EXECUTE parameter bind time: constant-folding the USING expressions + "
+    "substituting them into the cached parameterized plan")
 # materialized views (matview/): substitution decisions by result
 # (substituted | stale | access-denied | invalid), the REFRESH wall (plan,
 # execute, storage swap and the device-cache warm), and the warm's rows
 # staged onto the session's device and the warms that failed (a failed
 # warm never fails its REFRESH, so it is counted here instead)
-MV_SUBSTITUTIONS = Counter("mv_substitutions_total")
-MV_REFRESH_SECONDS = Histogram("mv_refresh_seconds")
+MV_SUBSTITUTIONS = REGISTRY.counter(
+    "trino_tpu_mv_substitutions_total",
+    "materialized-view substitution decisions by the planner pass (result ="
+    " substituted | stale | access-denied | invalid): 'substituted' rewrote"
+    " a matched plan subtree into a storage-table scan; every other result "
+    "fell back to the base plan", ('result',))
+MV_REFRESH_SECONDS = REGISTRY.histogram(
+    "trino_tpu_mv_refresh_seconds",
+    "REFRESH MATERIALIZED VIEW wall time: plan + execute the definition + "
+    "atomic storage swap (+ the optional device-cache warm staging)")
 MV_WARM_ROWS = Counter("mv_warm_rows_total")
 MV_WARM_FAILURES = Counter("mv_warm_failures_total")
 
@@ -446,6 +589,47 @@ FAST_PATH_QUERIES = REGISTRY.counter(
     "plan run coordinator-local, skipping task round-trips; distributed = "
     "fragment/schedule/execute across workers; local-catalog = forced "
     "coordinator-local by a process-local catalog)", ("path",))
+
+# the fault-tolerant tier's spool reads (server/exchange_client.py), the
+# spooled result protocol's segments (server/segments.py: written, served,
+# reclaimed by ack, TTL or orphan sweep) and queries, and the inline-result
+# guard's rejections (server/coordinator.py)
+SPOOL_READS = REGISTRY.counter(
+    "trino_tpu_spool_reads_total",
+    "task outputs served from the durable spool instead of a live buffer")
+SPOOL_BYTES = REGISTRY.counter(
+    "trino_tpu_spool_bytes_total",
+    "page bytes read from durable spool files (kept separate from "
+    "exchange bytes, which count network pulls from live buffers)")
+RESULT_SEGMENTS_WRITTEN = REGISTRY.counter(
+    "trino_tpu_result_segments_written_total",
+    "spooled result segments written to this process's segment store")
+RESULT_SEGMENT_BYTES = REGISTRY.counter(
+    "trino_tpu_result_segment_bytes_total",
+    "spooled result segment bytes by direction (written = rolled into "
+    "the segment store; served = read out by segment GETs)",
+    ("direction",))
+RESULT_SEGMENTS_RECLAIMED = REGISTRY.counter(
+    "trino_tpu_result_segments_reclaimed_total",
+    "result segments deleted, by reason (ack = client fetched and acked; "
+    "ttl = expired un-acked, including failed queries' early drops; "
+    "orphan = stale files swept at server start)", ("reason",))
+RESULT_SEGMENT_RECLAIMED_BYTES = REGISTRY.counter(
+    "trino_tpu_result_segment_reclaimed_bytes_total",
+    "bytes reclaimed by result-segment deletion, by reason "
+    "(ack | ttl | orphan)", ("reason",))
+SPOOLED_RESULT_QUERIES = REGISTRY.counter(
+    "trino_tpu_spooled_result_queries_total",
+    "queries whose results were served as a spooled segment manifest, by "
+    "mode (worker-direct = root-fragment producers wrote the segments "
+    "and the coordinator never touched the data; coordinator = the "
+    "coordinator spooled from its own segment store)", ("mode",))
+INLINE_RESULT_REJECTIONS = REGISTRY.counter(
+    "trino_tpu_inline_result_rejections_total",
+    "queries failed by the inline-result memory guard "
+    "(inline_result_max_bytes exceeded with spooled results disabled — "
+    "the coordinator refuses to materialize, instead of OOMing the "
+    "dispatch plane)")
 
 # the phase ledger (obs/timeline.py): each terminal query's exclusive
 # wall by phase

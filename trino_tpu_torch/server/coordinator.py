@@ -78,14 +78,33 @@ event listeners (the slow-query log, the JSONL query log named by
 ``TRINO_TPU_QUERY_LOG``) and, with ``TRINO_TPU_OTLP_ENDPOINT`` set, to an
 OTLP collector.
 
+The fault-tolerant tier (``retry_policy=TASK``, which needs the spool
+directory ``TRINO_TPU_SPOOL_DIR``) schedules stage by stage: all tasks of a
+stage run at once, and the next stage is scheduled only once every one of
+them FINISHED with its output spooled (server/task.py), so its consumers
+read durable files and the adaptive rules see both join producers done (the
+skew salting's input). A failed, unreachable or timed-out attempt is
+canceled and retried on the next worker, ``MAX_TASK_ATTEMPTS`` in all; a
+first attempt past ``SPECULATION_FACTOR`` times its siblings' median
+(``SPECULATION_MIN_S`` at least) gets a speculative twin, and the first to
+finish wins. A query's spool files go at its end, ``.tmp`` ones included.
+
+The spooled result protocol (``spooled_results_enabled``): a result at or
+over ``spooled_results_threshold_bytes`` (or over
+``inline_result_max_bytes``) leaves as a manifest of size-bounded segments
+(server/segments.py) that the client fetches in parallel. An export-shaped
+plan (the root fragment a pass-through gather) has its producing tasks
+write the segments on the workers, so the coordinator never touches the
+data (not under the fault-tolerant tier, whose losing attempts would leave
+segments behind); any other result spools into the coordinator's own
+store. ``/v1/segment/{id}`` serves the coordinator's segments and forwards
+a client's ack of a worker's. A spooled result never enters the result
+cache, and a view refresh never spools.
+
 The coordinator runs on one torch device: CUDA unless it is given another
 (``device="cpu"`` in the tests); asked for CUDA without a usable GPU it
-raises.
-
-Not ported (each refused, never ignored): ``retry_policy=TASK`` (the
-fault-tolerant tier), spooled result segments and their ``/v1/segment``
-route (501), and the executor-process plane
-(``executor_plane="process"``).
+raises. The executor-process plane (``executor_plane="process"``) is not
+ported and is refused.
 
     python -m trino_tpu_torch.server.coordinator [--port N] [--device cuda|cpu]
 
@@ -102,9 +121,11 @@ import time
 import traceback
 import uuid
 import weakref
+from collections import deque
 from http.server import BaseHTTPRequestHandler
 from typing import Dict, List, Optional
 
+from trino_tpu_torch.data.serde import serialize_page
 from trino_tpu_torch.exec.query import MATVIEW_STATEMENTS
 from trino_tpu_torch.obs import metrics as M
 from trino_tpu_torch.obs import trace as tracing
@@ -114,7 +135,7 @@ from trino_tpu_torch.server.auth import AuthenticationError
 from trino_tpu_torch.server.dispatch import Dispatcher, DispatchRejected
 from trino_tpu_torch.server.exchange_client import ExchangeClient, TaskLocation
 from trino_tpu_torch.server.statemachine import StateMachine, query_state_machine
-from trino_tpu_torch.server.task import TaskRequest
+from trino_tpu_torch.server.task import TaskRequest, spool_directory
 from trino_tpu_torch.server.worker import resolve_device
 from trino_tpu_torch.sql.parser import ast
 from trino_tpu_torch.sql.planner import plan as P
@@ -126,7 +147,7 @@ _QUERY_RE = re.compile(r"^/v1/query/([^/]+)$")
 _TRACE_RE = re.compile(r"^/v1/query/([^/]+)/trace$")
 _PROFILE_RE = re.compile(r"^/v1/query/([^/]+)/profile$")
 _FLOWS_RE = re.compile(r"^/v1/query/([^/]+)/flows$")
-_NOT_PORTED_RE = re.compile(r"^/v1/segment/[^/]+$")
+_SEGMENT_RE = re.compile(r"^/v1/segment/([^/]+)$")
 
 # the WWW-Authenticate challenge of a 401
 AUTH_CHALLENGE = 'Basic realm="trino-tpu", Bearer'
@@ -140,24 +161,6 @@ _SERVED_FROM_CACHE = "__served_from_cache__"
 
 def _truthy(v) -> bool:
     return str(v).lower() not in ("false", "0", "no", "none", "")
-
-
-# session properties that ask for a tier the port does not have: (name,
-# asks-for-it test, what is missing)
-_REFUSED_PROPERTIES = (
-    ("retry_policy", lambda v: str(v).upper() == "TASK",
-     "retry_policy=TASK (the fault-tolerant tier: spooled exchange, retries, "
-     "speculative execution)"),
-    ("spooled_results_enabled", _truthy, "spooled result segments"),
-)
-
-
-def refuse_unported(properties: dict) -> None:
-    """Raise NotImplementedError when a request's session properties ask
-    for a tier the port's coordinator does not have."""
-    for name, asks, what in _REFUSED_PROPERTIES:
-        if name in properties and asks(properties[name]):
-            raise NotImplementedError(f"{what} is not ported to the PyTorch coordinator")
 
 
 class NodeRegistry:
@@ -244,6 +247,26 @@ class QueryExecution:
         self.deallocated_prepared: List[str] = []
         self.fragments = None
         self.fragment_tasks: Dict[int, List[TaskLocation]] = {}
+        # the fault-tolerant tier: the winning attempt number a task id,
+        # the failed attempts' ids, the speculative attempts still in
+        # flight (pruned as their slots resolve) and every one launched
+        self.task_attempts: Dict[str, int] = {}
+        self.retried_tasks: List[str] = []
+        self.speculative_tasks: List[str] = []
+        self.speculation_history: deque = deque(maxlen=64)
+        # the spooled result protocol: the manifest (``{id, rows, bytes,
+        # codec, uri, ackUri}`` a segment) when the result left as segments,
+        # which producer wrote them ("worker-direct" or "coordinator"), the
+        # worker owning each segment id (ack forwarding), the coordinator's
+        # store and public URL (set at submit; None: this execution never
+        # spools), and when a client last fetched or acked a segment here
+        # (the phase ledger's segment-fetch, outside the wall)
+        self.result_segments: Optional[List[dict]] = None
+        self.spooled: Optional[str] = None
+        self._segment_workers: Dict[str, str] = {}
+        self.segment_store = None
+        self.segment_base_url: Optional[str] = None
+        self.last_segment_fetch_at: Optional[float] = None
         # the latest status record of each task slot ("<query>.<fragment>.
         # <index>"): {"fragment", "taskId", "state", "stats"}; the
         # stage and query rollups and the adaptive rules read it
@@ -320,6 +343,9 @@ class QueryExecution:
             self.ended_at = time.time()
             self._warm_timeline()
             self.fold_kernel_profile()
+            # the spool goes before FINISHED is visible: a client that
+            # reads the result finds no file of this query left
+            self._cleanup_spool()
             self.state.set("FINISHED")
         except Exception as e:  # noqa: BLE001 — reported through query info
             self.ended_at = self.ended_at or time.time()
@@ -336,11 +362,13 @@ class QueryExecution:
                 self.capture_postmortem(timeout=self.COMPLETION_PULL_TIMEOUT)
             except Exception:  # noqa: BLE001 — best-effort forensics
                 pass
+            self._cleanup_spool()
             self.state.set("FAILED")
         finally:
             # a kill or cancel from another thread may have won the latch:
             # the root span records the state that stuck
             root_span.set("state", self.state.get())
+            self._cleanup_spool()  # a cancel's or kill's end too
 
     def _run_lifecycle(self) -> None:
         from trino_tpu_torch.exec.query import run_query
@@ -348,7 +376,6 @@ class QueryExecution:
         from trino_tpu_torch.sql.parser.parser import parse_statement
 
         self.state.set("PLANNING")
-        refuse_unported(self.session_properties)
         session = self.session_factory(self.session_properties)
         session.identity = Identity(self.user)
         # procedures resolve the calling query through the session:
@@ -364,6 +391,9 @@ class QueryExecution:
             # fragments annotated with the stats it ran under
             self.cache_status = "BYPASS"
             text = self._explain_analyze(session, stmt)
+            # the deliverable is the annotated plan, not the inner query's
+            # rows: release any segments its execution spooled
+            self._discard_spooled_result()
             self.columns = ["Query Plan"]
             self.rows = [(line,) for line in text.split("\n")]
             return
@@ -408,6 +438,9 @@ class QueryExecution:
         self.cache_status = "BYPASS"
 
         def execute_fn(root):
+            # the refresh consumes rows: a spooled manifest would leave them
+            # in segments nothing here decodes
+            session.properties["spooled_results_enabled"] = False
             self._execute_query(session, root)
             rows, self.rows = self.rows, []
             return rows
@@ -559,6 +592,11 @@ class QueryExecution:
         except BaseException:
             self.query_cache.results.abandon(key)
             raise
+        if self.result_segments is not None:
+            # a spooled result is a manifest, its rows never materialized
+            # here: no entry, and single-flight waiters execute themselves
+            self.query_cache.results.abandon(key)
+            return
         self.query_cache.results.complete(
             key, self.columns, self.rows,
             ttl_ms=session.properties.get("result_cache_ttl_ms", 60_000),
@@ -704,6 +742,9 @@ class QueryExecution:
         with self.tracer.span("fragment") as sp:
             fragments = self.fragments = fragment_plan(root, session)
             sp.set("fragments", len(fragments))
+        # the worker-direct spool decision, before scheduling: the export
+        # shape's producers then write the result segments themselves
+        spool_fid = self._mark_worker_direct_spool(session, root, fragments)
         with self.tracer.span("schedule") as sp:
             self.state.set("STARTING")
             workers = self.registry.alive()
@@ -713,8 +754,16 @@ class QueryExecution:
             self._schedule(session, fragments, workers)
             self.state.set("RUNNING")
             self._start_stats_poller()
-        with self.tracer.span("execute/root-fragment"):
-            result_page = self._run_root_fragment(session, fragments)
+        result_page = None
+        if spool_fid is not None:
+            # metadata only: the manifest from the producers' status, no
+            # page crosses this process
+            with self.tracer.span("segments/collect") as sp:
+                self._collect_result_segments(spool_fid)
+                sp.set("segments", len(self.result_segments or ()))
+        else:
+            with self.tracer.span("execute/root-fragment"):
+                result_page = self._run_root_fragment(session, fragments)
         # freeze the rollup on the tasks' final numbers before the query
         # leaves RUNNING (every task is FLUSHING or later once the root
         # fragment drained its buffers)
@@ -722,7 +771,8 @@ class QueryExecution:
             sp.set("polled", self._sweep_task_stats())
         self.state.set("FINISHING")
         self.columns = fragments[-1].root.column_names
-        self._materialize_result(session, result_page)
+        if result_page is not None:
+            self._materialize_result(session, result_page)
 
     def _run_local(self, session, root, path: str, span_name: str,
                    reason: Optional[str] = None) -> None:
@@ -739,6 +789,7 @@ class QueryExecution:
                 sp.set("reason", reason)
             ex = Executor(session, collect_stats=self._collect_stats or None)
             page = ex.execute_checked(root)
+            ex.errors.clear()  # checked: the kept executor holds no flag on the card
         self._local_executor = ex  # EXPLAIN ANALYZE's annotation source
         self.columns = list(root.column_names)
         self._materialize_result(session, page)
@@ -755,7 +806,7 @@ class QueryExecution:
             "completedSplits": max(1, len(ex.scan_stats)),
             "totalSplits": max(1, len(ex.scan_stats)),
             "inputRows": int(sum(ex.scan_stats.values())),
-            "outputRows": len(self.rows),
+            "outputRows": self.result_rows(),
             "outputBytes": sum(st.output_bytes for st in ex.node_stats.values()),
             "peakBytes": int(ex.memory.peak),
             "spills": len(ex.memory.spills),
@@ -767,27 +818,200 @@ class QueryExecution:
                                {"state": "FINISHED", "stats": stats})
 
     def _materialize_result(self, session, page) -> None:
-        """The result page as Python rows, refusing one over
-        ``inline_result_max_bytes`` (the rows would all sit in this
-        process)."""
-        with self.tracer.span("result/serialize") as sp:
-            rows = page.to_pylist()
-            sp.set("rows", len(rows))
+        """The result tail of every SELECT path: the page as Python rows,
+        or, when the spooled result protocol is on and its bytes reach the
+        threshold (or the inline cap), segments in this coordinator's store
+        and a manifest. Over ``inline_result_max_bytes`` without the
+        protocol the query fails rather than hold the rows in this
+        process."""
+        live = page.num_rows if page.sel is None else int(page.sel.sum())
+        est = live * int(page.row_byte_estimate())
+        cfg = self._spool_config(session)
         cap = int(session.properties.get("inline_result_max_bytes", 256 << 20))
-        est = len(rows) * int(page.row_byte_estimate())
+        if cfg is not None and est >= min(cfg["threshold"], cap):
+            self._spool_result_page(session, page, cfg)
+            return
         if est > cap:
+            M.INLINE_RESULT_REJECTIONS.inc()
             raise RuntimeError(
-                f"result is ~{est} serialized bytes, over inline_result_max_bytes={cap} "
-                "(INLINE_RESULT_TOO_LARGE): narrow the query")
-        self.rows = rows
+                f"result is ~{est} serialized bytes, over inline_result_max_bytes={cap}: "
+                "the coordinator refuses to materialize it in process memory "
+                "(INLINE_RESULT_TOO_LARGE) — enable spooled_results_enabled to serve it "
+                "as a spooled segment manifest, or narrow the query")
+        with self.tracer.span("result/serialize") as sp:
+            self.rows = page.to_pylist()
+            sp.set("rows", len(self.rows))
+
+    # ---------------------------------------------------- spooled results
+    def result_rows(self) -> int:
+        """The result's row count under either protocol: the rows inline,
+        the manifest's rows summed when spooled."""
+        if self.result_segments is not None:
+            return sum(int(e.get("rows", 0)) for e in self.result_segments)
+        return len(self.rows)
+
+    def _spool_config(self, session) -> Optional[dict]:
+        """The spooled result protocol's knobs, or None when it is off for
+        this query (not enabled, or no segment store: an execution the
+        server did not submit)."""
+        props = session.properties
+        if self.segment_store is None or not _truthy(props.get("spooled_results_enabled", False)):
+            return None
+        return {"threshold": int(props.get("spooled_results_threshold_bytes", 8 << 20)),
+                "segment_bytes": int(props.get("spooled_results_segment_bytes", 8 << 20)),
+                "ttl_s": int(props.get("result_segment_ttl_ms", 300_000)) / 1e3}
+
+    def _spool_result_page(self, session, page, cfg) -> None:
+        """The coordinator's spool: the page compacted on the card and
+        copied to the host once (``host_page``: the live rows, not the
+        columns' capacity), cut into chunks and serialized into segments of
+        this coordinator's store, in row order."""
+        from trino_tpu_torch.data.serde import host_page
+        from trino_tpu_torch.server.task import _chunk_pages
+
+        page = host_page(page)
+        chunk_target = int(session.properties.get("task_output_chunk_bytes", 4 << 20))
+        chunk_rows = max(1, chunk_target // page.row_byte_estimate()) if page.num_rows else 1
+        writer = self.segment_store.writer(self.query_id, target_bytes=cfg["segment_bytes"],
+                                           ttl_s=cfg["ttl_s"])
+        with self.tracer.span("result/spool") as sp:
+            for c in _chunk_pages(page, chunk_rows):
+                writer.add(serialize_page(c), c.num_rows)
+            metas = writer.finish()
+            sp.set("segments", len(metas))
+            sp.set("rows", page.num_rows)
+        base = self.segment_base_url or ""
+        self.result_segments = [
+            {**m.manifest_entry(), "uri": f"{base}/v1/segment/{m.segment_id}",
+             "ackUri": f"{base}/v1/segment/{m.segment_id}"} for m in metas]
+        self.spooled = "coordinator"
+        self.rows = []
+        M.SPOOLED_RESULT_QUERIES.inc(1, "coordinator")
+
+    def _mark_worker_direct_spool(self, session, root, fragments) -> Optional[int]:
+        """The worker-direct decision, before scheduling: when the root
+        fragment is a pass-through gather (the export shape) and the
+        estimated result reaches the threshold, the producing fragment's
+        tasks write the segments and the root fragment never runs here.
+        Returns that fragment's id, or None (the actual bytes then decide
+        in ``_materialize_result``). Off under the fault-tolerant tier,
+        whose losing attempts' segments would outlive the manifest."""
+        cfg = self._spool_config(session)
+        if cfg is None or self._fte():
+            return None
+        src = self._gather_passthrough(fragments[-1])
+        if src is None:
+            return None
+        frag = next((f for f in fragments if f.id == src.fragment_id), None)
+        if frag is None or frag.output_partition_channels:
+            return None
+        from trino_tpu_torch.server import fastpath
+
+        est_rows = fastpath.scan_rows_estimate(session, root)
+        if est_rows * 8 * max(1, len(fragments[-1].root.column_names or ())) < cfg["threshold"]:
+            return None
+        frag.spool_results = True
+        return frag.id
+
+    @staticmethod
+    def _gather_passthrough(root_frag):
+        """The gather source of a root fragment that only passes it through
+        (an OutputNode over one gather RemoteSourceNode: gathered bytes are
+        the result's), else None."""
+        out = root_frag.root
+        src = out.source if isinstance(out, P.OutputNode) else out
+        if isinstance(src, RemoteSourceNode) and src.exchange_type == "gather":
+            return src
+        return None
+
+    SEGMENT_COLLECT_TIMEOUT = 600.0
+
+    def _collect_result_segments(self, fid: int) -> None:
+        """Wait for the result-producing tasks to FINISH (their segments are
+        durable then) and build the manifest from their status, in task
+        order. Clients fetch from the owning workers; their acks go through
+        this coordinator, which forwards them."""
+        deadline = time.monotonic() + self.SEGMENT_COLLECT_TIMEOUT
+        entries: List[dict] = []
+        base = self.segment_base_url or ""
+        for loc in self.fragment_tasks.get(fid, ()):
+            while True:
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(f"result task {loc.task_id} did not finish within "
+                                       f"{self.SEGMENT_COLLECT_TIMEOUT:g}s")
+                if self.state.is_terminal():
+                    raise RuntimeError("query was canceled")
+                info = self._poll_task(loc)
+                state = (info or {}).get("state")
+                if state == "FINISHED":
+                    break
+                if state in ("FAILED", "CANCELED"):
+                    raise RuntimeError(f"result task {loc.task_id} {state}: "
+                                       f"{info.get('failure')}")
+                time.sleep(0.05)
+            for seg in info.get("resultSegments", ()):
+                self._segment_workers[seg["id"]] = loc.base_url
+                entries.append({**seg, "uri": f"{loc.base_url}/v1/segment/{seg['id']}",
+                                "ackUri": f"{base}/v1/segment/{seg['id']}"})
+        self.result_segments = entries
+        self.spooled = "worker-direct"
+        self.rows = []
+        M.SPOOLED_RESULT_QUERIES.inc(1, "worker-direct")
+
+    def _discard_spooled_result(self) -> None:
+        """A statement whose answer is not the inner query's rows (EXPLAIN
+        ANALYZE) ran a query that spooled: its segments go now, as no
+        manifest will reach a client."""
+        if self.result_segments is None:
+            return
+        for e in self.result_segments:
+            worker = self._segment_workers.get(e["id"])
+            if worker is not None:
+                try:
+                    wire.http_request("DELETE", f"{worker}/v1/segment/{e['id']}", timeout=5.0)
+                except Exception:  # noqa: BLE001 — the TTL is the backstop
+                    pass
+            elif self.segment_store is not None:
+                self.segment_store.discard(e["id"])
+        self.result_segments = None
+        self.spooled = None
+
+    def _cleanup_spool(self) -> None:
+        """Delete this query's spooled task outputs, the ``.tmp`` files of
+        a write in progress included (the exchange's sink files go with
+        their query)."""
+        import glob
+
+        spool_dir = spool_directory()
+        if not spool_dir:
+            return
+        for path in glob.glob(os.path.join(glob.escape(spool_dir),
+                                           f"{glob.escape(self.query_id)}.*.pages*")):
+            try:
+                os.remove(path)
+            except OSError:
+                pass
 
     # ----------------------------------------------------------- scheduling
+    def _fte(self) -> bool:
+        """Whether the query runs under the fault-tolerant tier."""
+        return str(self.session_properties.get("retry_policy", "NONE")).upper() == "TASK"
+
     def _schedule(self, session, fragments, workers) -> None:
         """Create every fragment's tasks. A fragment consumed by a source
         or hash fragment has one consumer a worker (broadcast buffers, or
         one partition a hash task); the root fragment is one consumer. A
         fragment whose join build is fed by a leaf fragment waits until the
-        build's tasks finished executing (phased execution)."""
+        build's tasks finished executing (phased execution). Under the
+        fault-tolerant tier every stage finishes before the next one is
+        scheduled, so there is no build to wait for."""
+        fte = self._fte()
+        if fte and spool_directory() is None:
+            # retries need durable outputs (the reference's TASK retry needs
+            # a configured exchange manager)
+            raise RuntimeError(
+                "retry_policy=TASK requires the spooled exchange: set "
+                "TRINO_TPU_SPOOL_DIR to a cluster-shared directory")
         consumer_counts: Dict[int, int] = {}
         for frag in fragments:
             for node in P.walk_plan(frag.root):
@@ -812,14 +1036,14 @@ class QueryExecution:
         # rewritten from the completed stages' actual numbers
         adaptive = self._make_adaptive_planner(session, fragments, workers)
         for frag in list(fragments):
-            if phased and frag.id in build_deps:
+            if phased and not fte and frag.id in build_deps:
                 self._await_build_fragments(build_deps[frag.id])
                 self.phase_waits.append((frag.id, build_deps[frag.id]))
             if adaptive is not None and frag.partitioning != "single":
                 for nf in self._adapt_fragment(adaptive, frag, by_id, fragments,
                                                consumer_counts, workers):
-                    self._schedule_fragment(session, nf, workers, consumer_counts)
-            self._schedule_fragment(session, frag, workers, consumer_counts)
+                    self._schedule_fragment(session, nf, workers, consumer_counts, fte)
+            self._schedule_fragment(session, frag, workers, consumer_counts, fte)
 
     # --------------------------------------------------- adaptive execution
     def _make_adaptive_planner(self, session, fragments, workers):
@@ -872,32 +1096,29 @@ class QueryExecution:
             # the superseded producers' buffers will never be pulled
             for fid in ch.supersedes:
                 for loc in self.fragment_tasks.get(fid, ()):
-                    self._cancel_superseded(loc)
+                    self._cancel_attempt(loc)
         for nf in new_frags:
             consumer_counts[nf.id] = len(workers)
             fragments.insert(fragments.index(frag), nf)
         return new_frags
 
-    def _cancel_superseded(self, loc: TaskLocation) -> None:
-        """Cancel a superseded producer task, and mark its slot CANCELED
-        (its last numbers kept): the worker drops a canceled task, so a
-        later status read could only fail."""
-        self._cancel_attempt(loc)
-        with self._tstats_lock:
-            have = self.task_stats.get(loc.task_id.rsplit(".a", 1)[0])
-            if have is not None and have["taskId"] == loc.task_id and \
-                    have["state"] not in ("FINISHED", "FAILED"):
-                have["state"] = "CANCELED"
-
-    @staticmethod
-    def _cancel_attempt(loc: Optional[TaskLocation]) -> None:
-        """Best-effort cancel of one task."""
+    def _cancel_attempt(self, loc: Optional[TaskLocation]) -> None:
+        """Best-effort cancel of one task attempt (a superseded producer, a
+        failed or losing attempt), and its slot marked CANCELED where the
+        slot's record is this attempt's and not final (its last numbers
+        kept): the worker drops a canceled task, so a later status read of
+        it could only fail."""
         if loc is None:
             return
         try:
             wire.http_request("DELETE", f"{loc.base_url}/v1/task/{loc.task_id}", timeout=5.0)
         except Exception:  # noqa: BLE001
             pass
+        with self._tstats_lock:
+            have = self.task_stats.get(loc.task_id.rsplit(".a", 1)[0])
+            if have is not None and have["taskId"] == loc.task_id and \
+                    have["state"] not in ("FINISHED", "FAILED"):
+                have["state"] = "CANCELED"
 
     def _adapted_notes(self) -> Dict[int, str]:
         """fragment id -> change description, for EXPLAIN ANALYZE's
@@ -911,13 +1132,20 @@ class QueryExecution:
                 notes[fid] = "superseded"
         return notes
 
-    def _schedule_fragment(self, session, frag, workers, consumer_counts) -> None:
+    def _schedule_fragment(self, session, frag, workers, consumer_counts, fte=False) -> None:
         """Create the tasks of one source or hash fragment (the root single
-        fragment runs on the coordinator)."""
+        fragment runs on the coordinator); under the fault-tolerant tier,
+        run them to the stage barrier (``_run_fragment_fte``)."""
         if frag.partitioning == "hash":
-            self.fragment_tasks[frag.id] = [
-                self._create_task(frag, wi, {}, workers[wi], consumer_counts)
-                for wi in range(len(workers))]
+            # one task a key partition: task i pulls partition i of every
+            # producer (under the fault-tolerant tier, their spool files)
+            if fte:
+                self.fragment_tasks[frag.id] = self._run_fragment_fte(
+                    frag, [dict() for _ in workers], workers, consumer_counts)
+            else:
+                self.fragment_tasks[frag.id] = [
+                    self._create_task(frag, wi, 0, {}, workers[wi], consumer_counts)
+                    for wi in range(len(workers))]
             return
         if frag.partitioning != "source":
             return
@@ -940,12 +1168,19 @@ class QueryExecution:
                                      constraint=node.constraint, handle=node.table_handle)
             for i, split in enumerate(splits):
                 per_worker_splits[i % len(workers)].setdefault(node.id, []).append(split)
+        if fte:
+            self.fragment_tasks[frag.id] = self._run_fragment_fte(
+                frag, per_worker_splits, workers, consumer_counts)
+            return
         self.fragment_tasks[frag.id] = [
-            self._create_task(frag, wi, per_worker_splits[wi], workers[wi], consumer_counts)
+            self._create_task(frag, wi, 0, per_worker_splits[wi], workers[wi], consumer_counts)
             for wi in range(len(workers))]
 
-    def _create_task(self, frag, wi: int, splits, worker, consumer_counts) -> TaskLocation:
-        task_id = f"{self.query_id}.{frag.id}.{wi}.a0"
+    def _create_task(self, frag, wi: int, attempt: int, splits, worker,
+                     consumer_counts) -> TaskLocation:
+        """Create attempt ``attempt`` of slot ``wi`` of ``frag`` on
+        ``worker``: task id ``<query>.<fragment>.<slot>.a<attempt>``."""
+        task_id = f"{self.query_id}.{frag.id}.{wi}.a{attempt}"
         req = TaskRequest(
             task_id=task_id, query_id=self.query_id, fragment_root=frag.root,
             splits=splits, upstream=self._upstream_for(frag.root, consumer_index=wi),
@@ -954,7 +1189,8 @@ class QueryExecution:
             output_partition_channels=frag.output_partition_channels,
             skew_spread_partitions=frag.skew_spread_partitions,
             skew_replicate_partitions=frag.skew_replicate_partitions,
-            collect_stats=self._collect_stats)
+            collect_stats=self._collect_stats,
+            spool_results=getattr(frag, "spool_results", False))
         # trace-context propagation: the worker parents its task span under
         # the coordinator's current (schedule) span
         status, resp, _ = wire.http_request(
@@ -967,6 +1203,135 @@ class QueryExecution:
         # totalSplits is known while the task runs
         self._note_task_status(task_id, json.loads(resp))
         return TaskLocation(worker["url"], task_id)
+
+    # ------------------------------------------------ fault-tolerant tier
+    MAX_TASK_ATTEMPTS = 3
+    TASK_ATTEMPT_TIMEOUT = 600.0
+    # speculation: a slot's first attempt gets a twin once it has run
+    # SPECULATION_FACTOR x its finished siblings' median, and at least
+    # SPECULATION_MIN_S
+    SPECULATION_MIN_S = 2.0
+    SPECULATION_FACTOR = 2.0
+    FTE_POLL_INTERVAL = 0.05
+
+    def _run_fragment_fte(self, frag, per_worker_splits, workers,
+                          consumer_counts) -> List[TaskLocation]:
+        """One stage under the fault-tolerant tier (reference:
+        EventDrivenFaultTolerantQueryScheduler.java:201): its tasks run at
+        once, and it returns when every slot has a FINISHED attempt (its
+        output spooled), the winners' locations in slot order. A failed,
+        unreachable or timed-out attempt is canceled and retried on the
+        next worker (``MAX_TASK_ATTEMPTS`` a slot); upstreams never rerun,
+        their outputs being durable. A straggling first attempt gets a
+        speculative twin; the first to finish wins and the other is
+        canceled. Each poll is one status GET of each live attempt, every
+        ``FTE_POLL_INTERVAL`` seconds."""
+        n = len(workers)
+        locations: List[Optional[TaskLocation]] = [None] * n
+        # a slot's live attempts: (attempt, location or None, deadline,
+        # started); two while speculating
+        slots: Dict[int, list] = {wi: [self._start_attempt(frag, wi, 0, per_worker_splits,
+                                                           workers, consumer_counts)]
+                                  for wi in range(n)}
+        top_attempt = {wi: 0 for wi in range(n)}
+        finished_durations: List[float] = []
+
+        def fail_all(msg):
+            for atts in slots.values():
+                for _a, other, _dl, _t in atts:
+                    self._cancel_attempt(other)
+                    self._prune_speculative(other)
+            raise RuntimeError(msg)
+
+        while slots:
+            if self.state.is_terminal():
+                fail_all("query was canceled")
+            for wi in list(slots):
+                for att in list(slots[wi]):
+                    attempt, loc, deadline, started = att
+                    state, failure = self._attempt_outcome(loc, deadline)
+                    if state is None:
+                        continue  # still running
+                    if state == "FINISHED":
+                        locations[wi] = loc
+                        self.task_attempts[loc.task_id] = attempt
+                        finished_durations.append(time.monotonic() - started)
+                        for _a, other, _dl, _t in slots[wi]:
+                            if other is not loc:
+                                self._cancel_attempt(other)  # the loser
+                            self._prune_speculative(other)
+                        del slots[wi]
+                        break
+                    # failed, unreachable, timed out or canceled remotely
+                    self._cancel_attempt(loc)
+                    self._prune_speculative(loc)
+                    if loc is not None:
+                        self.retried_tasks.append(loc.task_id)
+                    slots[wi].remove(att)
+                    if not slots[wi]:
+                        if top_attempt[wi] + 1 >= self.MAX_TASK_ATTEMPTS:
+                            fail_all(f"task {frag.id}.{wi} failed after "
+                                     f"{self.MAX_TASK_ATTEMPTS} attempts: {failure}")
+                        top_attempt[wi] += 1
+                        slots[wi] = [self._start_attempt(frag, wi, top_attempt[wi],
+                                                         per_worker_splits, workers,
+                                                         consumer_counts)]
+            if finished_durations and slots:
+                med = sorted(finished_durations)[len(finished_durations) // 2]
+                threshold = max(self.SPECULATION_MIN_S, self.SPECULATION_FACTOR * med)
+                now = time.monotonic()
+                for wi, atts in slots.items():
+                    if len(atts) != 1:
+                        continue  # already speculating
+                    attempt, loc, _dl, started = atts[0]
+                    # a retried slot keeps its attempt budget
+                    if attempt != 0 or loc is None or now - started < threshold:
+                        continue
+                    if top_attempt[wi] + 1 >= self.MAX_TASK_ATTEMPTS:
+                        continue
+                    top_attempt[wi] += 1
+                    spec = self._start_attempt(frag, wi, top_attempt[wi], per_worker_splits,
+                                               workers, consumer_counts)
+                    atts.append(spec)
+                    if spec[1] is not None:
+                        self.speculative_tasks.append(spec[1].task_id)
+                        self.speculation_history.append(spec[1].task_id)
+            if slots:
+                time.sleep(self.FTE_POLL_INTERVAL)
+        return list(locations)
+
+    def _start_attempt(self, frag, wi, attempt, per_worker_splits, workers, consumer_counts):
+        """Create one attempt on worker ``(wi + attempt) % n``: (attempt,
+        location, deadline, started). A creation that fails (a worker dead
+        at the POST) is retried like a task failure: location None."""
+        worker = workers[(wi + attempt) % len(workers)]
+        deadline = time.monotonic() + self.TASK_ATTEMPT_TIMEOUT
+        try:
+            loc = self._create_task(frag, wi, attempt, per_worker_splits[wi], worker,
+                                    consumer_counts)
+        except Exception:  # noqa: BLE001 — retried like a task failure
+            loc = None
+        return (attempt, loc, deadline, time.monotonic())
+
+    def _attempt_outcome(self, loc: Optional[TaskLocation], deadline: float):
+        """One status read of an attempt against its deadline: (None, None)
+        while it runs, else (terminal state, failure)."""
+        if loc is None:
+            return "FAILED", "task creation failed (worker unreachable)"
+        if time.monotonic() > deadline:
+            return "FAILED", "task attempt timeout"
+        info = self._poll_task(loc)
+        if info is None:
+            return "FAILED", "status poll failed (worker unreachable)"
+        if info.get("state") in ("FINISHED", "FAILED", "CANCELED"):
+            return info["state"], info.get("failure")
+        return None, None
+
+    def _prune_speculative(self, loc: Optional[TaskLocation]) -> None:
+        """Drop a resolved attempt from the in-flight speculation list
+        (``speculation_history`` keeps it)."""
+        if loc is not None and loc.task_id in self.speculative_tasks:
+            self.speculative_tasks.remove(loc.task_id)
 
     # ------------------------------------------------------ stats pipeline
     def _note_task_status(self, task_id: str, info: dict) -> None:
@@ -1147,6 +1512,9 @@ class QueryExecution:
             return None
         if self.last_drain_at is not None:
             tl.client_drain_s = max(0.0, self.last_drain_at - self.ended_at)
+        if self.last_segment_fetch_at is not None:
+            # the segment fetches and acks seen here, outside the wall
+            tl.segment_fetch_s = max(0.0, self.last_segment_fetch_at - self.ended_at)
         return tl.to_dict()
 
     def _timeline_now(self) -> dict:
@@ -1171,7 +1539,13 @@ class QueryExecution:
         qs["resourceGroup"] = self.resource_group
         # which path served the SELECT (fast-path | distributed | local-catalog)
         qs["fastPath"] = self.fast_path
-        qs["resultRows"] = len(self.rows)
+        qs["resultRows"] = self.result_rows()
+        # the spooled result protocol: which producer wrote the segments
+        # (None: inline rows) and the manifest's footprint
+        qs["spooled"] = self.spooled
+        if self.result_segments is not None:
+            qs["resultSegments"] = len(self.result_segments)
+            qs["resultSegmentBytes"] = sum(int(e.get("bytes", 0)) for e in self.result_segments)
         # adaptive plan changes applied so far
         qs["adaptations"] = len(self.plan_versions)
         # the materialized views substituted into this query's plan
@@ -1488,8 +1862,19 @@ class QueryExecution:
     def _run_root_fragment(self, session, fragments):
         from trino_tpu_torch.server.task import FragmentExecutor
 
+        from trino_tpu_torch.exec.memory import page_bytes
+
         root_frag = fragments[-1]
         assert root_frag.partitioning == "single"
+        # the inline-result guard during the gather of a pass-through root
+        # (gathered bytes are the result's) without the spooled protocol:
+        # over inline_result_max_bytes the query fails before this process
+        # holds the whole result. A reducing root may gather far more than
+        # it outputs, and with the protocol on the result spools from here
+        budget = None
+        if self._spool_config(session) is None and \
+                self._gather_passthrough(root_frag) is not None:
+            budget = int(session.properties.get("inline_result_max_bytes", 256 << 20))
         remote_pages: Dict[int, list] = {}
         for node in P.walk_plan(root_frag.root):
             if isinstance(node, RemoteSourceNode):
@@ -1500,10 +1885,29 @@ class QueryExecution:
                                         owner=f"task:{self.query_id}.root",
                                         stall_key=(root_frag.id, None))
                 client.start()
-                remote_pages[node.fragment_id] = client.pages()
+                if budget is None:
+                    remote_pages[node.fragment_id] = client.pages()
+                    continue
+                pages, gathered = [], 0
+                for p in client.iter_pages():
+                    gathered += page_bytes(p)
+                    if gathered > budget:
+                        M.INLINE_RESULT_REJECTIONS.inc()
+                        raise RuntimeError(
+                            f"gathered result exceeds inline_result_max_bytes={budget} while "
+                            "pulling the root fragment's input (INLINE_RESULT_TOO_LARGE) — "
+                            "enable spooled_results_enabled to serve it as a spooled segment "
+                            "manifest, or narrow the query")
+                    pages.append(p)
+                remote_pages[node.fragment_id] = pages
         ex = FragmentExecutor(session, {}, remote_pages, collect_stats=self._collect_stats or None)
         self._root_executor = ex  # EXPLAIN ANALYZE: the root stage's stats
-        return ex.execute_checked(root_frag.root)
+        page = ex.execute_checked(root_frag.root)
+        # the kept executor holds no gathered input and no checked error
+        # flag: the query's history entry keeps nothing of it on the card
+        remote_pages.clear()
+        ex.errors.clear()
+        return page
 
     PHASE_WAIT_TIMEOUT = 300.0
 
@@ -1550,6 +1954,12 @@ class QueryExecution:
             "resourceGroup": self.resource_group,
             "fragments": {str(fid): [loc.task_id for loc in locs]
                           for fid, locs in self.fragment_tasks.items()},
+            # the fault-tolerant tier: failed attempts, the winners' attempt
+            # numbers, the speculative attempts in flight and launched
+            "retriedTasks": list(self.retried_tasks),
+            "taskAttempts": dict(self.task_attempts),
+            "speculativeTasks": list(self.speculative_tasks),
+            "speculationHistory": list(self.speculation_history),
             # the slot records by task id
             "tasks": {e["taskId"]: {"state": e["state"], "stats": e["stats"]}
                       for e in self.task_records()},
@@ -1706,6 +2116,11 @@ class CoordinatorServer:
         # completed query's coordinator spans go to the collector from a
         # background exporter, never from the query path
         self.otlp = otlp.exporter_from_env("trino-tpu-coordinator")
+        # the coordinator's own segment store: coordinator-local, fast-path
+        # and non-pass-through distributed results spool here
+        from trino_tpu_torch.server.segments import SegmentStore
+
+        self.segments = SegmentStore(node_id="coordinator")
         # the pool of parallel pulls from the workers (span dumps, flight-
         # recorder rings), made on first use and shut down with the server
         self._io_pool = None
@@ -1737,6 +2152,7 @@ class CoordinatorServer:
         self.httpd.shutdown()
         self.httpd.server_close()
         self.dispatcher.shutdown()
+        self.segments.close()
         with self._io_pool_lock:
             pool, self._io_pool = self._io_pool, None
         if pool is not None:
@@ -1764,6 +2180,11 @@ class CoordinatorServer:
         execution.recorder = self.recorder
         execution.tracer.recorder = self.recorder
         execution.io_pool = self.io_pool
+        # the spooled result protocol's store and URL, and an opportunistic
+        # TTL sweep on the submit cadence (rate-limited in the store)
+        execution.segment_store = self.segments
+        execution.segment_base_url = self.base_url
+        self.segments.maybe_sweep()
         self.recorder.record("admission", "submitted", queryId=query_id, user=user)
         with self._qlock:
             if len(self.queries) > self.MAX_QUERY_HISTORY:
@@ -1824,6 +2245,13 @@ class CoordinatorServer:
             execution.fold_flow_profile()
         except Exception:  # noqa: BLE001 — observability never disturbs the transition
             pass
+        if state != "FINISHED":
+            # no client will fetch a FAILED or CANCELED query's segments:
+            # the coordinator's go now (a failed producer abandoned its own)
+            try:
+                self.segments.drop_query(execution.query_id)
+            except Exception:  # noqa: BLE001 — the lifecycle is best-effort
+                pass
         if state == "FAILED" and execution.postmortem is None:
             try:
                 execution.capture_postmortem()
@@ -2005,6 +2433,14 @@ def _result_payload(server: CoordinatorServer, q: QueryExecution, token: int) ->
         payload["addedPreparedStatements"] = dict(q.add_prepared)
     if q.deallocated_prepared:
         payload["deallocatedPreparedStatements"] = list(q.deallocated_prepared)
+    if q.result_segments is not None:
+        # the spooled protocol: the manifest instead of rows, which the
+        # client fetches from the producers' segment routes in parallel
+        q.last_drain_at = time.time()
+        payload["columns"] = [{"name": c} for c in q.columns]
+        payload["segments"] = [dict(e) for e in q.result_segments]
+        payload["spooled"] = q.spooled
+        return payload
     start = token * RESULT_PAGE_ROWS
     chunk = q.rows[start:start + RESULT_PAGE_ROWS]
     # the phase ledger's client-drain: the wall is over, the client still
@@ -2020,19 +2456,20 @@ def _result_payload(server: CoordinatorServer, q: QueryExecution, token: int) ->
 
 def _drain_body(server: CoordinatorServer, q: QueryExecution, token: int) -> bytes:
     """One statement-protocol response, serialized; a response that carries
-    rows charges its bytes and serialize wall to the query's
-    ``client-drain`` flow (the socket write is the client's)."""
+    the result (rows or a segment manifest) charges its bytes and serialize
+    wall to the query's ``client-drain`` flow (the socket write is the
+    client's)."""
     t0 = time.perf_counter()
     payload = _result_payload(server, q, token)
     body = json.dumps(payload).encode()
-    if "data" in payload:
+    if "data" in payload or "segments" in payload:
         try:
             from trino_tpu_torch.obs.flowledger import FLOW_LEDGER
 
             FLOW_LEDGER.record_transfer(
                 "client-drain", f"drain:{q.query_id}", len(body), time.perf_counter() - t0,
-                pages=len(payload["data"]), src=FLOW_LEDGER.node_id or "coordinator",
-                dst="client", direction="send")
+                pages=len(payload.get("data") or payload.get("segments") or ()),
+                src=FLOW_LEDGER.node_id or "coordinator", dst="client", direction="send")
             if "nextUri" not in payload:
                 # the last page: its stats count this response's own bytes
                 payload["stats"]["flows"] = q.flow_stats_block()
@@ -2163,12 +2600,13 @@ def _make_handler(server: CoordinatorServer):
         def _read_body(self) -> bytes:
             return self.rfile.read(int(self.headers.get("Content-Length", "0")))
 
-        def _not_ported(self) -> bool:
-            if _NOT_PORTED_RE.match(self.path.split("?", 1)[0]):
-                self._send(501, json.dumps(
-                    {"error": {"message": f"{self.path} is not ported"}}).encode())
-                return True
-            return False
+        def _segment_query(self, segment_id: str) -> Optional[QueryExecution]:
+            """The query of a segment id (``<query>.s<n>-<token>``), whose
+            segment-fetch clock a fetch or an ack stamps."""
+            q = server.get_query(segment_id.split(".", 1)[0])
+            if q is not None:
+                q.last_segment_fetch_at = time.time()
+            return q
 
         def do_PUT(self):
             m = _ANNOUNCE_RE.match(self.path)
@@ -2240,7 +2678,16 @@ def _make_handler(server: CoordinatorServer):
             self._send(404)
 
         def do_GET(self):
-            if self._not_ported():
+            m = _SEGMENT_RE.match(self.path)
+            if m:
+                # the coordinator's segments: the unguessable id is the
+                # capability, so no further gate (pre-signed segment URIs)
+                from trino_tpu_torch.server.segments import segment_response
+
+                self._segment_query(m.group(1))
+                status, body, seg_headers, ctype = segment_response(
+                    server.segments, m.group(1), self.headers.get("Range"))
+                self._send(status, body, ctype, seg_headers)
                 return
             m = _RESULT_RE.match(self.path)
             if m:
@@ -2307,7 +2754,21 @@ def _make_handler(server: CoordinatorServer):
             self._send(404)
 
         def do_DELETE(self):
-            if self._not_ported():
+            m = _SEGMENT_RE.match(self.path)
+            if m:
+                # a segment's ack: data comes from the owning producer, the
+                # ack through here, which forwards a worker's segment
+                sid = m.group(1)
+                q = self._segment_query(sid)
+                worker = q._segment_workers.get(sid) if q is not None else None
+                if worker is not None:
+                    try:
+                        wire.http_request("DELETE", f"{worker}/v1/segment/{sid}", timeout=10.0)
+                    except Exception:  # noqa: BLE001 — the TTL is the backstop
+                        pass
+                else:
+                    server.segments.ack(sid)
+                self._send(204)
                 return
             m = _RESULT_RE.match(self.path)
             if m:

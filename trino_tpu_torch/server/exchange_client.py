@@ -8,11 +8,15 @@ pages are decoded onto the consumer's device (one host->device copy an
 array). Each pull stream is one ``exchange/pull`` span under the span that
 made the client, and one ``exchange-pull`` flow-ledger record of the bytes
 it pulled (the bytes ``EXCHANGE_BYTES`` counts); an empty poll is an
-``exchange-poll`` stall sample. The reference's fault-tolerant tier
-(reading a failed producer's spooled output) is not ported.
+``exchange-poll`` stall sample. With a spool directory (the fault-tolerant
+tier), a location whose producer spooled its output is read from the
+spool file instead, producer alive or not: a ``spool/read`` span, the
+``SPOOL_READS`` and ``SPOOL_BYTES`` counters (not ``EXCHANGE_BYTES``, a
+network signal) and an ``exchange-pull`` record with status ``spool``.
 """
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
@@ -24,6 +28,7 @@ from trino_tpu_torch.obs import metrics as M
 from trino_tpu_torch.obs import trace as tracing
 from trino_tpu_torch.obs.flowledger import FLOW_LEDGER
 from trino_tpu_torch.server import wire
+from trino_tpu_torch.server.task import spool_directory
 
 
 class TaskLocation:
@@ -126,6 +131,55 @@ class ExchangeClient:
         raise RuntimeError(f"exchange pull {loc}: retries exhausted after "
                            f"{len(history)} attempts [{'; '.join(history)}]")
 
+    def _read_spool(self, loc: TaskLocation) -> bool:
+        """Serve a location from its producer's spool file, when there is
+        one (the fault-tolerant tier's consumers read spooled files, not
+        live buffers; reference: FileSystemExchange.java:70). True when
+        served from the spool."""
+        spool_dir = spool_directory()
+        if not spool_dir:
+            return False
+        # a partitioned producer spools one file a partition (= buffer id)
+        path = os.path.join(spool_dir, f"{loc.task_id}.p{loc.buffer_id}.pages")
+        if not os.path.exists(path):
+            path = os.path.join(spool_dir, f"{loc.task_id}.pages")
+            if not os.path.exists(path):
+                return False
+        sp = (self._tracer.start_span("spool/read", parent_id=self._parent_span_id,
+                                      task=loc.task_id, path=path)
+              if self._tracer is not None else tracing.NOOP_SPAN)
+        t0 = time.perf_counter()
+        try:
+            with open(path, "rb") as f:
+                body = f.read()
+            M.SPOOL_READS.inc()
+            # disk bytes: EXCHANGE_BYTES stays a network-throughput signal
+            M.SPOOL_BYTES.inc(len(body))
+            frames = wire.unframe_pages(body)
+            sp.set("bytes", len(body))
+            sp.set("pages", len(frames))
+        except Exception as e:  # a truncated file must not leave the span open
+            sp.set("error", str(e)[:300])
+            raise
+        finally:
+            if self._tracer is not None:
+                self._tracer.end_span(sp)
+        spool_s = time.perf_counter() - t0
+        with self._lock:
+            self.pulled_seconds += spool_s
+        FLOW_LEDGER.record_transfer(
+            "exchange-pull", self._owner, len(body), spool_s, pages=len(frames),
+            src=f"spool:{loc.task_id}", dst=FLOW_LEDGER.node_id or None, status="spool")
+        for pb in frames:
+            self._queue.put(deserialize_page(pb, self._device))
+        # the final ack to the live buffer, where the producer still runs,
+        # so it drops its copy (the spool is the durable one)
+        try:
+            wire.http_request("DELETE", loc.results_url(len(frames)), timeout=5.0)
+        except Exception:  # noqa: BLE001 — the producer may be gone
+            pass
+        return True
+
     def _pull(self, loc: TaskLocation) -> None:
         token = 0
         # one span a location, over its whole pull stream
@@ -135,7 +189,12 @@ class ExchangeClient:
         pulled_bytes = pulled_pages = retries = 0
         pull_seconds = 0.0
         last_status: Optional[str] = None
+        streamed = False
         try:
+            if self._read_spool(loc):
+                sp.set("spooled", True)
+                return
+            streamed = True
             while True:
                 t0 = time.perf_counter()
                 body, headers, attempts, last_status = self._request_with_retry(loc, token)
@@ -174,12 +233,13 @@ class ExchangeClient:
             sp.set("pages", pulled_pages)
             if self._tracer is not None:
                 self._tracer.end_span(sp)
-            # one flow record a pull stream: the whole conversation with
-            # this upstream location
-            FLOW_LEDGER.record_transfer(
-                "exchange-pull", self._owner, pulled_bytes, pull_seconds, pages=pulled_pages,
-                src=loc.base_url, dst=FLOW_LEDGER.node_id or None, retries=retries,
-                status=last_status)
+            if streamed:
+                # one flow record a pull stream: the whole conversation
+                # with this upstream location
+                FLOW_LEDGER.record_transfer(
+                    "exchange-pull", self._owner, pulled_bytes, pull_seconds,
+                    pages=pulled_pages, src=loc.base_url, dst=FLOW_LEDGER.node_id or None,
+                    retries=retries, status=last_status)
             self._queue.put(None)  # wake the consumer
 
     def iter_pages(self):

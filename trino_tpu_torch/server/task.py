@@ -33,13 +33,22 @@ pulls and its output buffer's full-waits are flow-ledger records labelled
 with its stage. At its end, its operators' walls and rows feed the
 per-operator series.
 
-Not ported: the fault-tolerant tier (spooled task output, retries) and the
-spooled result segments; the coordinator refuses the session properties
-that ask for them.
+With ``TRINO_TPU_SPOOL_DIR`` set (the fault-tolerant tier's durable
+exchange), a task runs its bulk body only and spools its whole output
+before any of it is visible: ``{task}.pages``, or ``{task}.p{pid}.pages`` a
+partition, each written to a ``.tmp`` file and published by ``os.replace``
+(the frames of the exchange wire, so either package reads the other's
+files). A canceled attempt publishes nothing: the check and the rename run
+under the lock its cancel takes. A task that produces the query's result
+under the spooled result protocol (``TaskRequest.spool_results``) writes
+size-bounded segments into the worker's segment store
+(server/segments.py) instead of its output buffer; ``info()`` carries their
+manifest entries.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import pickle
 import threading
 import time
@@ -57,6 +66,7 @@ from trino_tpu_torch.obs import metrics as M
 from trino_tpu_torch.obs import trace as tracing
 from trino_tpu_torch.obs.devprofiler import merge_kernel_rows
 from trino_tpu_torch.obs.memledger import MEMORY_LEDGER, POOL_DEVICE
+from trino_tpu_torch.server import wire
 from trino_tpu_torch.server.buffer import (DEFAULT_MAX_BUFFER_BYTES, OutputBuffer,
                                            PartitionedOutputBuffer)
 from trino_tpu_torch.server.statemachine import StateMachine, task_state_machine
@@ -90,6 +100,12 @@ class TaskRequest:
     # the per-operator stats EXPLAIN ANALYZE reads (Executor collect_stats):
     # one batched device read of live row counts an executor
     collect_stats: bool = False
+    # the spooled result protocol: this task produces the query's result,
+    # and its output rolls into size-bounded segments in the worker's
+    # segment store instead of the output buffer (the coordinator collects
+    # their manifest entries from task status and never pulls the data).
+    # Set only on the root fragment's gather producers
+    spool_results: bool = False
 
     def to_bytes(self) -> bytes:
         return pickle.dumps(self)
@@ -165,7 +181,8 @@ class SqlTask:
     FINISHED (TaskState.java:21)."""
 
     def __init__(self, request: TaskRequest, session_factory,
-                 traceparent: Optional[str] = None, recorder=None, otlp=None):
+                 traceparent: Optional[str] = None, recorder=None, otlp=None,
+                 segment_store=None):
         self.request = request
         self.state: StateMachine[str] = task_state_machine()
         # the worker's half of the query's trace: its trace id, the spans
@@ -189,6 +206,24 @@ class SqlTask:
         else:
             self.output = OutputBuffer(request.consumer_count, max_buffer_bytes=sink_max,
                                        stall_key=(self.stage_id, None))
+        # the spooled result protocol: a result-producing task's chunks roll
+        # into segments of the worker's store, and result_segments holds
+        # their manifest entries once the writer is sealed
+        self._result_writer = None
+        self.result_segments: List[dict] = []
+        if (request.spool_results and segment_store is not None
+                and request.output_partition_channels is None):
+            from trino_tpu_torch.server.segments import DEFAULT_SEGMENT_BYTES
+
+            props = request.session_properties
+            self._result_writer = segment_store.writer(
+                request.query_id,
+                target_bytes=int(props.get("spooled_results_segment_bytes")
+                                 or DEFAULT_SEGMENT_BYTES),
+                ttl_s=int(props.get("result_segment_ttl_ms") or 300_000) / 1e3)
+        # held by cancel() and by each spool file's publish, so a canceled
+        # attempt never publishes a file after its cancel returned
+        self._publish_lock = threading.Lock()
         self.failure: Optional[str] = None
         # the largest peak of this task's executors (they run one after
         # another), and the one running now
@@ -340,10 +375,16 @@ class SqlTask:
         except Exception as e:  # noqa: BLE001 — reported through task status
             self.failure = f"{e}\n{traceback.format_exc()}"
             task_span.set("error", str(e).split("\n")[0][:300])
+            if self._result_writer is not None:
+                # no manifest will point at a failed attempt's segments
+                self._result_writer.abandon()
             self.output.abort(str(e))
             self.state.set("FAILED")
         finally:
             self.ended_at = time.monotonic()
+            # its stats are folded: the worker's task history keeps no
+            # executor, and so none of its inputs' device tensors
+            self._live_executor = None
             self._observe_operator_metrics()
             if self.peak_memory_bytes:
                 MEMORY_LEDGER.record_event("release", POOL_DEVICE,
@@ -391,7 +432,10 @@ class SqlTask:
         if slow:
             sub, _, secs = slow.partition(":")
             if sub and sub in req.task_id:
-                time.sleep(float(secs or "5"))
+                # a cancel ends the wait: a speculative attempt's canceled
+                # twin never runs its body afterwards
+                if self.state.wait_for_terminal(float(secs or "5")) == "CANCELED":
+                    return
         session = self._session_factory(req.session_properties)
         if self._try_streaming(req, session):
             return
@@ -412,10 +456,12 @@ class SqlTask:
         self._retire_executor(ex, splits=self.total_splits,
                               input_rows=sum(ex.scan_stats.values()) + remote_rows,
                               device_s=device_s)
+        if self.state.is_terminal():
+            return  # canceled while it ran: its output has no consumer
         prepared = self._prepare_out(page)
         self.state.set("FLUSHING")
         self._emit(prepared)
-        self.output.set_complete()
+        self._complete_output()
         self.state.set("FINISHED")
 
     # ------------------------------------------------------- streaming loop
@@ -505,27 +551,83 @@ class SqlTask:
         return out, self._partition_pages(out)
 
     def _emit(self, prepared) -> None:
-        """Cut a prepared page into chunks, serialize them and enqueue them
-        (enqueue blocks at the buffer's watermark)."""
+        """Cut a prepared page into chunks and serialize them: into result
+        segments when this task produces a spooled result, else into the
+        output buffer (enqueue blocks at its watermark). With a spool
+        directory the whole output spools first, and only then enqueues:
+        a retried consumer must find the complete durable copy. Under the
+        fault-tolerant tier the spool file is the whole output: consumers
+        are scheduled once this task FINISHED and read the file, so frames
+        in the buffer would wait at its watermark for a pull that never
+        comes (the reference's task blocks there once its output passes
+        ``sink_max_buffer_bytes``, and fails after 300 s)."""
+        spool = spool_directory() is not None
+        visible = not (spool and str(self.request.session_properties.get(
+            "retry_policy", "NONE")).upper() == "TASK")
         if prepared is None:
+            if spool and self._result_writer is None:
+                # an empty output spools empty files, so a consumer reads
+                # zero rows off the spool as it would off the buffer
+                if self.request.output_partition_channels is not None:
+                    self._spool_partitioned([[] for _ in range(self.request.consumer_count)])
+                else:
+                    self._spool([])
             return
         out, parts = prepared
         chunk_rows = self._chunk_rows(out)
         if parts is not None:
+            if spool:
+                part_frames = [[serialize_page(c) for c in _chunk_pages(host_page(part), chunk_rows)]
+                               for part in parts]
+                self._spool_partitioned(part_frames)
+                for pid, frames in enumerate(part_frames if visible else ()):
+                    for pb in frames:
+                        self.output.enqueue_partition(pid, pb)
+                return
             for pid, part in enumerate(parts):
                 for c in _chunk_pages(host_page(part), chunk_rows):
                     self.output.enqueue_partition(pid, serialize_page(c))
-        else:
-            for c in _chunk_pages(out, chunk_rows):
-                self.output.enqueue(serialize_page(c))
+            return
+        if self._result_writer is not None:
+            # segments are disk-bounded: nothing waits on a consumer that,
+            # by design, is not coming
+            with tracing.span("segment/write") as sp:
+                for c in _chunk_pages(out, chunk_rows):
+                    self._result_writer.add(serialize_page(c), c.num_rows)
+                sp.set("rows", out.num_rows)
+            return
+        if spool:
+            frames = [serialize_page(c) for c in _chunk_pages(out, chunk_rows)]
+            self._spool(frames)
+            for pb in frames if visible else ():
+                self.output.enqueue(pb)
+            return
+        for c in _chunk_pages(out, chunk_rows):
+            self.output.enqueue(serialize_page(c))
 
     def _enqueue_out(self, out: Page) -> None:
         """One output page into the buffer: prepared, then emitted."""
         self._emit(self._prepare_out(out))
 
+    def _finish_result_spool(self) -> None:
+        """Seal the result-segment writer: roll the last partial segment and
+        publish the manifest entries that task status carries."""
+        if self._result_writer is None:
+            return
+        with tracing.span("segment/write") as sp:
+            metas = self._result_writer.finish()
+            sp.set("segments", len(metas))
+        self.result_segments = [m.manifest_entry() for m in metas]
+
+    def _complete_output(self) -> None:
+        """Seal the result spool (a result-producing task), then mark the
+        buffer complete."""
+        self._finish_result_spool()
+        self.output.set_complete()
+
     def _finish(self) -> None:
         self.state.set("FLUSHING")
-        self.output.set_complete()
+        self._complete_output()
         self.state.set("FINISHED")
 
     def _try_split_streaming(self, req: TaskRequest, session) -> bool:
@@ -562,7 +664,11 @@ class SqlTask:
         """Micro-batch driver for streamable consumer fragments: pull from
         the one upstream, run the fragment a batch at a time and enqueue
         each batch's output at once (a final aggregation folds its states
-        instead). False where the fragment needs the bulk path."""
+        instead). False where the fragment needs the bulk path, and always
+        with a spool directory: the whole output must be durable before any
+        of it is visible."""
+        if spool_directory():
+            return False
         if not req.upstream and len(req.splits) == 1:
             return self._try_split_streaming(req, session)
         final_agg = self._streaming_final_agg(req.fragment_root)
@@ -657,6 +763,48 @@ class SqlTask:
                      or self.DEFAULT_CHUNK_BYTES)
         return max(1, target // page.row_byte_estimate()) if page.num_rows else 1
 
+    def _spool_partitioned(self, part_frames) -> None:
+        """Spool each partition's stream to its own durable file,
+        ``{task}.p{pid}.pages`` (the FTE contract of a hash-partitioned
+        stage: a retried consumer re-reads its partition's files)."""
+        spool_dir = spool_directory()
+        if not spool_dir:
+            return
+        for pid, frames in enumerate(part_frames):
+            self._publish(os.path.join(spool_dir, f"{self.request.task_id}.p{pid}.pages"),
+                          frames)
+
+    def _spool(self, page_frames) -> None:
+        """Persist the task's output to the spool directory as
+        ``{task}.pages`` (the fault-tolerant tier's durable exchange): a
+        finished task's pages outlive the producing worker, and retried
+        consumers re-read them instead of recomputing the stage."""
+        spool_dir = spool_directory()
+        if spool_dir:
+            self._publish(os.path.join(spool_dir, f"{self.request.task_id}.pages"), page_frames)
+
+    def _publish(self, path: str, frames) -> None:
+        """Write one spool file to ``path + '.tmp'`` and rename it into
+        place (readers never see a partial file), unless the task was
+        canceled: the check, the write and the rename hold the lock that
+        ``cancel`` takes, so no file of a canceled attempt appears after its
+        cancel returned (the coordinator's cleanup may already have passed)."""
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + ".tmp"
+        with self._publish_lock:
+            if self.state.get() == "CANCELED":
+                return
+            with open(tmp, "wb") as f:
+                f.write(wire.frame_pages(frames))
+            os.replace(tmp, path)
+
+    def cancel(self) -> None:
+        """CANCELED, its buffer aborted; waits out a spool publish in
+        progress, after which the attempt publishes nothing."""
+        with self._publish_lock:
+            self.state.set("CANCELED")
+        self.output.abort("canceled")
+
     def info(self) -> dict:
         return {
             "taskId": self.request.task_id,
@@ -664,6 +812,9 @@ class SqlTask:
             "failure": self.failure,
             "bufferedBytes": self.output.buffered_bytes,
             "memoryBytes": self.memory_bytes,
+            # the spooled result protocol: the segments this task wrote
+            # (the coordinator assembles the statement's manifest from them)
+            "resultSegments": list(self.result_segments),
             "stats": self.stats_snapshot(),
         }
 
@@ -735,12 +886,18 @@ def _canonical_partition_ids(page: Page, channels, parts: int, vocab_cache=None)
     return (h % np.uint64(parts)).astype(np.int64)
 
 
+def spool_directory() -> Optional[str]:
+    """The cluster-shared spool directory (``TRINO_TPU_SPOOL_DIR``, the
+    fault-tolerant tier's "object storage"); None: no spooling."""
+    return os.environ.get("TRINO_TPU_SPOOL_DIR") or None
+
+
 class TaskManager:
     """All tasks on this worker (reference: SqlTaskManager.java:109)."""
 
     MAX_TASK_HISTORY = 200  # terminal tasks kept for status queries
 
-    def __init__(self, session_factory, recorder=None, otlp=None):
+    def __init__(self, session_factory, recorder=None, otlp=None, segment_store=None):
         self._tasks: Dict[str, SqlTask] = {}
         self._lock = threading.Lock()
         self._session_factory = session_factory
@@ -748,6 +905,9 @@ class TaskManager:
         # exporter (obs/otlp.py), or None
         self._recorder = recorder
         self._otlp = otlp
+        # the store result-producing tasks (TaskRequest.spool_results)
+        # write their segments into (server/segments.py), or None
+        self._segment_store = segment_store
 
     def create_task(self, request: TaskRequest, traceparent: Optional[str] = None) -> SqlTask:
         with self._lock:
@@ -758,7 +918,8 @@ class TaskManager:
             created = task is None
             if created:
                 task = SqlTask(request, self._session_factory, traceparent=traceparent,
-                               recorder=self._recorder, otlp=self._otlp)
+                               recorder=self._recorder, otlp=self._otlp,
+                               segment_store=self._segment_store)
                 self._tasks[request.task_id] = task
         if created:
             M.TASKS_TOTAL.inc()
@@ -776,8 +937,7 @@ class TaskManager:
         with self._lock:
             task = self._tasks.pop(task_id, None)
         if task is not None:
-            task.output.abort("canceled")
-            task.state.set("CANCELED")
+            task.cancel()
             if self._recorder is not None:
                 self._recorder.record("event", "task-canceled", taskId=task_id,
                                       queryId=task.request.query_id)

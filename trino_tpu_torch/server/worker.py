@@ -6,6 +6,9 @@ The port of trino_tpu/server/worker.py (reference:
 ``GET /v1/task/{taskId}/status`` reports it, ``GET /v1/task/{taskId}/spans``
 returns its spans (the coordinator merges them into the query's trace),
 ``DELETE`` acknowledges a buffer or cancels the task,
+``GET /v1/segment/{id}`` serves a spooled result segment (whole, or a
+``Range`` of it: 200, 206 or 416) and ``DELETE`` is the client's ack
+(segment routes take no cluster HMAC: the id is the capability),
 ``GET /v1/task/{taskId}/recorder`` returns the process's flight-recorder
 ring and memory- and flow-ledger snapshots (for a FAILED query's
 postmortem), ``GET /v1/metrics`` the Prometheus page, ``GET /v1/info``
@@ -29,8 +32,9 @@ both cache tiers, host first, when the process's RSS crosses
 
 A worker runs its tasks on one torch device: CUDA unless it is given
 another (``device="cpu"`` in the tests); asked for CUDA without a usable
-GPU it raises. The reference's spooled result segments
-(``/v1/segment/{id}``) answer 501 Not Implemented.
+GPU it raises. Its segment store (server/segments.py) holds the result
+segments its tasks write under the spooled result protocol; the announce
+loop sweeps it for expired segments, and a stop deletes what it holds.
 
     python -m trino_tpu_torch.server.worker --coordinator URL [--port N]
         [--node-id ID] [--device cuda|cpu]
@@ -54,6 +58,7 @@ from trino_tpu_torch.obs.flightrecorder import FlightRecorder
 from trino_tpu_torch.obs.flowledger import FLOW_LEDGER
 from trino_tpu_torch.obs.memledger import MEMORY_LEDGER, TOTAL_OWNER
 from trino_tpu_torch.server import wire
+from trino_tpu_torch.server.segments import SegmentStore, segment_response
 from trino_tpu_torch.server.system_tables import process_id
 from trino_tpu_torch.server.task import TaskManager, TaskRequest
 
@@ -119,8 +124,13 @@ class WorkerServer:
         # finished task ships its spans under the query's propagated trace
         # id, so they parent into the coordinator's trace in the collector
         self.otlp = otlp.exporter_from_env("trino-tpu-worker", instance_id=self.node_id)
+        # spooled result segments: result-producing tasks write here and
+        # clients fetch them from GET /v1/segment/{id} (the worker is the
+        # data plane; the coordinator never relays them)
+        self.segments = SegmentStore(node_id=self.node_id)
         self.tasks = TaskManager(session_factory or shared_catalog_session_factory(self.device),
-                                 recorder=self.recorder, otlp=self.otlp)
+                                 recorder=self.recorder, otlp=self.otlp,
+                                 segment_store=self.segments)
         self.coordinator_url = coordinator_url
         # the worker's memory pool (None = unlimited) and its optional
         # host-RAM ceiling
@@ -145,6 +155,7 @@ class WorkerServer:
         self._stop.set()
         self.httpd.shutdown()
         self.httpd.server_close()
+        self.segments.close()
         if self.otlp is not None:
             # flush and stop the exporter: a stopped worker reports nothing
             self.otlp.shutdown()
@@ -153,6 +164,12 @@ class WorkerServer:
         """Periodic announce: discovery and liveness in one (the worker
         pushes, the coordinator ages entries out)."""
         while not self._stop.is_set():
+            try:
+                # the segments' TTL sweep rides the announce cadence
+                # (rate-limited inside the store)
+                self.segments.maybe_sweep()
+            except Exception:  # noqa: BLE001 — the lifecycle is best-effort
+                pass
             try:
                 wire.json_request(
                     "PUT", f"{self.coordinator_url}/v1/announce/{self.node_id}",
@@ -288,12 +305,6 @@ def _make_handler(server: WorkerServer):
             self._send(401, b'{"error": "bad internal signature"}')
             return False
 
-        def _not_ported(self) -> bool:
-            if _SEGMENT_RE.match(self.path):
-                self._send(501, b'{"error": "spooled result segments are not ported"}')
-                return True
-            return False
-
         def do_POST(self):
             m = _TASK_RE.match(self.path)
             if m:
@@ -311,7 +322,13 @@ def _make_handler(server: WorkerServer):
             self._send(404)
 
         def do_GET(self):
-            if self._not_ported():
+            m = _SEGMENT_RE.match(self.path)
+            if m:
+                # no cluster HMAC: the unguessable id is the capability and
+                # the caller a protocol client (pre-signed segment URIs)
+                status, body, headers, ctype = segment_response(
+                    server.segments, m.group(1), self.headers.get("Range"))
+                self._send(status, body, ctype, headers)
                 return
             m = _RESULTS_RE.match(self.path)
             if m:
@@ -381,7 +398,12 @@ def _make_handler(server: WorkerServer):
             self._send(404)
 
         def do_DELETE(self):
-            if self._not_ported():
+            m = _SEGMENT_RE.match(self.path)
+            if m:
+                # the client's ack: the segment was fetched, delete it now
+                # rather than at its TTL (a repeated ack is still a 204)
+                server.segments.ack(m.group(1))
+                self._send(204)
                 return
             m = _RESULTS_RE.match(self.path)
             if m:
