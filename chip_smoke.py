@@ -375,9 +375,11 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+import types
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA's data sheet)
 TIERS = ("dense", "fused", "merge-sorted", "merge-pallas", "legacy")
@@ -760,6 +762,34 @@ def phase_tpch(device, expected, cap):
         print("tpch", json.dumps({"query": f"Q{q}", "scale": "sf1", "rows": nrows,
                                   "tiers": entry["tiers"], "runs": runs}), flush=True)
     return out, session
+
+
+STATS_COST_ORDER = ("off", "on", "off", "on")
+
+
+def tpch_stats_cost(session, device, expected):
+    """The cost of per-operator stats on the eager tier: the 22 warm in the
+    uncached session, passes in turns with ``Executor.collect_stats`` set
+    off by this script and on (the default)."""
+    from trino_tpu_torch.exec.executor import Executor
+
+    sums = {"off": [], "on": []}
+    for label in STATS_COST_ORDER:
+        Executor.collect_stats = label == "on"
+        try:
+            wall = 0.0
+            for q in range(1, 23):
+                entry = expected[str(q)]
+                res, w, _c = timed_execute(session, entry["sql"], device)
+                check_rows(f"Q{q} (tpch, stats {label})", jsonable_rows(res.rows),
+                           entry["rows"])
+                wall += w
+        finally:
+            Executor.collect_stats = True
+        sums[label].append(wall)
+    out = {f"stats_{k}_warm_wall_s": v for k, v in sums.items()}
+    print("tpch_stats_cost", json.dumps(out), flush=True)
+    return out
 
 
 def cached_tensors():
@@ -1423,6 +1453,50 @@ def dist_caches(coord, device, expected, mvexp, card):
     return out
 
 
+def dist_stats_default(coord, client, device, expected):
+    """Per-operator stats are on by default: a plain distributed Q1 leaves
+    operators on every task of ``system.runtime.tasks``, and its scans'
+    rows in ``trino_tpu_operator_rows_total{operator="TableScan"}`` equal
+    ``select count(*) from lineitem``. Then the 22 warm twice more, first
+    with ``Executor.collect_stats`` set off by this script (the workers run
+    in this process), then on, to record what the stats cost: the off pass
+    between two passes with them on."""
+    from trino_tpu_torch.exec.executor import Executor
+    from trino_tpu_torch.obs import metrics as M
+
+    _c, count = client.execute("select count(*) from lineitem", timeout=600.0)
+    scan0 = M.OPERATOR_ROWS.value("TableScan")
+    _c, rows = client.execute(expected["1"]["sql"], timeout=600.0)
+    check_rows("Q1 (distributed, stats)", rows, expected["1"]["rows"], rel_tol=DIST_REL_TOL)
+    qid = client.query_id
+    # a task adds its series as its thread ends, just after its last page
+    deadline = time.monotonic() + 10.0
+    while M.OPERATOR_ROWS.value("TableScan") - scan0 < count[0][0] and \
+            time.monotonic() < deadline:
+        time.sleep(0.01)
+    scanned = M.OPERATOR_ROWS.value("TableScan") - scan0
+    _c, tasks = client.execute("select task_id, operators from system.runtime.tasks "
+                               f"where query_id = '{qid}'", timeout=600.0)
+    if not tasks or any(ops <= 0 for _t, ops in tasks) or scanned != count[0][0]:
+        raise AssertionError(f"Q1 (distributed): operators a task {tasks}, TableScan rows "
+                             f"{scanned} (lineitem {count[0][0]}): stats not kept by default")
+    walls = {"off": {}, "on": {}}
+    for label in ("off", "on"):
+        Executor.collect_stats = label == "on"
+        try:
+            for q in range(1, 23):
+                entry = expected[str(q)]
+                rows, walls[label][f"Q{q}"], _t = dist_timed(client, entry["sql"], device)
+                check_rows(f"Q{q} (distributed, stats {label})", rows, entry["rows"],
+                           rel_tol=DIST_REL_TOL)
+        finally:
+            Executor.collect_stats = True
+    return {"q1_tasks": len(tasks), "q1_operators": [ops for _t, ops in tasks],
+            "q1_scan_rows": scanned,
+            **{f"stats_{k}_warm_wall_s": sum(v.values()) for k, v in walls.items()},
+            **{f"stats_{k}_walls_s": v for k, v in walls.items()}}
+
+
 def phase_distributed(device, expected, dist, mvexp, cap, eager, card):
     """The coordinator and two in-process workers on the card: the 22
     TPC-H queries' distributed plans against the reference's, their rows
@@ -1494,6 +1568,7 @@ def phase_distributed(device, expected, dist, mvexp, cap, eager, card):
             print("distributed", json.dumps({
                 "query": f"Q{q}", "rows": len(entry["rows"]),
                 "eager_walls_s": eager.get(q), "runs": runs}), flush=True)
+        stats = dist_stats_default(coord, client, device, expected)
         conn = dbapi.connect(coord.base_url, catalog="tpch", schema="sf1",
                              fused_join_pallas="True")
         cur = conn.cursor()
@@ -1578,6 +1653,8 @@ def phase_distributed(device, expected, dist, mvexp, cap, eager, card):
            for i, label in ((0, "cold"), (1, "warm"))
            for k in ("wire_bytes", "logical_bytes", "raw_bytes", "encode_s", "compress_s",
                      "decode_s", "decompress_s", "partition_s", "tasks")},
+        "stats_default": {**stats, "stats_on_first_warm_wall_s": sum(r[1]["wall_s"]
+                                                                     for r in out.values())},
         "in_process_phase_s": in_process_s,
         "caches_s": caches_s,
         "result_cache_hit_wall_s": {q: caches[q][1]["wall_s"] for q in ("Q1", "Q18")},
@@ -3663,6 +3740,344 @@ def phase_fte(device, expected, plane, cap, card, dist_walls, schema="sf1", extr
     return out
 
 
+# phase procplane: the executor-process plane on the card. The routed
+# statements are single-stage plans a child can own (the fast path; at SF1
+# lineitem's 6M rows need the scan guard and the gather threshold raised so
+# Q1's final aggregation is not hash-distributed); Q3 needs workers and
+# bounces to the dispatch lane
+PROCPLANE_POINT = "select o_orderkey, o_totalprice from orders where o_orderkey = 7"
+PROCPLANE_PREPARED = "select o_orderkey, o_totalprice from orders where o_orderkey = ?"
+PROCPLANE_KEYS = (7, 32)
+PROCPLANE_CLIENTS = 16
+PROCPLANE_LANES = 8
+PROCPLANE_PROCESSES = 2
+PROCPLANE_NOT_PLANNED = ("parse", "analyze/plan", "optimize")
+
+
+def procplane_props(schema, **extra):
+    """The statement protocol's session properties of phase procplane."""
+    return {"catalog": "tpch", "schema": schema, "fused_join_pallas": "true",
+            "short_query_fast_path": "true", "fast_path_max_scan_rows": "8000000",
+            "gather_max_rows_per_device": "8000000", **extra}
+
+
+def procplane_queries(expected):
+    """(name, sql) of the phase: the point lookup, Q1 and Q6, which route
+    to a child, and Q3, which bounces."""
+    return [("point", PROCPLANE_POINT), ("Q1", expected["1"]["sql"]),
+            ("Q6", expected["6"]["sql"]), ("Q3", expected["3"]["sql"])]
+
+
+def plane_counts():
+    from trino_tpu_torch.obs import metrics as M
+
+    return {k: M.EXECUTOR_PLANE_QUERIES.value(k) for k in ("process", "inline", "bounced")}
+
+
+def plane_delta(before, what, want):
+    got = {k: v - before[k] for k, v in plane_counts().items()}
+    if got != want:
+        raise AssertionError(f"procplane: {what}: executor-plane queries {got} != {want}")
+
+
+def procplane_run(coord, props, sql, device, user="procplane"):
+    """(rows, wall, query) of one statement through the statement protocol."""
+    from trino_tpu_torch.client.remote import StatementClient
+
+    client = StatementClient(coord.base_url, props, user=user)
+    sync(device)
+    t0 = time.perf_counter()
+    _cols, rows = client.execute(sql, timeout=600.0)
+    sync(device)
+    return rows, time.perf_counter() - t0, coord.get_query(client.query_id)
+
+
+def child_elapsed_s(q):
+    """The child's own wall of a forwarded query (its synthetic task slot)."""
+    (entry,) = [e for k, e in q.task_stats.items() if ".proc" in k]
+    return float(entry["stats"]["elapsedS"])
+
+
+def compute_apps():
+    """The lines of ``nvidia-smi --query-compute-apps=pid,used_memory``: one
+    a process that holds a context on the card. (In a container whose pid
+    namespace is not the one nvidia-smi reads, every line names pid 1.)"""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30)
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
+
+
+def nvidia_fds(pid):
+    """The NVIDIA device files process ``pid`` holds open (a CUDA context
+    holds ``/dev/nvidia<N>``)."""
+    base = f"/proc/{pid}/fd"
+    found = set()
+    try:
+        for fd in os.listdir(base):
+            try:
+                target = os.readlink(os.path.join(base, fd))
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                found.add(target)
+    except OSError:
+        pass
+    return sorted(found)
+
+
+def procplane_concurrency(coord, props, sql, want, device):
+    """PROCPLANE_CLIENTS concurrent clients, one user each, of one query:
+    wall, p50 and p99 of their latencies, and the planes that ran them."""
+    import statistics
+    import threading
+
+    lat, errors, planes = [], [], []
+    start = threading.Barrier(PROCPLANE_CLIENTS + 1)
+
+    def client(i):
+        start.wait()
+        try:
+            rows, wall, q = procplane_run(coord, props, sql, device, user=f"procplane-{i}")
+            check_rows(f"procplane concurrency client {i}", rows, want, rel_tol=DIST_REL_TOL)
+            lat.append(wall)
+            planes.append(q.plane)
+        except Exception as e:  # noqa: BLE001 — the assertion below
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,), name=f"procplane-client-{i}")
+               for i in range(PROCPLANE_CLIENTS)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"procplane concurrency: {errors[:3]}")
+    lat.sort()
+    return {"clients": PROCPLANE_CLIENTS, "wall_s": wall, "p50_s": statistics.median(lat),
+            "p99_s": lat[min(len(lat) - 1, int(0.99 * len(lat)))], "max_s": lat[-1],
+            "planes": sorted(set(planes))}
+
+
+def routed_planes(routed):
+    return {r["plane"] for r in routed.values()}
+
+
+def phase_procplane(device, expected, procexp, card, schema="sf1"):
+    """A port coordinator with the executor-process plane (two children on
+    the coordinator's device) and two in-process workers: the point lookup,
+    Q1 and Q6 routed to the children cold and warm, with the reference's
+    rows; Q3 bounced to the dispatch lane; a memory table and a cached Q6
+    kept on the dispatch side; PREPARE, EXECUTE twice and DEALLOCATE; the
+    children's contexts on the card; the same walls and a 16-client storm
+    of Q6 against a thread-plane coordinator at the same lanes; no child
+    left 10 s after ``stop()``. ``procexp``: the point rows by key."""
+    import torch
+
+    from trino_tpu_torch.client.remote import RemoteQueryError, StatementClient
+    from trino_tpu_torch.ops import merge
+
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    props = procplane_props(schema)
+    queries = dict(procplane_queries(expected))
+    want = {"point": procexp["rows"][str(PROCPLANE_KEYS[0])], "Q1": expected["1"]["rows"],
+            "Q6": expected["6"]["rows"], "Q3": expected["3"]["rows"]}
+    out = {"card": card, "launches": 0,
+           "not_run": "the view replication and the filesystem DML case need pyarrow, which "
+                      "this machine lacks; tests/test_torch_matview.py and "
+                      "tests/test_torch_process_plane.py hold them on the CPU"}
+    merge.launches = 0
+    free0 = torch.cuda.mem_get_info(device)[0] if cuda else None
+    coord, workers = serving_cluster(device, 2, "pp", executor_plane="process",
+                                     executor_processes=PROCPLANE_PROCESSES,
+                                     executor_lanes=PROCPLANE_LANES)
+    plane = coord.dispatcher.process_plane
+    stopped = False
+    try:
+        if plane.device != str(device):
+            raise AssertionError(f"procplane: children on {plane.device}, not {device}")
+        t0 = time.perf_counter()
+        plane._ensure_children()  # the boot, apart from the first query's wall
+        out["boot_s"] = time.perf_counter() - t0
+        pids = plane.children_pids()
+        # routed, cold and warm: every run on a child. The dispatch process
+        # touches the card in none of them, so the card's free bytes fall by
+        # what the child that ran it took (its context at its first query,
+        # then its allocator's blocks)
+        c0 = plane_counts()
+        routed = {}
+        grown = {}
+        free = free0
+        for name in ("point", "Q1", "Q6"):
+            for label in ("cold", "warm"):
+                rows, wall, q = procplane_run(coord, props, queries[name], device)
+                if cuda:
+                    now = torch.cuda.mem_get_info(device)[0]
+                    grown[q.plane] = grown.get(q.plane, 0) + free - now
+                    free = now
+                check_rows(f"{name} (procplane, {label})", rows, want[name],
+                           rel_tol=DIST_REL_TOL)
+                if not q.plane.startswith("executor-process:") or q.fast_path != "fast-path":
+                    raise AssertionError(f"{name} (procplane, {label}) ran on {q.plane} "
+                                         f"({q.fast_path}), not on an executor process")
+                child_s = child_elapsed_s(q)
+                routed[f"{name}_{label}"] = {"plane": q.plane, "wall_s": wall,
+                                             "child_elapsed_s": child_s,
+                                             "forward_overhead_s": wall - child_s}
+        plane_delta(c0, "routed", {"process": 6, "inline": 0, "bounced": 0})
+        out["routed"] = routed
+        out["free_after_warm_bytes"] = torch.cuda.mem_get_info(device)[0] if cuda else None
+        # bounced: Q3 needs workers, which a child has not
+        c0 = plane_counts()
+        rows, wall, q = procplane_run(coord, props, queries["Q3"], device)
+        check_rows("Q3 (procplane, bounced)", rows, want["Q3"], rel_tol=DIST_REL_TOL)
+        bounced = [sp for sp in q.tracer.spans()
+                   if sp.name == "dispatch/forward" and sp.attributes.get("bounced")]
+        if q.plane != "dispatch-lane" or q.fast_path != "distributed" or not bounced:
+            raise AssertionError(f"Q3 (procplane): {q.plane}, {q.fast_path}, bounce spans "
+                                 f"{len(bounced)}: not bounced to the dispatch lane")
+        plane_delta(c0, "Q3", {"process": 1, "inline": 0, "bounced": 1})
+        out["bounced_q3_wall_s"] = wall
+        # the dispatch side: a memory table, a query on the device cache
+        c0 = plane_counts()
+        procplane_run(coord, props, "create table memory.default.procplane as "
+                                    "select n_nationkey, n_name from nation", device)
+        rows, _w, q = procplane_run(coord, props, "select count(*) from memory.default.procplane",
+                                    device)
+        check_rows("memory table (procplane)", rows, [[25]])
+        planes = [q.plane]
+        rows, _w, q = procplane_run(coord, {**props, "device_cache_enabled": "true"},
+                                    queries["Q6"], device)
+        check_rows("Q6 cached (procplane)", rows, want["Q6"], rel_tol=DIST_REL_TOL)
+        planes.append(q.plane)
+        if planes != ["dispatch-lane", "dispatch-lane"]:
+            raise AssertionError(f"procplane: dispatch-side statements ran on {planes}")
+        plane_delta(c0, "dispatch side", {"process": 0, "inline": 3, "bounced": 0})
+        # prepared statements: the second EXECUTE plans nothing in its child
+        c0 = plane_counts()
+        client = StatementClient(coord.base_url, props, user="procplane")
+        client.execute(f"PREPARE procplane_point FROM {PROCPLANE_PREPARED}", timeout=600.0)
+        executes = []
+        for key in PROCPLANE_KEYS:
+            _c, rows = client.execute(f"EXECUTE procplane_point USING {key}", timeout=600.0)
+            check_rows(f"EXECUTE USING {key} (procplane)", rows, procexp["rows"][str(key)])
+            executes.append(coord.get_query(client.query_id))
+        names = {s["name"] for s in executes[1].extra_spans}
+        if (not all(q.plane.startswith("executor-process:") for q in executes)
+                or "plan-cache/hit" not in names or names & set(PROCPLANE_NOT_PLANNED)):
+            raise AssertionError(f"procplane: EXECUTE on {[q.plane for q in executes]}, child "
+                                 f"spans {sorted(names)}")
+        client.execute("DEALLOCATE PREPARE procplane_point", timeout=600.0)
+        try:
+            client.execute("EXECUTE procplane_point USING 7", timeout=600.0)
+        except RemoteQueryError as e:
+            if "prepared statement not found" not in str(e):
+                raise
+        else:
+            raise AssertionError("procplane: EXECUTE after DEALLOCATE succeeded")
+        plane_delta(c0, "prepared", {"process": 3, "inline": 2, "bounced": 0})
+        # a child the routed statements missed runs Q6 once on its own (as
+        # a user that the routing sends there), so each child's context and
+        # first allocations are measured apart
+        c0 = plane_counts()
+        storm = {**props, "result_cache_enabled": "false"}
+        for i in range(PROCPLANE_PROCESSES):
+            if f"executor-process:{i}" in routed_planes(routed):
+                continue
+            user = next(f"procplane-{u}" for u in range(64) if plane.child_for(plane.route_key(
+                types.SimpleNamespace(sql=queries["Q6"], user=f"procplane-{u}",
+                                      session_properties=storm)))["index"] == i)
+            free = torch.cuda.mem_get_info(device)[0] if cuda else None
+            rows, _w, q = procplane_run(coord, storm, queries["Q6"], device, user=user)
+            check_rows(f"Q6 (procplane, {user})", rows, want["Q6"], rel_tol=DIST_REL_TOL)
+            if q.plane != f"executor-process:{i}":
+                raise AssertionError(f"procplane: {user}'s Q6 ran on {q.plane}, not child {i}")
+            if cuda:
+                grown[q.plane] = free - torch.cuda.mem_get_info(device)[0]
+        # 16 clients of Q6, one user each (sticky by user: both children),
+        # twice: the first storm grows the children's allocators
+        free = torch.cuda.mem_get_info(device)[0] if cuda else None
+        storms = [procplane_concurrency(coord, storm, queries["Q6"], want["Q6"], device)
+                  for _ in range(2)]
+        if cuda:
+            out["storms_growth_bytes"] = free - torch.cuda.mem_get_info(device)[0]
+        out["concurrency_process"] = storms
+        plane_delta(c0, "concurrency", {
+            "process": 2 * PROCPLANE_CLIENTS + PROCPLANE_PROCESSES - len(routed_planes(routed)),
+            "inline": 0, "bounced": 0})
+        if any(len(st["planes"]) != PROCPLANE_PROCESSES for st in storms):
+            raise AssertionError(f"procplane: the storms ran on {[st['planes'] for st in storms]}")
+        # the children hold their own contexts on the card: nvidia-smi lists
+        # a context for this process and one for each child, and each child
+        # holds the card's device file open
+        if cuda:
+            apps = compute_apps()
+            fds = {str(p): nvidia_fds(p) for p in pids}
+            out["compute_apps"] = apps
+            out["child_nvidia_fds"] = fds
+            if len(apps) != 1 + len(pids) or not all(
+                    any(re.fullmatch(r"/dev/nvidia\d+", f) for f in held)
+                    for held in fds.values()):
+                raise AssertionError(f"procplane: nvidia-smi lists {len(apps)} contexts, not "
+                                     f"this process's and {len(pids)} children's ({apps}), "
+                                     f"or a child holds no card open ({fds})")
+            out["child_growth_bytes"] = grown
+            out["free_before_boot_bytes"] = free0
+            free_before_stop = torch.cuda.mem_get_info(device)[0]
+        t0 = time.perf_counter()
+        serving_stop(coord, workers)
+        stopped = True
+        out["stop_s"] = time.perf_counter() - t0
+        deadline = time.monotonic() + 10.0
+        alive = list(pids)
+        while alive and time.monotonic() < deadline:
+            alive = [p for p in alive if pid_alive(p)]
+            time.sleep(0.05)
+        if alive:
+            raise AssertionError(f"procplane: child pids {alive} alive 10 s after stop()")
+        if cuda:
+            # what the children held, back on the card once they ended
+            out["children_released_bytes"] = \
+                torch.cuda.mem_get_info(device)[0] - free_before_stop
+            out["compute_apps_after_stop"] = compute_apps()
+    finally:
+        if not stopped:
+            serving_stop(coord, workers)
+    # the same queries through a thread-plane coordinator at the same lanes
+    coord, workers = serving_cluster(device, 0, "pt", executor_lanes=PROCPLANE_LANES)
+    try:
+        thread = {}
+        for name in ("point", "Q1", "Q6"):
+            for label in ("cold", "warm"):
+                rows, wall, q = procplane_run(coord, props, queries[name], device)
+                check_rows(f"{name} (thread plane, {label})", rows, want[name],
+                           rel_tol=DIST_REL_TOL)
+                thread[f"{name}_{label}"] = {"plane": q.plane, "wall_s": wall}
+        out["thread_plane"] = thread
+        out["concurrency_thread"] = [procplane_concurrency(coord, storm, queries["Q6"],
+                                                           want["Q6"], device)
+                                     for _ in range(2)]
+    finally:
+        serving_stop(coord, workers)
+    out["launches"] = merge.launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("procplane", json.dumps(out), flush=True)
+    return out
+
+
+def pid_alive(pid):
+    """Whether ``pid`` names a live process (a zombie counts as ended)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
 def check_random(session, device):
     """random() over every lineitem row at SF1, drawn on the card from the
     session's generator."""
@@ -4196,6 +4611,7 @@ def main() -> int:
     profiling = "--profile" in sys.argv[1:]
     with MergeCapture() as cap:
         tpch, session = phase_tpch(device, expected, cap)
+        tpch_stats_cost(session, device, expected)
         cache_runs, _resident, cached_session = phase_cache(device, expected, plane, cap)
         analytics_runs, analytics_session = phase_analytics(device, analytics, cap, card)
         scalar_runs, scalar_session = phase_scalar(device, scalar, card)
@@ -4218,6 +4634,8 @@ def main() -> int:
                                 {q: dist_runs[q][1]["wall_s"] for q in OBSERVE_DIST_QUERIES})
         fte = phase_fte(device, expected, plane, cap, card,
                         {q: dist_runs[q][1]["wall_s"] for q in FTE_QUERIES})
+        procplane = phase_procplane(device, expected, testdata("procplane_sf1_expected.json"),
+                                    card)
     eager_merge = sorted(int(q) for q, e in expected.items()
                          if e["tiers"].get("merge-pallas", 0) >= 1)
     compiled_merge = sorted(f"Q{q}" for q, e in compiled["queries"].items()
@@ -4277,9 +4695,11 @@ def main() -> int:
         "adaptive": adaptive["compile_ledger"]["merge_launches"],
         "serving": serving["cache_shares"]["launches"],
         "observe": observe["launches"],
-        "fte": fte["launches"]}
+        "fte": fte["launches"],
+        "procplane": procplane["launches"]}
     for path, n in launches_by_path.items():
-        if n < 1 and path not in ("analytics", "scalar", "nested", "distributed", "matview"):
+        if n < 1 and path not in ("analytics", "scalar", "nested", "distributed", "matview",
+                                  "procplane"):
             raise AssertionError(f"the 22 queries of path {path} launched the merge kernel "
                                  f"no time")
     # as since the first slice: the launches of the uncached session's cold

@@ -412,7 +412,11 @@ def test_dbapi_qmark_parameters(cluster):
 
 
 def test_unported_tiers_are_refused(cluster, monkeypatch):
-    """Only the executor-process plane is refused. The fault-tolerant tier
+    """Nothing of the reference's cluster is refused now. The
+    executor-process plane is ported: a coordinator asking for it starts,
+    reports its children in the serving rows and stops (its children boot
+    on the first routed query, tests/test_torch_process_plane.py). The
+    fault-tolerant tier
     and spooled results are ported: a request setting ``retry_policy=TASK``
     without a spool directory fails with the reference's message, one with
     ``spooled_results_enabled`` runs, and the segment route answers an
@@ -444,8 +448,14 @@ def test_unported_tiers_are_refused(cluster, monkeypatch):
     assert status == 204  # an ack of a gone segment is still an ack
     from trino_tpu_torch.server.coordinator import CoordinatorServer
 
-    with pytest.raises(NotImplementedError, match="executor_plane=process"):
-        CoordinatorServer(device="cpu", executor_plane="process", executor_processes=2)
+    proc = CoordinatorServer(device="cpu", executor_plane="process", executor_processes=2)
+    proc.start()
+    try:
+        lanes = next(r for r in proc.dispatcher.serving_rows() if r[0] == "executor_lanes")
+        assert lanes[2] == "process" and lanes[5].endswith(" processes=2")
+    finally:
+        proc.stop()
+    assert proc.dispatcher.process_plane.children_urls() == []
 
 
 def test_nested_decimals_and_dates_cross_the_protocol(cluster):

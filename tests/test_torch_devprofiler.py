@@ -203,8 +203,9 @@ def test_compiled_body_row_and_device_profiling():
 
 def test_eager_kernel_rows_in_the_reference_shape():
     """A plain eager query keeps kernel rows with every key of the
-    reference's row (estimated, one launch a node execution) and no
-    per-operator stats; device_profiling turns the stats on and measures."""
+    reference's row (estimated, one launch a node execution) and the
+    reference's per-operator stats (on by default in both); device_profiling
+    measures."""
     from trino_tpu.client.session import Session as JaxSession
     from trino_tpu.exec.executor import Executor as JaxExecutor
     from trino_tpu.exec.query import plan_sql as jax_plan
@@ -217,10 +218,12 @@ def test_eager_kernel_rows_in_the_reference_shape():
     s = Session(dict(TINY), device="cpu")
     ex = Executor(s)
     ex.execute_checked(plan_sql(s, sql))
-    assert not ex.collect_stats and not ex.node_stats
     js = JaxSession(dict(TINY))
     jex = JaxExecutor(js)
     jex.execute_checked(jax_plan(js, sql))
+    assert ex.collect_stats and jex.collect_stats
+    assert sorted((st.operator, st.input_rows, st.output_rows) for st in ex.node_stats.values()) \
+        == sorted((st.operator, st.input_rows, st.output_rows) for st in jex.node_stats.values())
     assert [set(r) for r in ex.kernel_stats.values()] == \
         [set(r) for r in jex.kernel_stats.values()]
     assert [(r["operator"], r["tier"], r["launches"], r["estimated"])

@@ -10,11 +10,10 @@ stress run of more clients than lanes with bounded threads, the serving
 index (MISS fills, a repeat is served on the dispatch thread, DML and
 another user miss) and the ``dispatch/queue`` span with the serving rows.
 
-Left out by name: the five process-plane cases
-(``test_process_plane_point_query``, ``_prepared_zero_planning``,
-``_owner_catalog_bounces``, ``_dml_invalidation_crosses_processes``,
-``_deallocate_replicates``; the port refuses ``executor_plane="process"``),
-and of ``test_dispatch_queue_phase_and_serving_table`` the phase ledger and
+The five process-plane cases (``test_process_plane_point_query``,
+``_prepared_zero_planning``, ``_owner_catalog_bounces``,
+``_dml_invalidation_crosses_processes``, ``_deallocate_replicates``) are in
+tests/test_torch_process_plane.py. Left out by name: of ``test_dispatch_queue_phase_and_serving_table`` the phase ledger and
 the ``system.runtime.serving`` query, which
 tests/test_torch_system_catalog.py holds (here the serving rows are read
 from the dispatcher).
@@ -117,13 +116,23 @@ def test_lane_defaults_bounded(monkeypatch):
 
 
 def test_process_plane_refused(monkeypatch):
-    """The reference's opt-in process plane is not ported: asked for by
-    argument or by environment, the port raises and runs no threads in its
-    place."""
-    with pytest.raises(NotImplementedError, match="executor_plane=process"):
-        TORCH.coordinator.CoordinatorServer(device="cpu", executor_plane="process")
+    """The executor plane by argument or by environment: ``process`` is
+    accepted (a dispatcher with a plane of that many children, none booted
+    until a query routes there), an unknown name raises ValueError."""
+    resolve = TORCH.dispatch.resolve_plane
+    assert resolve("process") == "process" and resolve(None) == "thread"
+    server = types.SimpleNamespace(device="cpu")
+    d = TORCH.dispatch.Dispatcher(server, lanes=0, plane="process", processes=3)
+    pp = d.process_plane
+    assert d.plane == "process" and pp.process_count() == 3
+    assert pp.children_urls() == [] and pp.device == "cpu"
+    d.shutdown()
+    with pytest.raises(ValueError, match="unknown executor plane"):
+        resolve("fiber")
     monkeypatch.setenv("TRINO_TPU_EXECUTOR_PLANE", "process")
-    with pytest.raises(NotImplementedError, match="executor_plane=process"):
+    assert resolve() == "process"
+    monkeypatch.setenv("TRINO_TPU_EXECUTOR_PLANE", "fiber")
+    with pytest.raises(ValueError, match="unknown executor plane"):
         TORCH.coordinator.CoordinatorServer(device="cpu")
 
 

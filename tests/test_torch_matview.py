@@ -12,12 +12,13 @@ EXPLAIN text. Then the staleness matrix of microbench/matview.py at tiny
 chip_smoke.py's phase matview at tiny on the CPU against the JAX package's
 answers at tiny.
 
-Left out by name: ``test_explain_analyze_annotations`` (distributed
-EXPLAIN ANALYZE, ROADMAP queue 1, item 3; the embedded EXPLAIN ANALYZE
-header is held here), ``test_sync_procedure_requires_internal_signature``
-and ``test_process_plane_registry_replication`` (the process plane and its
-system procedure, item 5) and ``test_matview_bench_check`` (a wall-clock
-gate of the JAX package). Two cases lose a statement over the system
+The process-plane cases ``test_sync_procedure_requires_internal_signature``
+(both packages) and ``test_process_plane_registry_replication`` (a port
+coordinator with one executor child, rows against the JAX Session) are
+here too. Left out by name: ``test_explain_analyze_annotations``
+(distributed EXPLAIN ANALYZE, held by tests/test_torch_operator_stats.py;
+the embedded EXPLAIN ANALYZE header is held here) and
+``test_matview_bench_check`` (a wall-clock gate of the JAX package). Two cases lose a statement over the system
 catalog: ``test_create_validation``'s view over ``system.runtime.queries``
 and the ``system.metadata.materialized_views`` reads of
 ``test_coordinator_lifecycle_and_stats``, whose freshness is read from
@@ -609,6 +610,92 @@ def test_phase_matview_at_tiny_on_the_cpu():
     assert out["q3"]["warm_failures"] == 0 and out["q3"]["warmed_rows"] > 0
     assert out["q18"]["tiers"] == mvexp["q18"]["tiers"]
     assert out["staleness"]["incorrect_freshness_substitutions"] == 0
+
+
+# ------------------------------------------------- executor-process plane
+def test_sync_procedure_requires_internal_signature():
+    """The replication procedure is not a user surface: an unsigned (or
+    wrongly signed) CALL is denied in both packages, so clients cannot
+    inject registry entries that would launder access control."""
+    import base64
+
+    blob = base64.b64encode(json.dumps(
+        {"op": "drop", "catalog": "m", "schema": "d", "name": "x"}).encode()).decode()
+    got = {}
+    for name in ("jax", "torch"):
+        pkg = types.SimpleNamespace(name=name)
+        coordinator = _mod(pkg, "server.coordinator")
+        wire = _mod(pkg, "server.wire")
+        security = _mod(pkg, "server.security")
+        registry = _mod(pkg, "matview.registry")
+        tables = _mod(pkg, "server.system_tables")
+        coord = coordinator.CoordinatorServer.__new__(coordinator.CoordinatorServer)
+        coord.matviews = registry.MaterializedViewRegistry()  # no sockets
+        proc = tables.CoordinatorSystemTables(coord).procedure(
+            "runtime", "sync_materialized_view")
+        denied = 0
+        for sig in (None, "deadbeef"):
+            with pytest.raises(security.AccessDeniedError):
+                proc(None, blob, sig)
+            denied += 1
+        got[name] = (denied, proc(None, blob, wire.sign(blob.encode())))
+    assert got["torch"] == got["jax"] == (2, "dropped m.d.x")
+
+
+@pytest.fixture(scope="module")
+def proc_coord(tmp_path_factory):
+    """A port coordinator with one executor child, on a fresh filesystem
+    catalog root (the view's storage, which the child reads too)."""
+    from trino_tpu_torch.server.coordinator import CoordinatorServer
+
+    old = os.environ.get("TRINO_TPU_FS_ROOT")
+    os.environ["TRINO_TPU_FS_ROOT"] = str(tmp_path_factory.mktemp("mvlake"))
+    coord = CoordinatorServer(device="cpu", executor_plane="process", executor_processes=1)
+    coord.start()
+    try:
+        yield coord
+    finally:
+        coord.stop()
+        if old is None:
+            os.environ.pop("TRINO_TPU_FS_ROOT", None)
+        else:
+            os.environ["TRINO_TPU_FS_ROOT"] = old
+
+
+def _finished(q, timeout=120.0):
+    q.state.wait_for_terminal(timeout)
+    assert q.state.get() == "FINISHED", q.failure
+    return q
+
+
+def test_process_plane_registry_replication(proc_coord):
+    """CREATE and DROP on the dispatch process replicate the registry to
+    the executor process (sync_materialized_view payloads): a sticky-routed
+    SELECT substitutes in the child against filesystem storage, and a DROP
+    stops it; the rows are the JAX Session's throughout."""
+    pytest.importorskip("pyarrow")
+    from trino_tpu.client.session import Session as JaxSession
+
+    coord = proc_coord
+    props = {"catalog": "tpch", "schema": "tiny", "short_query_fast_path": "true",
+             "materialized_view_storage_catalog": "filesystem"}
+    sql = "select c_custkey, c_name from customer where c_mktsegment = 'BUILDING'"
+    want = [tuple(r) for r in JaxSession({"catalog": "tpch", "schema": "tiny"}).execute(sql).rows]
+    # boot and baseline: the broadcast reaches booted children only
+    q = _finished(coord.submit(sql, props))
+    assert q.plane.startswith("executor-process:")
+    assert [tuple(r) for r in q.rows] == want and q.mv_substitutions == []
+    _finished(coord.submit("create materialized view tpch.tiny.bld as " + sql, props))
+    assert coord.matviews.get("tpch", "tiny", "bld") is not None
+    q = _finished(coord.submit(sql, props))
+    assert q.plane.startswith("executor-process:"), q.plane
+    assert q.mv_substitutions == ["tpch.tiny.bld"]
+    assert [tuple(r) for r in q.rows] == want
+    _finished(coord.submit("drop materialized view tpch.tiny.bld", props))
+    q = _finished(coord.submit(sql, props))
+    assert q.plane.startswith("executor-process:")
+    assert q.mv_substitutions == []
+    assert [tuple(r) for r in q.rows] == want
 
 
 def write_expected():

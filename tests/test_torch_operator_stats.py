@@ -159,8 +159,8 @@ def _drain(payload, deadline_s=120.0):
 def test_query_stats_live_while_running_then_frozen(clusters, monkeypatch):
     """GET /v1/query/{id} serves the stage and query rollups while the
     query runs (the poller's reads), and the same numbers, clock stopped,
-    once it finished. Without EXPLAIN ANALYZE or device_profiling a task
-    ships kernel rows and no per-operator stats."""
+    once it finished. A plain query's tasks ship per-operator stats (on by
+    default, as in the reference) and estimated kernel rows."""
     from trino_tpu_torch.server.task import SqlTask
 
     coord, _ = clusters
@@ -203,7 +203,8 @@ def test_query_stats_live_while_running_then_frozen(clusters, monkeypatch):
     assert qs["totalRows"] >= sum(r[1] for r in rows) > 0
     assert qs["completedStages"] == qs["stages"] == len(info["stageStats"])
     stage = info["stageStats"][0]
-    assert stage["state"] == "FINISHED" and stage["operatorStats"] == []
+    assert stage["state"] == "FINISHED" and stage["operatorStats"]
+    assert all(o["invocations"] > 0 for o in stage["operatorStats"])
     assert stage["kernelStats"] and all(r["estimated"] for r in stage["kernelStats"])
     assert info["planVersions"] == [] and qs["adaptations"] == 0
     time.sleep(0.05)
@@ -313,3 +314,53 @@ def test_local_explain_analyze_through_the_coordinator(clusters):
         texts.append("\n".join(r[0] for r in rows))
     assert _masked(texts[0], False) == _masked(texts[1], False)
     assert "Peak working set:" in texts[0] and "rows=25" in texts[0]
+
+
+def test_plain_distributed_query_keeps_the_reference_operator_stats(clusters, monkeypatch):
+    """Per-operator stats are on by default in both packages: a plain
+    distributed aggregation (no EXPLAIN ANALYZE) leaves the same
+    ``system.runtime.tasks`` operators and output rows a task, the same
+    stage ``operatorStats`` lengths and ``trino_tpu_operator_rows_total``
+    of the scan (orders at tiny, 15000 rows) in both. The compiled tier
+    still collects none."""
+    import trino_tpu.obs.metrics as JM
+
+    import trino_tpu_torch.obs.metrics as TM
+    from trino_tpu_torch import Session
+    from trino_tpu_torch.exec import compiled
+    from trino_tpu_torch.exec.query import plan_sql
+
+    coord, jcoord = clusters
+    sql = "select o_orderpriority, count(*) from orders group by 1 order by 1"
+    got = {}
+    for base, jax, M in ((coord.base_url, False, TM), (jcoord.base_url, True, JM)):
+        scan0 = M.OPERATOR_ROWS.value("TableScan")
+        client, _cols, rows = _execute(base, sql, TINY, jax=jax)
+        # a task adds its series as its thread ends, just after its last page
+        deadline = time.monotonic() + 10.0
+        while M.OPERATOR_ROWS.value("TableScan") - scan0 < 15000 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        scanned = M.OPERATOR_ROWS.value("TableScan") - scan0
+        qid = client.query_id
+        _c, _cols, tasks = _execute(
+            base, "select stage_id, operators, output_rows from system.runtime.tasks "
+                  f"where query_id = '{qid}' order by 1, 2, 3", TINY, jax=jax)
+        info = wire.json_request("GET", f"{base}/v1/query/{qid}")
+        stages = sorted((st["stageId"], len(st["operatorStats"])) for st in info["stageStats"])
+        got["jax" if jax else "torch"] = (rows, scanned, tasks, stages)
+    assert got["torch"] == got["jax"]
+    _rows, scanned, tasks, stages = got["torch"]
+    assert scanned == 15000 and tasks and all(t[1] > 0 for t in tasks)
+    assert all(n > 0 for _sid, n in stages)
+    seen = []
+    body = compiled.PreloadedExecutor.execute
+
+    def spy(self, node):
+        seen.append(self)
+        return body(self, node)
+
+    monkeypatch.setattr(compiled.PreloadedExecutor, "execute", spy)
+    s = Session(dict(TINY), device="cpu")
+    cq = compiled.CompiledQuery.build(s, plan_sql(s, sql))
+    assert cq.run().to_pylist() == [tuple(r) for r in got["torch"][0]]
+    assert seen and all(not ex.collect_stats and ex.node_stats == {} for ex in seen)

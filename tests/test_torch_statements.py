@@ -540,17 +540,42 @@ def test_operator_stats_accumulate_not_overwrite():
 
 
 def test_plain_executor_collects_no_stats():
-    """A plain query collects no per-operator stats. Its kernel ledger
-    holds zero-sync rows only: a launch count and the host wall a node,
-    the device time estimated as that wall, nothing read from the device
-    (test_plain_query_adds_no_host_reads counts the reads)."""
+    """A plain executor collects the per-operator stats the reference's
+    does (on by default in both); one made with ``collect_stats=False``,
+    the compiled tier's setting, collects none. The kernel ledger holds
+    zero-sync rows either way: a launch count and the host wall a node,
+    the device time estimated as that wall (test_plain_query_adds_no_host_reads
+    counts the reads)."""
+    sql = "select count(*) from nation"
+    js = jax_session()
+    jex = JaxExecutor(js)
+    jex.execute_checked(jax_plan_sql(js, sql))
     s = torch_session()
     ex = TorchExecutor(s)
-    ex.execute_checked(torch_plan_sql(s, "select count(*) from nation"))
-    assert ex.node_stats == {} and not ex.collect_stats
+    ex.execute_checked(torch_plan_sql(s, sql))
+    assert ex.collect_stats and jex.collect_stats
+    assert sorted((st.operator, st.input_rows, st.output_rows, st.invocations)
+                  for st in ex.node_stats.values()) == \
+        sorted((st.operator, st.input_rows, st.output_rows, st.invocations)
+               for st in jex.node_stats.values())
+    off = TorchExecutor(s, collect_stats=False)
+    off.execute_checked(torch_plan_sql(s, sql))
+    assert off.node_stats == {} and not off.collect_stats
     assert ex.kernel_stats and all(
         r["estimated"] and r["deviceS"] == r["wallS"] and r["launches"] == 1
         for r in ex.kernel_stats.values())
+
+
+def test_kept_executor_holds_no_device_scalar():
+    """Once its stats are read, an executor holds its live row counts as
+    host ints: one kept after its run (a coordinator query's root or local
+    executor) keeps no tensor on the device."""
+    s = torch_session()
+    ex = TorchExecutor(s)
+    ex.execute_checked(torch_plan_sql(s, QUERIES[3]))
+    assert ex._row_terms == [] and ex._last_output_rows
+    assert all(type(v) is int for v in ex._last_output_rows.values())
+    assert sum(st.output_rows for st in ex.node_stats.values()) > 0
 
 
 def test_operator_stats_add_and_merge():
@@ -772,8 +797,9 @@ def _count_host_reads(monkeypatch):
 
 def test_plain_query_adds_no_host_reads(monkeypatch):
     """Q3 at tiny makes as many device-to-host reads through the port's
-    executor as through a bare dispatch with no stats code at all; EXPLAIN
-    ANALYZE adds one batched read of the live counts."""
+    executor with per-operator stats off as through a bare dispatch with no
+    stats code at all; the stats, on by default, add one batched read of
+    the live counts."""
     from trino_tpu_torch.exec import memory as _mem
 
     def bare_execute(self, node):
@@ -787,15 +813,15 @@ def test_plain_query_adds_no_host_reads(monkeypatch):
     reads = {}
     with monkeypatch.context() as m:
         counts = _count_host_reads(m)
-        rows = TorchExecutor(s).execute_checked(root).to_pylist()
+        rows = TorchExecutor(s, collect_stats=False).execute_checked(root).to_pylist()
         reads["plain"] = counts["n"]
         counts["n"] = 0
-        stats_ex = TorchExecutor(s, collect_stats=True)
+        stats_ex = TorchExecutor(s)
         assert stats_ex.execute_checked(root).to_pylist() == rows
         reads["stats"] = counts["n"]
         m.setattr(TorchExecutor, "execute", bare_execute)
         counts["n"] = 0
-        assert TorchExecutor(s).execute_checked(root).to_pylist() == rows
+        assert TorchExecutor(s, collect_stats=False).execute_checked(root).to_pylist() == rows
         reads["bare"] = counts["n"]
     assert reads["plain"] == reads["bare"] > 0
     assert reads["stats"] == reads["plain"] + 1

@@ -228,13 +228,12 @@ class Executor:
     reference's row shape, obs/devprofiler.py): launches, exclusive host
     wall and bytes a plan node, with device seconds estimated as the wall
     (``estimated``) unless ``device_profiling`` synchronizes after each
-    node. None of it reads the device. ``collect_stats`` adds the
-    per-operator stats EXPLAIN ANALYZE prints (``node_stats``); it is on
-    under EXPLAIN ANALYZE and ``device_profiling`` alone. The reference
-    always collects them, and its per-node live count is a device-to-host
-    read and sync per plan node. Here each node's live count stays a device
-    scalar, and ``execute_checked`` reads them all in one batch when the
-    plan has run.
+    node. None of it reads the device. ``collect_stats`` (on, as in the
+    reference; the compiled tier turns it off) adds the per-operator stats
+    EXPLAIN ANALYZE prints and the tasks report (``node_stats``). The
+    reference's per-node live count is a device-to-host read and sync per
+    plan node. Here each node's live count stays a device scalar, and
+    ``execute_checked`` reads them all in one batch when the plan has run.
 
     The class flags mark the tier. The eager tier reads the device where
     the host must decide (an expansion's exact total, dynamic-filter
@@ -247,7 +246,7 @@ class Executor:
 
     DYNAMIC_FILTER_MAX_SET = 1024  # in-set domain cap
     eager_tier = True
-    collect_stats = False
+    collect_stats = True
     df_host_allow = None
     count_tiers = True
 
@@ -261,8 +260,6 @@ class Executor:
         self.profile_sync = self.eager_tier and bool(self.props.get("device_profiling", False))
         if collect_stats is not None:
             self.collect_stats = collect_stats
-        elif self.profile_sync:
-            self.collect_stats = True
         self.device = session.device
         self.errors: List[Tuple[str, torch.Tensor]] = []
         # static output capacities by hint key ("cmp:<id>" for Compact,
@@ -391,13 +388,19 @@ class Executor:
 
     def resolve_stats(self) -> None:
         """Add the live row counts still held as device scalars into
-        ``node_stats``: one device-to-host read for the whole plan."""
+        ``node_stats``: one device-to-host read for the whole plan. The
+        counts read replace their scalars in ``_last_output_rows``, so an
+        executor kept after its run (a query's root or local executor)
+        holds nothing on the card."""
         terms, self._row_terms = self._row_terms, []
         scalars = [v for _, _, v in terms if isinstance(v, torch.Tensor)]
-        read = iter(torch.stack(scalars).tolist() if scalars else ())
+        read = dict(zip(map(id, scalars), torch.stack(scalars).tolist() if scalars else ()))
         for st, field, v in terms:
-            n = next(read) if isinstance(v, torch.Tensor) else v
+            n = read[id(v)] if isinstance(v, torch.Tensor) else v
             setattr(st, field, getattr(st, field) + int(n))
+        for nid, v in self._last_output_rows.items():
+            if isinstance(v, torch.Tensor):
+                self._last_output_rows[nid] = int(read[id(v)])
 
     def _narrowed_or_flag(self, col: Column, sel=None) -> Column:
         """A two-limb column degraded to its low word for consumers without

@@ -286,7 +286,7 @@ def explain_analyze(session, stmt, verbose: bool = False) -> str:
     t_plan = time.perf_counter()
     root, mv_notes = _plan_substituted(session, stmt)
     plan_s = time.perf_counter() - t_plan
-    ex = Executor(session, collect_stats=True)
+    ex = Executor(session)
     hits0, misses0 = M.COMPILE_CACHE_HITS.value(), M.COMPILE_CACHE_MISSES.value()
     t0 = time.perf_counter()
     ex.execute_checked(root)

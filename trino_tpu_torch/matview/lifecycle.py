@@ -218,7 +218,8 @@ def _check_definition(session, stmt_query, root) -> None:
 
 
 def create_materialized_view(session, stmt, sql: Optional[str] = None,
-                             execute_fn=None) -> Tuple[List[str], list]:
+                             execute_fn=None,
+                             warm: bool = True) -> Tuple[List[str], list]:
     """CREATE [OR REPLACE] MATERIALIZED VIEW: validate + register the
     definition, then (by default) run the initial REFRESH so the view is
     born fresh. Returns ``(columns, rows)`` for the statement result."""
@@ -274,7 +275,7 @@ def create_materialized_view(session, stmt, sql: Optional[str] = None,
         # overwritten — stale, never wrong) instead of destroying it
         try:
             refresh_materialized_view(session, mv, execute_fn=execute_fn,
-                                      planned_root=root)
+                                      planned_root=root, warm=warm)
         except BaseException:
             if not same_storage:  # never drop a replaced view's storage
                 _drop_storage(session, mv)
@@ -288,7 +289,8 @@ def create_materialized_view(session, stmt, sql: Optional[str] = None,
 
 
 def refresh_materialized_view(session, mv_or_parts, execute_fn=None,
-                              planned_root=None) -> Tuple[List[str], list]:
+                              planned_root=None,
+                              warm: bool = True) -> Tuple[List[str], list]:
     """REFRESH MATERIALIZED VIEW: execute the definition through
     ``execute_fn`` (default: the local executor) and atomically swap the
     storage table + freshness record. Returns the statement result with
@@ -335,7 +337,11 @@ def refresh_materialized_view(session, mv_or_parts, execute_fn=None,
         M.MV_REFRESH_SECONDS.observe(elapsed)
         sp.set("rows", len(rows))
         sp.set("storage", mv.storage_qualified)
-        warmed = _warm_storage(session, mv)
+        # the caller opts out of the warm scan when substituted SELECTs do
+        # not run in this process (the coordinator under the executor-
+        # process plane): warming its device cache would stage a table no
+        # query here scans
+        warmed = _warm_storage(session, mv) if warm else 0
         if warmed:
             sp.set("warmed_rows", warmed)
     return ["rows"], [(len(rows),)]
@@ -440,15 +446,16 @@ def drop_materialized_view(session, stmt) -> Tuple[List[str], list]:
 
 
 def dispatch_mv_statement(session, stmt, sql: Optional[str] = None,
-                          execute_fn=None) -> Tuple[List[str], list]:
+                          execute_fn=None,
+                          warm: bool = True) -> Tuple[List[str], list]:
     """The one entry point statement dispatchers call (exec/query.py
     embedded path; the coordinator passes its distributed execute_fn)."""
     if isinstance(stmt, ast.CreateMaterializedView):
         return create_materialized_view(session, stmt, sql=sql,
-                                        execute_fn=execute_fn)
+                                        execute_fn=execute_fn, warm=warm)
     if isinstance(stmt, ast.RefreshMaterializedView):
         return refresh_materialized_view(session, stmt.name,
-                                         execute_fn=execute_fn)
+                                         execute_fn=execute_fn, warm=warm)
     if isinstance(stmt, ast.DropMaterializedView):
         return drop_materialized_view(session, stmt)
     raise ValueError(f"not a materialized-view statement: {stmt}")

@@ -6,9 +6,9 @@ metadata (``ConnectorMetadata.getMaterializedView`` returning a
 ``ConnectorMaterializedViewDefinition`` + ``getMaterializedViewFreshness``
 deciding staleness); here the engine owns one registry per server —
 shared by every query the coordinator runs (like the prepared-statement
-registry). The reference also replicates it across its executor-process
-plane; the port has no process plane, and ``to_payload`` /
-``from_payload`` keep the payload format that replication ships.
+registry). Under the executor-process plane (server/dispatch.py) the
+coordinator replicates each change to its children: ``to_payload`` /
+``from_payload`` are the format that replication ships.
 
 Each entry records everything the transparent-substitution pass
 (``matview/substitute.py``) needs to decide *match* and *freshness*

@@ -103,8 +103,9 @@ cache, and a view refresh never spools.
 
 The coordinator runs on one torch device: CUDA unless it is given another
 (``device="cpu"`` in the tests); asked for CUDA without a usable GPU it
-raises. The executor-process plane (``executor_plane="process"``) is not
-ported and is refused.
+raises. Under the executor-process plane (``executor_plane="process"``,
+server/dispatch.py) plain SELECTs and EXECUTEs run in executor children on
+the same device; PREPARE, DEALLOCATE and view changes replicate to them.
 
     python -m trino_tpu_torch.server.coordinator [--port N] [--device cuda|cpu]
 
@@ -276,9 +277,8 @@ class QueryExecution:
         self.status_polls = 0
         # versioned plan changes of the adaptive re-planner (dicts)
         self.plan_versions: List[dict] = []
-        # EXPLAIN ANALYZE: every executor of the query collects
-        # per-operator stats; the coordinator's own executor is kept
-        self._collect_stats = False
+        # EXPLAIN ANALYZE's annotation sources: the coordinator's own
+        # executors are kept
         self._root_executor = None
         self._local_executor = None
         self.fast_path_reason: Optional[str] = None
@@ -288,12 +288,17 @@ class QueryExecution:
         self.ended_at: Optional[float] = None
         # the serving plane: the group the selectors chose (None under an
         # injected flat gate), the client's X-Trino-Source, the queries
-        # queued ahead at enqueue, and the queue-residency span the lane
-        # closes at dequeue
+        # queued ahead at enqueue, the queue-residency span the lane
+        # closes at dequeue, which plane ran the query ("dispatch-lane"
+        # inline, "executor-process:N" when forwarded) and the spans pulled
+        # from an executor process's trace (merged into the phase ledger
+        # and the trace endpoint)
         self.resource_group: Optional[str] = None
         self.source: str = ""
         self.queued_ahead: Optional[int] = None
         self._dispatch_queue_span = None
+        self.plane: str = "dispatch-lane"
+        self.extra_spans: List[dict] = []
         # serving-index learning: whether the statement was a plain SELECT,
         # and the result-cache key and data versions of a led flight
         self.is_plain_select = False
@@ -311,7 +316,11 @@ class QueryExecution:
         self.last_drain_at: Optional[float] = None
         self._stragglers: Optional[List[dict]] = None
         self._flows_folded = False
+        # set by the server at submit: the shared pool of parallel pulls
+        # from the workers, and the dispatcher (its executor-process plane
+        # takes the registry replications)
         self.io_pool = None
+        self.dispatcher = None
 
     def cancel(self) -> None:
         self.ended_at = self.ended_at or time.time()
@@ -445,11 +454,48 @@ class QueryExecution:
             rows, self.rows = self.rows, []
             return rows
 
+        # under the executor-process plane substituted SELECTs run in the
+        # children: warming this process's device cache on refresh would
+        # stage a table no query here scans
+        warm = getattr(self.dispatcher, "process_plane", None) is None
         columns, rows = mv_lifecycle.dispatch_mv_statement(
-            session, stmt, sql=sql, execute_fn=execute_fn)
+            session, stmt, sql=sql, execute_fn=execute_fn, warm=warm)
         if self.state.get() in ("QUEUED", "PLANNING", "STARTING"):
             self.state.set("RUNNING")
         self.columns, self.rows = columns, rows
+        self._replicate_mv_change(session, stmt)
+
+    def _replicate_mv_change(self, session, stmt) -> None:
+        """Process plane only: ship the registry change to every booted
+        executor process (``CALL system.runtime.sync_materialized_view``
+        with a base64 payload and its signature), so sticky-routed SELECTs
+        substitute, or stop substituting, there too. Best-effort, like the
+        prepared-registry broadcast."""
+        pp = getattr(self.dispatcher, "process_plane", None)
+        if pp is None:
+            return
+        import base64
+        import json as _json
+
+        from trino_tpu_torch.matview import registry as mv_registry
+        from trino_tpu_torch.matview.lifecycle import resolve_mv_name
+
+        catalog, schema, name = resolve_mv_name(session, stmt.name)
+        if isinstance(stmt, ast.DropMaterializedView):
+            payload = mv_registry.drop_payload(catalog, schema, name)
+        else:
+            mv = session.matviews.get(catalog, schema, name)
+            if mv is None or mv.definition_sql is None:
+                return
+            payload = mv_registry.to_payload(mv)
+        blob = base64.b64encode(_json.dumps(payload).encode()).decode()
+        # signed with the cluster-internal secret (the children inherit it
+        # through their environment): the procedure refuses anything an
+        # ordinary client could forge
+        sig = wire.sign(blob.encode())
+        pp.broadcast(
+            f"CALL system.runtime.sync_materialized_view('{blob}', '{sig}')",
+            self.user, self.session_properties)
 
     def _substitute_matviews(self, session, root, versions):
         """The view substitution pass, after the plan cache (a cached plan
@@ -620,6 +666,7 @@ class QueryExecution:
             reg.put(self.user, stmt.name, inner, sql_text)
             self.add_prepared[stmt.name] = sql_text
             self.columns, self.rows = ["result"], [("PREPARE",)]
+            self._replicate_registry_change()
             return
         if isinstance(stmt, ast.Deallocate):
             self.cache_status = "BYPASS"
@@ -628,8 +675,17 @@ class QueryExecution:
                 raise ValueError(f"prepared statement not found: {stmt.name}")
             self.deallocated_prepared.append(stmt.name)
             self.columns, self.rows = ["result"], [("DEALLOCATE",)]
+            self._replicate_registry_change()
             return
         self._run_execute_prepared(session, stmt)
+
+    def _replicate_registry_change(self) -> None:
+        """Process plane only: replay this PREPARE/DEALLOCATE on every
+        executor process, so their replica registries track this process's
+        authoritative one."""
+        pp = getattr(self.dispatcher, "process_plane", None)
+        if pp is not None:
+            pp.broadcast(self.sql, self.user, self.session_properties)
 
     def _run_execute_prepared(self, session, stmt) -> None:
         """EXECUTE name [USING ...]: fold the bindings to constants, reuse
@@ -787,7 +843,7 @@ class QueryExecution:
         with self.tracer.span(span_name) as sp:
             if reason is not None:
                 sp.set("reason", reason)
-            ex = Executor(session, collect_stats=self._collect_stats or None)
+            ex = Executor(session)
             page = ex.execute_checked(root)
             ex.errors.clear()  # checked: the kept executor holds no flag on the card
         self._local_executor = ex  # EXPLAIN ANALYZE's annotation source
@@ -1189,7 +1245,6 @@ class QueryExecution:
             output_partition_channels=frag.output_partition_channels,
             skew_spread_partitions=frag.skew_spread_partitions,
             skew_replicate_partitions=frag.skew_replicate_partitions,
-            collect_stats=self._collect_stats,
             spool_results=getattr(frag, "spool_results", False))
         # trace-context propagation: the worker parents its task span under
         # the coordinator's current (schedule) span
@@ -1492,7 +1547,7 @@ class QueryExecution:
         try:
             from trino_tpu_torch.obs.timeline import compute_timeline
 
-            spans = (self.tracer.to_dicts()
+            spans = (self.tracer.to_dicts() + list(self.extra_spans)
                      + self.worker_spans(timeout=self.COMPLETION_PULL_TIMEOUT))
             self._timeline = compute_timeline(spans, self.created_at, self.ended_at)
         except Exception:  # noqa: BLE001 — observability only
@@ -1522,7 +1577,7 @@ class QueryExecution:
         its header before the query's wall closes)."""
         from trino_tpu_torch.obs.timeline import compute_timeline
 
-        spans = self.tracer.to_dicts() + self.worker_spans()
+        spans = self.tracer.to_dicts() + list(self.extra_spans) + self.worker_spans()
         return compute_timeline(spans, self.created_at, time.time()).to_dict()
 
     def query_stats(self, stages: Optional[List[dict]] = None) -> dict:
@@ -1757,7 +1812,6 @@ class QueryExecution:
         from trino_tpu_torch.sql.planner.optimizer import optimize
         from trino_tpu_torch.sql.planner.planner import Planner
 
-        self._collect_stats = True
         inner = _expand_udfs(session, stmt.statement)
         t_plan = time.perf_counter()
         with tracing.span("analyze/plan"):
@@ -1900,7 +1954,7 @@ class QueryExecution:
                             "manifest, or narrow the query")
                     pages.append(p)
                 remote_pages[node.fragment_id] = pages
-        ex = FragmentExecutor(session, {}, remote_pages, collect_stats=self._collect_stats or None)
+        ex = FragmentExecutor(session, {}, remote_pages)
         self._root_executor = ex  # EXPLAIN ANALYZE: the root stage's stats
         page = ex.execute_checked(root_frag.root)
         # the kept executor holds no gathered input and no checked error
@@ -2011,8 +2065,10 @@ class CoordinatorServer:
     the dispatch plane (defaults: ``max(8, min(32, 4 x cpus))`` lanes and
     256 queued, or ``TRINO_TPU_EXECUTOR_LANES`` and
     ``TRINO_TPU_DISPATCH_QUEUE_CAPACITY``). ``executor_plane="process"``
-    (and ``executor_processes``) asks for executor processes, which the
-    port does not have: it raises NotImplementedError."""
+    (or ``TRINO_TPU_EXECUTOR_PLANE=process``) forwards plain SELECTs and
+    EXECUTEs to ``executor_processes`` executor children (else
+    ``TRINO_TPU_EXECUTOR_PROCESSES``, else 2) on this coordinator's device
+    (server/dispatch.py ``ProcessExecutorPlane``); ``stop`` ends them."""
 
     MAX_QUERY_HISTORY = 100  # terminal queries kept in the registry (oldest evicted)
 
@@ -2125,10 +2181,12 @@ class CoordinatorServer:
         # recorder rings), made on first use and shut down with the server
         self._io_pool = None
         self._io_pool_lock = threading.Lock()
-        # executor_processes sizes the process plane, which resolve_plane refuses
+        # the dispatch plane and its executor plane: lanes on this process,
+        # or (executor_plane="process") executor children on this device
         self.dispatcher = Dispatcher(
             self, lanes=executor_lanes, queue_capacity=dispatch_queue_capacity,
-            plane=executor_plane, groups=self.resource_groups)
+            plane=executor_plane, processes=executor_processes,
+            groups=self.resource_groups)
         self.httpd = wire.ServerHTTP(("127.0.0.1", port), _make_handler(self))
         self.port = self.httpd.server_address[1]
         self.base_url = f"http://127.0.0.1:{self.port}"
@@ -2180,6 +2238,7 @@ class CoordinatorServer:
         execution.recorder = self.recorder
         execution.tracer.recorder = self.recorder
         execution.io_pool = self.io_pool
+        execution.dispatcher = self.dispatcher
         # the spooled result protocol's store and URL, and an opportunistic
         # TTL sweep on the submit cadence (rate-limited in the store)
         execution.segment_store = self.segments
@@ -2361,7 +2420,7 @@ class CoordinatorServer:
         q = self.get_query(query_id)
         if q is None:
             return None
-        spans = q.tracer.to_dicts() + q.worker_spans()
+        spans = q.tracer.to_dicts() + list(q.extra_spans) + q.worker_spans()
         trace = {
             "queryId": q.query_id,
             "traceId": q.tracer.trace_id,

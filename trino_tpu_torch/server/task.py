@@ -97,9 +97,6 @@ class TaskRequest:
     # build side); parallel/exchange.spread_partition_ids has the argument
     skew_spread_partitions: Optional[List[int]] = None
     skew_replicate_partitions: Optional[List[int]] = None
-    # the per-operator stats EXPLAIN ANALYZE reads (Executor collect_stats):
-    # one batched device read of live row counts an executor
-    collect_stats: bool = False
     # the spooled result protocol: this task produces the query's result,
     # and its output rolls into size-bounded segments in the worker's
     # segment store instead of the output buffer (the coordinator collects
@@ -119,9 +116,8 @@ class FragmentExecutor(Executor):
     """Executes one plan fragment: scans read only the task's assigned
     splits; RemoteSourceNodes read the pages pulled from upstream tasks."""
 
-    def __init__(self, session, splits: Dict[int, List], remote_pages: Dict[int, List[Page]],
-                 collect_stats: Optional[bool] = None):
-        super().__init__(session, collect_stats=collect_stats)
+    def __init__(self, session, splits: Dict[int, List], remote_pages: Dict[int, List[Page]]):
+        super().__init__(session)
         self._splits = splits
         self._remote_pages = remote_pages
 
@@ -265,8 +261,7 @@ class SqlTask:
 
     def _executor(self, session, splits, remote_pages) -> "FragmentExecutor":
         """A fragment executor of this task, tracked for its peak bytes."""
-        ex = FragmentExecutor(session, splits, remote_pages,
-                              collect_stats=self.request.collect_stats or None)
+        ex = FragmentExecutor(session, splits, remote_pages)
         self._live_executor = ex
         return ex
 
