@@ -358,6 +358,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    phase mainpath, path ``fte``). Recorded: walls, spool bytes a query, the
    segment fetch rate.
 
+19. spmd (after phase procplane, before phase mainpath): the SPMD tier
+   (trino_tpu_torch/parallel/spmd.py) at SF1 on a mesh of four ranks on the
+   one card (parallel/mesh.py: gloo groups over one store, one thread a
+   rank). The dry run's plans: Q3 with the default thresholds, Q3 with
+   ``GATHER_AGG_MAX_ROWS_PER_DEVICE`` and ``BROADCAST_BUILD_MAX`` at 8 (at
+   least one exchange hint; restored after), Q18; the hashed Q3 again with
+   ``exchange_overlap_blocks=4``, whose page must equal the one-shot page
+   bit for bit; then the 22 TPC-H queries, each cold (build + run) and warm
+   (a second ``run()``), or refused where the reference refuses it. Rows
+   equal tpch_sf1_expected.json (doubles within a relative 1e-8); join
+   tiers and exchange hint keys (node ids as plan positions) equal the JAX
+   DistributedQuery's at SF1 on a 4-device CPU mesh
+   (trino_tpu_torch/testdata/spmd_sf1_expected.json, written by
+   tests/test_torch_spmd.py --write-expected), regrowths recorded beside
+   its; a query whose reference selects merge-pallas must launch the merge
+   kernel. Then Q1, Q3 and Q18 on a one-rank mesh over NCCL, and
+   ``torch.cuda.memory_allocated`` must be back at the phase's start once
+   the meshes are torn down. One line a query: build, cold and warm walls,
+   tiers, hints, regrowths, merge launches and the calls, bytes and
+   seconds of each collective (all_gather, all_to_all, the flags' any).
+
 With ``--profile`` it also runs each query once more (warm) in each of the
 five sessions (tpch, cache, analytics, scalar, nested) under
 torch.profiler and prints the device time by kernel, the device's busy
@@ -4069,6 +4090,214 @@ def phase_procplane(device, expected, procexp, card, schema="sf1"):
     return out
 
 
+SPMD_WIDTH = 4  # ranks of the thread mesh on the one card (gloo)
+SPMD_OVERLAP_BLOCKS = 4
+# the dry run's hashed plan: every exchange a hash all-to-all
+SPMD_HASHED = {"GATHER_AGG_MAX_ROWS_PER_DEVICE": 8, "BROADCAST_BUILD_MAX": 8}
+SPMD_WORLD1 = ("1", "3", "18")  # a one-rank mesh over NCCL
+
+
+def spmd_xchg(dq):
+    """A DistributedQuery's exchange hints with each node id as its position
+    in the plan walk, as the expected file keys them."""
+    from trino_tpu_torch.sql.planner import plan as P
+
+    pos = {n.id: i for i, n in enumerate(P.walk_plan(dq.root))}
+    return {f"{k.split(':')[0]}:@{pos[int(k.split(':')[1])]}": v
+            for k, v in dq.capacity_hints.items() if k.startswith("xchg")}
+
+
+def spmd_collectives(before, after):
+    """Calls, bytes and seconds of the mesh's collectives between two
+    snapshots, by op."""
+    return {f: {op: after[f][op] - before[f][op] for op in after[f]}
+            for f in ("calls", "bytes", "seconds")}
+
+
+def spmd_query(session, device, mesh, what, sql, want_rows, want):
+    """One query through a DistributedQuery: cold (build + run) and warm
+    (a second ``run()``); rows against the expected rows, join tiers and
+    exchange hint keys against the JAX package's at SF1 (``want``; None
+    where the writer could only record the query at tiny: then they are
+    recorded, not compared). Returns (the DistributedQuery, its warm page,
+    the record)."""
+    from trino_tpu_torch.exec.query import plan_sql
+    from trino_tpu_torch.obs import metrics as M
+    from trino_tpu_torch.ops import merge
+    from trino_tpu_torch.parallel.spmd import DistributedQuery
+
+    rec = {"query": what}
+    tiers0 = tier_counts(M.FUSED_JOIN_SELECTIONS, TIERS)
+    dq = page = None
+    for label in ("cold", "warm"):
+        stats0 = mesh.stats.snapshot()
+        merge.launches = 0
+        sync(device)
+        t0 = time.perf_counter()
+        if dq is None:
+            dq = DistributedQuery.build(session, plan_sql(session, sql), mesh)
+            rec["build_s"] = time.perf_counter() - t0
+        page = dq.run()
+        rows = jsonable_rows(page.to_pylist())
+        sync(device)
+        rec[f"{label}_wall_s"] = time.perf_counter() - t0
+        rec[f"{label}_merge_launches"] = merge.launches
+        rec[f"{label}_collectives"] = spmd_collectives(stats0, mesh.stats.snapshot())
+        check_rows(f"{what} (spmd, {label})", rows, want_rows, rel_tol=DIST_REL_TOL)
+        if label == "cold":
+            tiers = {t: v - tiers0[t] for t, v in tier_counts(
+                M.FUSED_JOIN_SELECTIONS, TIERS).items() if v != tiers0[t]}
+            rec["tiers"] = tiers
+            if want is None:
+                continue
+            if tiers != want["tiers"]:
+                raise AssertionError(f"{what} (spmd) join tiers {tiers} != the reference's "
+                                     f"{want['tiers']}")
+            if want["tiers"].get("merge-pallas", 0) >= 1 and merge.launches < 1:
+                raise AssertionError(f"{what} (spmd) selected merge-pallas but launched the "
+                                     f"merge kernel no time")
+    xchg = spmd_xchg(dq)
+    rec.update({"xchg": xchg, "recompiles": dq.recompiles, "rows": len(want_rows)})
+    if want is None:
+        rec["reference"] = "recorded at tiny only"
+        return dq, page, rec
+    if sorted(xchg) != sorted(want["xchg"]):
+        raise AssertionError(f"{what} (spmd) exchange hints {sorted(xchg)} != the "
+                             f"reference's {sorted(want['xchg'])}")
+    rec.update({"reference_xchg": want["xchg"], "reference_recompiles": want["recompiles"]})
+    return dq, page, rec
+
+
+def spmd_pages_equal(a, b) -> bool:
+    """Bit for bit: every flat array and the static layout."""
+    import torch
+
+    from trino_tpu_torch.exec.page_tree import flatten_page
+
+    (xa, sa), (xb, sb) = flatten_page(a), flatten_page(b)
+    return sa == sb and len(xa) == len(xb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(xa, xb))
+
+
+def phase_spmd(device, expected, spmdexp, card, schema="sf1", queries=range(1, 23)):
+    """The SPMD tier at SF1 on the card: a mesh of four ranks over gloo,
+    one thread a rank, all on this device. The dry run's plans (Q3 with the
+    default thresholds, Q3 with every exchange hashed, Q18), the hashed Q3
+    again with the probe exchange overlapped (bit-identical pages), the
+    queries the reference's DistributedQuery runs, cold and warm; then Q1,
+    Q3 and Q18 on a one-rank mesh over NCCL; last, the card's allocated
+    bytes back at the phase's start once the meshes are torn down."""
+    import gc
+
+    import torch
+
+    from trino_tpu_torch import Session
+    from trino_tpu_torch.obs import metrics as M
+    from trino_tpu_torch.parallel.mesh import Mesh
+    from trino_tpu_torch.sql.planner import stats
+
+    t_phase = time.perf_counter()
+    props = {"catalog": "tpch", "schema": schema, "fused_join_pallas": True}
+    session = Session(dict(props), device=device)
+    allocated0 = settled_allocated(device) if device.type == "cuda" else 0
+    out = {"card": card, "width": SPMD_WIDTH, "queries": {}, "launches": 0,
+           "refused": {}, "reference_refused": spmdexp["refused"]}
+    mesh = Mesh.threads(SPMD_WIDTH, device)
+    mesh1 = None
+    try:
+        out["backend"] = mesh.backend
+        dry = {}
+        _dq, _page, dry["q3"] = spmd_query(session, device, mesh, "Q3", expected["3"]["sql"],
+                                          expected["3"]["rows"], spmdexp["dryrun"].get("q3"))
+        del _dq, _page
+        saved = {k: getattr(stats, k) for k in SPMD_HASHED}
+        try:
+            for k, v in SPMD_HASHED.items():
+                setattr(stats, k, v)
+            _dq, one_shot, dry["q3_hashed"] = spmd_query(
+                session, device, mesh, "Q3 hashed", expected["3"]["sql"],
+                expected["3"]["rows"], spmdexp["dryrun"].get("q3_hashed"))
+            del _dq
+            if not dry["q3_hashed"]["xchg"]:
+                raise AssertionError("the hashed Q3 made no exchange hint")
+            overlapped_session = Session(dict(props, exchange_overlap_blocks=SPMD_OVERLAP_BLOCKS),
+                                         device=device)
+            n0 = M.EXCHANGE_OVERLAPPED.value(str(SPMD_OVERLAP_BLOCKS))
+            _dq, overlapped, dry["q3_overlapped"] = spmd_query(
+                overlapped_session, device, mesh, "Q3 hashed, overlapped",
+                expected["3"]["sql"], expected["3"]["rows"], spmdexp["dryrun"].get("q3_hashed"))
+            del _dq
+            dry["q3_overlapped"]["overlapped_exchanges"] = \
+                M.EXCHANGE_OVERLAPPED.value(str(SPMD_OVERLAP_BLOCKS)) - n0
+            if dry["q3_overlapped"]["overlapped_exchanges"] < 1:
+                raise AssertionError("the overlapped Q3 made no overlapped exchange")
+            if not spmd_pages_equal(one_shot, overlapped):
+                raise AssertionError("the overlapped Q3's page differs from the one-shot's")
+            dry["q3_overlapped"]["bit_identical"] = True
+            del one_shot, overlapped
+        finally:
+            for k, v in saved.items():
+                setattr(stats, k, v)
+        _dq, _page, dry["q18"] = spmd_query(session, device, mesh, "Q18",
+                                           expected["18"]["sql"], expected["18"]["rows"],
+                                           spmdexp["dryrun"].get("q18"))
+        del _dq, _page
+        for name, rec in dry.items():
+            print("spmd", json.dumps({"dryrun": name, **rec, "card": card}), flush=True)
+        out["dryrun"] = dry
+        for q in queries:
+            key = str(q)
+            if key in spmdexp["refused"]:
+                try:
+                    spmd_query(session, device, mesh, f"Q{q}", expected[key]["sql"],
+                               expected[key]["rows"], {"tiers": {}, "xchg": {},
+                                                       "recompiles": 0})
+                except Exception as e:  # noqa: BLE001 — refused alike
+                    out["refused"][key] = f"{type(e).__name__}: {e}"
+                    continue
+                raise AssertionError(f"Q{q} ran on the mesh; the reference refuses it: "
+                                     f"{spmdexp['refused'][key]}")
+            _dq, _page, rec = spmd_query(session, device, mesh, f"Q{q}", expected[key]["sql"],
+                                         expected[key]["rows"], spmdexp["queries"].get(key))
+            del _dq, _page
+            rec["card"] = card
+            out["queries"][key] = rec
+            out["launches"] += rec["cold_merge_launches"] + rec["warm_merge_launches"]
+            print("spmd", json.dumps(rec), flush=True)
+        out["collectives"] = mesh.stats.snapshot()
+        mesh1 = Mesh.threads(1, device)
+        out["world1"] = {"backend": mesh1.backend}
+        for key in SPMD_WORLD1:
+            _dq, _page, rec = spmd_query(session, device, mesh1, f"Q{key} (1 rank)",
+                                         expected[key]["sql"], expected[key]["rows"],
+                                         spmdexp["world1"].get(key))
+            del _dq, _page
+            out["world1"][key] = rec
+            print("spmd", json.dumps({"world1": key, **rec, "backend": mesh1.backend,
+                                      "card": card}), flush=True)
+        out["world1_collectives"] = mesh1.stats.snapshot()
+    finally:
+        mesh.close()
+        if mesh1 is not None:
+            mesh1.close()
+    del session
+    gc.collect()
+    if device.type == "cuda":
+        out["allocated_start"] = allocated0
+        out["allocated_after_teardown"] = settled_allocated(device)
+        if out["allocated_after_teardown"] != allocated0:
+            raise AssertionError(f"spmd: torch.cuda.memory_allocated {out['allocated_after_teardown']}"
+                                 f" after the meshes' teardown, {allocated0} at the start")
+    cold = [r["cold_wall_s"] for r in out["queries"].values()]
+    warm = [r["warm_wall_s"] for r in out["queries"].values()]
+    out["cold_total_s"], out["warm_total_s"] = sum(cold), sum(warm)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("spmd_total", json.dumps({k: v for k, v in out.items()
+                                    if k not in ("queries", "dryrun", "world1")}), flush=True)
+    return out
+
+
 def pid_alive(pid):
     """Whether ``pid`` names a live process (a zombie counts as ended)."""
     try:
@@ -4636,6 +4865,7 @@ def main() -> int:
                         {q: dist_runs[q][1]["wall_s"] for q in FTE_QUERIES})
         procplane = phase_procplane(device, expected, testdata("procplane_sf1_expected.json"),
                                     card)
+        spmd = phase_spmd(device, expected, testdata("spmd_sf1_expected.json"), card)
     eager_merge = sorted(int(q) for q, e in expected.items()
                          if e["tiers"].get("merge-pallas", 0) >= 1)
     compiled_merge = sorted(f"Q{q}" for q, e in compiled["queries"].items()
@@ -4696,10 +4926,11 @@ def main() -> int:
         "serving": serving["cache_shares"]["launches"],
         "observe": observe["launches"],
         "fte": fte["launches"],
-        "procplane": procplane["launches"]}
+        "procplane": procplane["launches"],
+        "spmd": spmd["launches"]}
     for path, n in launches_by_path.items():
         if n < 1 and path not in ("analytics", "scalar", "nested", "distributed", "matview",
-                                  "procplane"):
+                                  "procplane", "spmd"):
             raise AssertionError(f"the 22 queries of path {path} launched the merge kernel "
                                  f"no time")
     # as since the first slice: the launches of the uncached session's cold

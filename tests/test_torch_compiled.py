@@ -37,7 +37,7 @@ from trino_tpu.exec.query import plan_sql as jax_plan_sql  # noqa: E402
 from trino_tpu.ops import join as j_join  # noqa: E402
 from trino_tpu.sql.planner import plan as JP  # noqa: E402
 from tpch_sql import QUERIES  # noqa: E402
-from test_torch_compiled_tpch import build_profile, positions  # noqa: E402
+from test_torch_compiled_tpch import build_profile, norm_hints, positions  # noqa: E402
 
 from trino_tpu_torch import Session as TorchSession  # noqa: E402
 from trino_tpu_torch import types as TT  # noqa: E402
@@ -252,7 +252,9 @@ def test_build_decisions_equal_reference(q, reseed):
 
 
 def test_staged_pages_from_arrays_equals_reference():
-    """Sharded staging arrays (a leading device axis) back to pages."""
+    """Sharded staging arrays back to pages: the reference's arrays carry a
+    leading device axis, the port's are a list a rank (its shards may sit
+    on different devices)."""
     from trino_tpu.adaptive.reseed import staged_pages_from_arrays as j_from_arrays
     from trino_tpu_torch.adaptive.reseed import staged_pages_from_arrays
 
@@ -261,18 +263,41 @@ def test_staged_pages_from_arrays_equals_reference():
     tp = page_from_numpy(jp.columns, jp.sel, device="cpu")
     t_arrays, t_spec = t_tree.flatten_page(tp)
     sharded_j = [np.asarray(a).reshape((2, -1) + np.asarray(a).shape[1:]) for a in j_arrays]
-    sharded_t = [a.reshape((2, -1) + tuple(a.shape[1:])) for a in t_arrays]
+    sharded_t = [[a.reshape((2, -1) + tuple(a.shape[1:]))[r] for a in t_arrays]
+                 for r in range(2)]
     got = staged_pages_from_arrays({7: sharded_t}, {7: t_spec})[7]
     want = j_from_arrays({7: sharded_j}, {7: j_spec})[7]
     assert got.to_pylist() == want.to_pylist() == tp.to_pylist()
 
 
-def test_reseed_refuses_several_devices():
-    from trino_tpu_torch.adaptive.reseed import reseed_capacity_hints
+def test_reseed_refuses_several_devices(monkeypatch):
+    """Reseeding for several devices, once refused, prices the exchange
+    half as the reference does: over Q3's staged shards at 4 devices with
+    every exchange hashed, the same expansion and send-block hints (node
+    ids as plan positions)."""
+    from trino_tpu.adaptive import reseed as j_reseed
+    from trino_tpu.parallel import spmd as j_spmd
+    from trino_tpu.sql.planner import stats as j_stats
+    from trino_tpu_torch.adaptive import reseed as t_reseed
+    from trino_tpu_torch.parallel import spmd as t_spmd
+    from trino_tpu_torch.parallel.mesh import Mesh
 
-    ts = TorchSession(properties=TPCH, device="cpu")
-    with pytest.raises(NotImplementedError, match="exchange half"):
-        reseed_capacity_hints(ts, plan_sql(ts, QUERIES[3]), {}, n_devices=4)
+    for mod in (j_stats, t_stats):
+        monkeypatch.setattr(mod, "GATHER_AGG_MAX_ROWS_PER_DEVICE", 8)
+        monkeypatch.setattr(mod, "BROADCAST_BUILD_MAX", 8)
+    js, ts = sessions(TPCH)
+    jroot, troot = jax_plan_sql(js, QUERIES[3]), plan_sql(ts, QUERIES[3])
+    j_arrays, j_specs = j_spmd.stage_sharded_scans(js, jroot, 4)
+    mesh = Mesh.threads(4, "cpu")
+    t_arrays, t_specs = t_spmd.stage_sharded_scans(ts, troot, mesh)
+    mesh.close()
+    want = j_reseed.reseed_capacity_hints(
+        js, jroot, j_reseed.staged_pages_from_arrays(j_arrays, j_specs), 4)
+    got = t_reseed.reseed_capacity_hints(
+        ts, troot, t_reseed.staged_pages_from_arrays(t_arrays, t_specs), 4)
+    assert any(k.startswith("xchgl:") for k in got)
+    assert norm_hints(got, positions(troot, TP.walk_plan)) == \
+        norm_hints(want, positions(jroot, JP.walk_plan))
 
 
 # -------------------------------------------------- recompile and errors

@@ -1,9 +1,6 @@
 """Capacity-hint reseeding from staged truth (the compiled-tier half of
 adaptive rule 2): the port of trino_tpu/adaptive/reseed.py, numpy over the
-staged pages' key columns read once to the host, for one device. The
-exchange half (``n_devices > 1``: partitioned joins, hash-exchange block
-sizes) waits for the port's distributed tier and raises
-``NotImplementedError``.
+staged pages' key columns read once to the host.
 
 The static hints of ``sql/planner/stats.py`` guess expansion-join outputs
 and hash-exchange block sizes from connector stats with fudge factors
@@ -17,9 +14,15 @@ them —
   ``np.unique`` + ``searchsorted`` give the exact match count (hash
   collisions and pre-filter rows only ever INFLATE it, so the capacity is
   a true upper bound — never a recompile);
+- hash exchanges: the per-(source shard, destination partition) send-block
+  histogram uses the same splitmix64 combine as the mesh exchange
+  (``parallel/exchange.partition_ids`` / ``exec/memory.partition_page_host``),
+  so skewed keys price their actual hot-partition block instead of the
+  2x-uniform guess;
 - the merge kernel's ``jtile:`` window hint from the same histograms.
 
-Consumed by ``CompiledQuery.build`` (exec/compiled.py) when the
+Consumed by ``CompiledQuery.build`` (exec/compiled.py) and
+``DistributedQuery.build`` (parallel/spmd.py) when the
 ``adaptive_capacity_reseed`` session property is set: reseeded keys REPLACE
 the static guesses (reference: AdaptivePlanner swapping estimated stats for
 runtime stats).
@@ -40,6 +43,7 @@ from trino_tpu_torch.sql.planner.stats import _pow2
 # with the static hints in sql/planner/stats.py, so static and reseeded
 # capacities always round identically) is the only headroom they need
 _MIN_CAP = 1024
+_MIN_XCHG_CAP = 256
 
 
 @dataclasses.dataclass
@@ -48,9 +52,10 @@ class _SideKeys:
 
     hash: np.ndarray  # uint64[n], NULLs mapped to the shared null hash
     live: np.ndarray  # bool[n], staged sel AND key non-null (match math)
-    sel: np.ndarray  # bool[n], staged sel only (emit math: null-key rows
-    # still emit outer-join slots)
-    n_rows: int  # staged rows INCLUDING dead/pad slots
+    sel: np.ndarray  # bool[n], staged sel only (exchange/emit math —
+    # null-key rows still ship to the null partition and still emit
+    # outer-join slots)
+    n_rows: int  # staged rows INCLUDING dead/pad slots (shard math)
 
 
 def _trace_channel(node: P.PlanNode, ch: int) -> Optional[Tuple[int, int]]:
@@ -147,13 +152,53 @@ def _match_counts(probe: _SideKeys, build: _SideKeys) -> np.ndarray:
     return np.where(hit, counts[idx], 0).astype(np.int64)
 
 
-def _expansion_capacity(node: P.JoinNode, probe: _SideKeys, build: _SideKeys) -> int:
+def _group_max(values: np.ndarray, groups: np.ndarray, n_groups: int) -> int:
+    """max over groups of the per-group sum of ``values``."""
+    sums = np.bincount(groups, weights=values.astype(np.float64),
+                       minlength=n_groups)
+    return int(sums.max()) if len(sums) else 0
+
+
+def _shard_ids(k: _SideKeys, n_devices: int) -> np.ndarray:
+    """Device shard per staged row: scans stage contiguous equal-length
+    shards (stage_sharded_scans pads every shard to the same length)."""
+    per_shard = max(k.n_rows // max(n_devices, 1), 1)
+    return np.minimum(np.arange(k.n_rows) // per_shard, n_devices - 1)
+
+
+def _expansion_capacity(node: P.JoinNode, probe: _SideKeys,
+                        build: _SideKeys, n_devices: int,
+                        partitioned: bool) -> int:
     counts = _match_counts(probe, build)
     if node.join_type == "left":
         # outer probes emit >= one slot each (unmatched and null-key
         # rows included)
         counts = np.where(probe.sel, np.maximum(counts, 1), counts)
-    return _pow2(max(int(counts.sum()), _MIN_CAP))
+    if n_devices <= 1:
+        total = int(counts.sum())
+        return _pow2(max(total, _MIN_CAP))
+    if partitioned:
+        # after the co-partitioning exchange, device p joins partition p:
+        # its expansion output is exactly partition p's match count
+        pid = (probe.hash % np.uint64(n_devices)).astype(np.int64)
+        worst = _group_max(counts, pid, n_devices)
+    else:
+        # broadcast build: device s probes its own shard against the
+        # whole build
+        worst = _group_max(counts, _shard_ids(probe, n_devices), n_devices)
+    return _pow2(max(worst, _MIN_CAP))
+
+
+def _exchange_block_capacity(k: _SideKeys, n_devices: int) -> int:
+    """Exact send-block size for a hash exchange of these rows: the max
+    over (source shard, destination partition) of rows sent — the skewed
+    hot partition prices its real block instead of the 2x-uniform guess."""
+    pid = (k.hash % np.uint64(n_devices)).astype(np.int64)
+    shard = _shard_ids(k, n_devices)
+    flat = shard * n_devices + pid
+    counts = np.bincount(flat[k.sel], minlength=n_devices * n_devices)
+    worst = int(counts.max()) if len(counts) else 0
+    return _pow2(max(worst, _MIN_XCHG_CAP))
 
 
 _JTILE_MIN = 512
@@ -184,13 +229,12 @@ def reseed_capacity_hints(session, root: P.PlanNode,
                           staged: Dict[int, object],
                           n_devices: int = 1) -> Dict[str, int]:
     """Capacity hints priced from the staged scan pages (actual rows/keys)
-    for every expansion join whose keys trace to staged columns, plus
-    ``jtile:*`` merge-window hints for the fused join tier's merge kernel.
-    Returns only the keys it could compute — callers ``update()`` them
-    over the static guesses."""
-    if n_devices > 1:
-        raise NotImplementedError(
-            "capacity reseeding across devices (the exchange half) is not ported")
+    for every expansion join and hash exchange whose keys trace to staged
+    columns, plus ``jtile:*`` merge-window hints for the fused join tier's
+    merge kernel. Returns only the keys it could compute — callers
+    ``update()`` them over the static guesses."""
+    from trino_tpu_torch.sql.planner import stats
+
     # jtile hints are consumed ONLY by the opt-in Pallas merge kernel —
     # don't pay the per-join host histogram passes when nothing reads them
     props = getattr(session, "properties", None) or {}
@@ -199,7 +243,7 @@ def reseed_capacity_hints(session, root: P.PlanNode,
     for n in P.walk_plan(root):
         if isinstance(n, P.JoinNode):
             # one histogram pass per side, computed lazily and shared by
-            # both hint families (capacity, merge tile)
+            # every hint family (capacity, exchange block, merge tile)
             sides: List = []
 
             def side_keys(n=n, sides=sides):
@@ -208,6 +252,9 @@ def reseed_capacity_hints(session, root: P.PlanNode,
                                   _side_keys(staged, n.right, n.right_keys)))
                 return sides[0]
 
+            partitioned = bool(
+                n_devices > 1 and n.left_keys
+                and stats.join_repartitions(session, n, n_devices))
             if price_jtile and n.left_keys:
                 probe, build = side_keys()
                 if probe is not None and build is not None:
@@ -216,26 +263,50 @@ def reseed_capacity_hints(session, root: P.PlanNode,
                 if n.left_keys:
                     probe, build = side_keys()
                     if probe is not None and build is not None:
-                        hints[f"join:{n.id}"] = _expansion_capacity(n, probe, build)
+                        hints[f"join:{n.id}"] = _expansion_capacity(
+                            n, probe, build, n_devices, partitioned)
                 elif not n.singleton:
                     lrows = _trace_rows(n.left, staged)
                     rrows = _trace_rows(n.right, staged)
                     if lrows is not None and rrows is not None:
-                        hints[f"join:{n.id}"] = _pow2(max(lrows * rrows, _MIN_CAP))
+                        per = (-(-lrows // n_devices)
+                               if n_devices > 1 else lrows)
+                        hints[f"join:{n.id}"] = _pow2(
+                            max(per * rrows, _MIN_CAP))
+            if partitioned:
+                probe, build = side_keys()
+                if probe is not None:
+                    hints[f"xchgl:{n.id}"] = _exchange_block_capacity(
+                        probe, n_devices)
+                if build is not None:
+                    hints[f"xchgr:{n.id}"] = _exchange_block_capacity(
+                        build, n_devices)
+        elif isinstance(n, P.AggregationNode) and n.step == "single" \
+                and n_devices > 1 and n.group_channels:
+            if stats.agg_repartitions(session, n, n_devices):
+                k = _side_keys(staged, n.source, n.group_channels)
+                if k is not None:
+                    hints[f"xchg:{n.id}"] = _exchange_block_capacity(
+                        k, n_devices)
     return hints
 
 
 def staged_pages_from_arrays(staged_arrays: Dict[int, List],
                              specs: Dict[int, object]) -> Dict[int, object]:
-    """Reconstruct host Pages from the SPMD tier's sharded staging arrays
-    (leading device axis flattened back to rows; pad slots stay dead via
-    the sel column) — the reseed view of sharded staging output. Tensors
-    stay on their device."""
+    """Pages of every scan's rows from the SPMD tier's sharded staging
+    (``stage_sharded_scans``: a list of arrays a rank), the shards end to
+    end in rank order (pad slots stay dead through the sel column) — the
+    reseed view of the sharded staging. Shards on different devices meet
+    on the host."""
+    import torch
+
     from trino_tpu_torch.exec.page_tree import unflatten_page
 
     pages = {}
-    for nid, arrs in staged_arrays.items():
-        flat = [a.reshape((-1,) + tuple(a.shape[2:])) for a in arrs]
+    for nid, shards in staged_arrays.items():
+        same = len({str(a.device) for arrs in shards for a in arrs}) <= 1
+        flat = [torch.cat([arrs[i] if same else arrs[i].cpu() for arrs in shards])
+                for i in range(len(shards[0]))]
         pages[nid] = unflatten_page(specs[nid], flat)
     return pages
 
@@ -247,7 +318,7 @@ def reseed_enabled(session) -> bool:
 
 def apply_reseed(session, root, staged: Dict[int, object], n_devices: int,
                  capacity_hints: Dict[str, int]) -> Dict[str, int]:
-    """The reseed integration CompiledQuery.build calls: compute the
+    """The one reseed integration both compiled tiers call: compute the
     staged-truth hints, REPLACE the static guesses in ``capacity_hints``
     in place, and record the adaptation (a ``plan/adapt`` span + the
     adaptive metric) ONLY when something was actually reseeded — an empty

@@ -501,11 +501,15 @@ def _from_repr(typ: T.Type, r):
 @dataclasses.dataclass
 class Page:
     """A batch of rows: one Column per channel + optional selection mask
-    (bool[n], True = live; None = all live). ``live_prefix``: the live rows
-    are exactly rows [0, k) — the shape ``compact_to`` produces."""
+    (bool[n], True = live; None = all live). ``replicated``: under the SPMD
+    tier (parallel/spmd.py), every rank holds the same rows (after a gather
+    or a broadcast); False, a rank's own shard. Host bookkeeping only; off
+    the mesh it is False everywhere. ``live_prefix``: the live rows are
+    exactly rows [0, k) — the shape ``compact_to`` produces."""
 
     columns: List[Column]
     sel: Optional[torch.Tensor] = None
+    replicated: bool = False
     live_prefix: bool = False
 
     @property
@@ -536,14 +540,14 @@ class Page:
             (a.num_rows,), dtype=torch.bool, device=cols[0].values.device)
         sb = b.sel if b.sel is not None else torch.ones(
             (b.num_rows,), dtype=torch.bool, device=cols[0].values.device)
-        return Page(cols, torch.cat([sa, sb]))
+        return Page(cols, torch.cat([sa, sb]), a.replicated and b.replicated)
 
     def compact(self) -> "Page":
         """Drop dead rows (a gather through the host)."""
         if self.sel is None:
             return self
         idx = np.nonzero(to_numpy(self.sel))[0]
-        return Page([host_take(c, idx) for c in self.columns], None)
+        return Page([host_take(c, idx) for c in self.columns], None, self.replicated)
 
     def slice_rows(self, lo: int, hi: int) -> "Page":
         """Row range [lo, hi) of a compacted page (sel must be None)."""
@@ -557,7 +561,7 @@ class Page:
                         hi=c.hi[lo:hi] if c.hi is not None else None)
             for c in self.columns
         ]
-        return Page(cols, None)
+        return Page(cols, None, self.replicated)
 
     def row_byte_estimate(self) -> int:
         """Rough serialized bytes a row (dtype widths; a nested column's

@@ -482,11 +482,12 @@ class Executor:
         cols = [column_to_device(column_data_from_python(t, [r[i] for r in node.rows]),
                                  self.device)
                 for i, t in enumerate(node.types)]
+        # the same rows on every rank under SPMD: replicated
         if not cols:
             # zero-column rows (SELECT without FROM)
             return Page([Column(T.BIGINT, torch.zeros((len(node.rows),), dtype=torch.int64,
-                                                      device=self.device))])
-        return Page(cols)
+                                                      device=self.device))], replicated=True)
+        return Page(cols, replicated=True)
 
     # -------------------------------------------------------------- set ops
     def _exec_UnionNode(self, node: P.UnionNode) -> Page:
@@ -509,6 +510,12 @@ class Executor:
         the set-operation semantics), groups kept by per-side counts."""
         both = Page.concat_pages(left, right)
         side_right = torch.arange(both.num_rows, device=self.device) >= left.num_rows
+        return self._set_op_grouped(node, both, side_right)
+
+    def _set_op_grouped(self, node: P.SetOpNode, both: Page, side_right) -> Page:
+        """The grouping half of a set operation over a combined page with
+        an explicit side tag a row: the SPMD tier calls it after a
+        whole-row hash exchange, where the tag cannot be positional."""
         channels = list(range(len(both.columns)))
         layout, out_sel, (side_right_l,), sel_l = self.group_structure(
             channels, both, [side_right])
@@ -518,7 +525,8 @@ class Executor:
             keep = (l_cnt > 0) & (r_cnt > 0)
         else:  # except
             keep = (l_cnt > 0) & (r_cnt == 0)
-        return Page(self._gathered_key_cols(both, channels, layout), out_sel & keep)
+        return Page(self._gathered_key_cols(both, channels, layout), out_sel & keep,
+                    both.replicated)
 
     # --------------------------------------------------------------- filter
     def _exec_FilterNode(self, node: P.FilterNode) -> Page:
@@ -526,7 +534,7 @@ class Executor:
         lv = self._lower(node.predicate, page)
         passed = lv.vals if lv.valid is None else (lv.vals & lv.valid)
         sel = passed if page.sel is None else (page.sel & passed)
-        return Page(page.columns, sel)
+        return Page(page.columns, sel, page.replicated)
 
     def _exec_CompactNode(self, node: P.CompactNode) -> Page:
         """Squeeze live rows into a smaller static-capacity page (skipped
@@ -577,7 +585,7 @@ class Executor:
                 hi=c.hi[idx] if c.hi is not None else None))
         sel = torch.arange(capacity, dtype=torch.int32, device=self.device) < \
             torch.clamp(total, max=capacity)
-        return Page(cols, sel, live_prefix=True)
+        return Page(cols, sel, page.replicated, live_prefix=True)
 
     def _exec_ProjectNode(self, node: P.ProjectNode) -> Page:
         page = self.execute(node.source)
@@ -588,7 +596,7 @@ class Executor:
                 cols.append(page.columns[e.index])
                 continue
             cols.append(_col_from_lowered(e.type, self._lower(e, page)))
-        return Page(cols, page.sel, live_prefix=page.live_prefix)
+        return Page(cols, page.sel, page.replicated, live_prefix=page.live_prefix)
 
     # --------------------------------------------------------------- unnest
     def _exec_UnnestNode(self, node: P.UnnestNode) -> Page:
@@ -682,7 +690,7 @@ class Executor:
             states = self._partial_states(call, page, layout, arg1, sel_l, hi_l=hi_l)
             for (sv, valid), st in zip(states, P._acc_types(call, src_types)):
                 out_cols.append(Column(st, sv, None if valid is None else ~valid, None))
-        return Page(out_cols, part_sel)
+        return Page(out_cols, part_sel, page.replicated)
 
     def _state_payloads(self, page: Page, k: int, what: str):
         """The state columns after the ``k`` group keys as sort payloads
@@ -719,7 +727,7 @@ class Executor:
             states = [self._slot_arg(payloads_l, state_slots[ci + j]) for j in range(n_states)]
             ci += n_states
             out_cols.append(self._combine_state(call, states, sel_l, layout))
-        return Page(out_cols, out_sel)
+        return Page(out_cols, out_sel, page.replicated)
 
     # aggregates whose partial states merge into states of the same dtypes
     # by plain sum/min/max reductions: what the streaming consumer's
@@ -768,7 +776,7 @@ class Executor:
                 merged = [agg_ops.agg_max(layout, states[0], sel_l)]
             for (sv, valid), st in zip(merged, types):
                 out_cols.append(Column(st, sv, None if valid is None else ~valid, None))
-        return Page(out_cols, out_sel)
+        return Page(out_cols, out_sel, page.replicated)
 
     def _partial_states(self, call: P.AggregateCall, page, layout, arg_l, sel_l, hi_l=None):
         """State arrays of one aggregate, [(values, valid)], as
@@ -1037,7 +1045,7 @@ class Executor:
             out_cols.append(Column(call.output_type, vals,
                                    (~valid) if valid is not None else None,
                                    dictionary, hi=hi_out))
-        return Page(out_cols, out_sel)
+        return Page(out_cols, out_sel, page.replicated)
 
     _in_spill_pass = False  # reentrancy guard for the aggregation passes
 
@@ -1323,7 +1331,7 @@ class Executor:
                 dictionary = page.columns[call.arg_channel].dictionary
             out_cols.append(Column(call.output_type, v,
                                    None if valid is None else ~valid, dictionary))
-        return Page(out_cols, page.sel)
+        return Page(out_cols, page.sel, page.replicated)
 
     # -------------------------------------------------------------- joins
     def _exec_JoinNode(self, node: P.JoinNode) -> Page:
@@ -1498,14 +1506,16 @@ class Executor:
                 and max(int(bc.vrange[1]), int(pc.vrange[1])) < 2**31 - 1)
 
     def _merge_sorted_tier(self, node: P.JoinNode, left: Page, right: Page,
-                           build, build_keys, probe_keys):
+                           build, build_keys, probe_keys, record: bool = True):
         """(rows, matched) by merging probes against an already-sorted
         build: the merge kernel (ops/merge.py) when the session enables it
         (``fused_join_pallas``) and its contract holds, the rank merge
-        otherwise."""
+        otherwise. ``record=False`` skips the tier count (the overlapped
+        exchange merges once a send block, but selects once a join)."""
         use_kernel = (bool(self.props.get("fused_join_pallas"))
                       and self._merge_sentinel_safe(node, left, right, build_keys))
-        self._count_tier("merge-pallas" if use_kernel else "merge-sorted")
+        if record:
+            self._count_tier("merge-pallas" if use_kernel else "merge-sorted")
         return fused_ops.merge_sorted_build(build, probe_keys, use_pallas=use_kernel)
 
     def _cached_sorted_build(self, node: P.JoinNode, right: Page, build_keys):
@@ -1578,7 +1588,7 @@ class Executor:
             sel = matched if left.sel is None else (left.sel & matched)
         else:  # left outer: probe rows survive; build cols null when unmatched
             sel = left.sel
-        page = Page(out_cols, sel)
+        page = Page(out_cols, sel, left.replicated)
         if node.filter is not None:
             lv = self._lower(node.filter, page)
             passed = lv.vals if lv.valid is None else (lv.vals & lv.valid)
@@ -1588,8 +1598,9 @@ class Executor:
                 for oc in out_cols[len(left.columns):]:
                     nulls = ~keep_match if oc.nulls is None else (oc.nulls | ~keep_match)
                     new_cols.append(Column(oc.type, oc.values, nulls, oc.dictionary))
-                return Page(new_cols, left.sel)
-            page = Page(out_cols, passed if page.sel is None else page.sel & passed)
+                return Page(new_cols, left.sel, left.replicated)
+            page = Page(out_cols, passed if page.sel is None else page.sel & passed,
+                        left.replicated)
         return page
 
     def semi_join(self, node: P.JoinNode, left: Page, right: Page) -> Page:
@@ -1623,7 +1634,7 @@ class Executor:
                                           presorted=presorted)
         keep = hit if node.join_type == "semi" else ~hit
         sel = keep if left.sel is None else left.sel & keep
-        return Page(left.columns, sel)
+        return Page(left.columns, sel, left.replicated)
 
     def _expansion_keys(self, node: P.JoinNode, left: Page, right: Page):
         if node.left_keys:
@@ -1671,12 +1682,13 @@ class Executor:
         outer = node.join_type == "left"
         p, live, matched, out_cols = self._expand_matches(
             node, left, right, plain_outer=outer and node.filter is None)
+        replicated = left.replicated and right.replicated
         if node.filter is None:
-            return Page(out_cols, live)
+            return Page(out_cols, live, replicated)
         lv = self._lower(node.filter, Page(out_cols, live))
         passed = lv.vals if lv.valid is None else (lv.vals & lv.valid)
         if not outer:
-            return Page(out_cols, live & passed)
+            return Page(out_cols, live & passed, replicated)
         # left join with a filter: the expanded rows that pass, plus one
         # null-build row for each probe row with no passing match
         passing = live & matched & passed
@@ -1689,8 +1701,8 @@ class Executor:
                                                          device=self.device),
                                     torch.ones((n,), dtype=torch.bool, device=self.device),
                                     rc.dictionary))
-        return Page.concat_pages(Page(out_cols, passing),
-                                 Page(tail_cols, probe_live & ~any_pass))
+        return Page.concat_pages(Page(out_cols, passing, replicated),
+                                 Page(tail_cols, probe_live & ~any_pass, replicated))
 
     def semi_join_filtered(self, node: P.JoinNode, left: Page, right: Page) -> Page:
         """Semi/anti join with a residual filter (a correlated EXISTS with
@@ -1703,7 +1715,7 @@ class Executor:
                                         left.num_rows) > 0
         keep = hit if node.join_type == "semi" else ~hit
         sel = keep if left.sel is None else left.sel & keep
-        return Page(left.columns, sel)
+        return Page(left.columns, sel, left.replicated)
 
     def singleton_cross(self, node: P.JoinNode, left: Page, right: Page) -> Page:
         """Cross join against a single-row relation (a scalar subquery);
@@ -1724,11 +1736,12 @@ class Executor:
             nulls = rc.nulls[idx].expand(n) if rc.nulls is not None else None
             out_cols.append(Column(rc.type, rc.values[idx].expand(n), nulls, rc.dictionary,
                                    rc.vrange))
-        page = Page(out_cols, left.sel)
+        page = Page(out_cols, left.sel, left.replicated)
         if node.filter is not None:
             lv = self._lower(node.filter, page)
             passed = lv.vals if lv.valid is None else lv.vals & lv.valid
-            page = Page(out_cols, passed if page.sel is None else page.sel & passed)
+            page = Page(out_cols, passed if page.sel is None else page.sel & passed,
+                        left.replicated)
         return page
 
     # ----------------------------------------------------- pattern matching
@@ -1798,7 +1811,7 @@ class Executor:
         if limit is not None:
             live = torch.clamp(live, max=limit)
         sel = torch.arange(n, device=self.device) < live
-        return Page(_cols_from_flat(page.columns, sorted_arrays), sel)
+        return Page(_cols_from_flat(page.columns, sorted_arrays), sel, page.replicated)
 
     @staticmethod
     def _sorted_page_host(page: Page, sort_channels, limit=None) -> Page:
@@ -1826,7 +1839,7 @@ class Executor:
         order = np.lexsort(lex_keys) if lex_keys else np.arange(compacted.num_rows)
         if limit is not None:
             order = order[:limit]
-        return Page([host_take(c, order) for c in compacted.columns], None)
+        return Page([host_take(c, order) for c in compacted.columns], None, page.replicated)
 
     def _exec_TopNNode(self, node: P.TopNNode) -> Page:
         return self.sorted_page(self.execute(node.source), node.sort_channels,
