@@ -365,8 +365,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``GATHER_AGG_MAX_ROWS_PER_DEVICE`` and ``BROADCAST_BUILD_MAX`` at 8 (at
    least one exchange hint; restored after), Q18; the hashed Q3 again with
    ``exchange_overlap_blocks=4``, whose page must equal the one-shot page
-   bit for bit; then the 22 TPC-H queries, each cold (build + run) and warm
-   (a second ``run()``), or refused where the reference refuses it. Rows
+   bit for bit; then the 22 TPC-H queries, each cold (build + run: each
+   rank's eager warm-up on its own stream, the check that every rank
+   recorded the same schedule of collectives, the capture of each rank's
+   body as CUDA graph segments cut at its collectives, the first replay)
+   and warm (a second ``run()``: the replay), or refused where the
+   reference refuses it. The warm run must build no SpmdExecutor, the
+   cold and warm pages must equal the eager warm-up's bit for bit, and the
+   compile ledger must record a miss for each compiling run of the cold
+   run (one more a regrowth) and one hit for the warm run. Rows
    equal tpch_sf1_expected.json (doubles within a relative 1e-8); join
    tiers and exchange hint keys (node ids as plan positions) equal the JAX
    DistributedQuery's at SF1 on a 4-device CPU mesh
@@ -376,8 +383,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel. Then Q1, Q3 and Q18 on a one-rank mesh over NCCL, and
    ``torch.cuda.memory_allocated`` must be back at the phase's start once
    the meshes are torn down. One line a query: build, cold and warm walls,
-   tiers, hints, regrowths, merge launches and the calls, bytes and
-   seconds of each collective (all_gather, all_to_all, the flags' any).
+   tiers, hints, regrowths, merge launches, the calls, bytes and seconds
+   of each collective (all_gather, all_to_all, the flags' any), and the
+   capture's segments and steps with, by rank, its warm-up and capture
+   seconds, graph pool and receive-buffer bytes, and the warm replay's
+   host µs launching segments and seconds in collectives.
 
 With ``--profile`` it also runs each query once more (warm) in each of the
 five sessions (tpch, cache, analytics, scalar, nested) under
@@ -393,6 +403,7 @@ The last three lines of standard output are the kernel summary
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -4115,34 +4126,47 @@ def spmd_collectives(before, after):
 
 
 def spmd_query(session, device, mesh, what, sql, want_rows, want):
-    """One query through a DistributedQuery: cold (build + run) and warm
-    (a second ``run()``); rows against the expected rows, join tiers and
-    exchange hint keys against the JAX package's at SF1 (``want``; None
-    where the writer could only record the query at tiny: then they are
-    recorded, not compared). Returns (the DistributedQuery, its warm page,
+    """One query through a DistributedQuery: cold (build + run: on the card
+    the warm-up, the schedule check, the capture and the first replay) and
+    warm (a second ``run()``: a replay); rows against the expected rows,
+    join tiers and exchange hint keys against the JAX package's at SF1
+    (``want``; None where the writer could only record the query at tiny:
+    then they are recorded, not compared). On the card the warm run must
+    build no SpmdExecutor, and both runs' pages must equal the eager
+    warm-up's bit for bit. Returns (the DistributedQuery, its warm page,
     the record)."""
     from trino_tpu_torch.exec.query import plan_sql
     from trino_tpu_torch.obs import metrics as M
+    from trino_tpu_torch.obs.devprofiler import DEVICE_PROFILER
     from trino_tpu_torch.ops import merge
+    from trino_tpu_torch.parallel import spmd
     from trino_tpu_torch.parallel.spmd import DistributedQuery
 
     rec = {"query": what}
     tiers0 = tier_counts(M.FUSED_JOIN_SELECTIONS, TIERS)
     dq = page = None
+    pages = {}
     for label in ("cold", "warm"):
         stats0 = mesh.stats.snapshot()
         merge.launches = 0
+        compiles0 = DEVICE_PROFILER.counters()["compilesTotal"]
         sync(device)
         t0 = time.perf_counter()
         if dq is None:
             dq = DistributedQuery.build(session, plan_sql(session, sql), mesh)
             rec["build_s"] = time.perf_counter() - t0
-        page = dq.run()
+        with counting_executors(spmd) as built:
+            page = dq.run()
+        n_compiles = DEVICE_PROFILER.counters()["compilesTotal"] - compiles0
+        rec[f"{label}_ledger"] = [r["cache"] for r in DEVICE_PROFILER.compile_rows()[-n_compiles:]
+                                  if r["tier"] == "spmd"] if n_compiles else []
         rows = jsonable_rows(page.to_pylist())
         sync(device)
         rec[f"{label}_wall_s"] = time.perf_counter() - t0
         rec[f"{label}_merge_launches"] = merge.launches
+        rec[f"{label}_executors"] = len(built)
         rec[f"{label}_collectives"] = spmd_collectives(stats0, mesh.stats.snapshot())
+        pages[label] = page
         check_rows(f"{what} (spmd, {label})", rows, want_rows, rel_tol=DIST_REL_TOL)
         if label == "cold":
             tiers = {t: v - tiers0[t] for t, v in tier_counts(
@@ -4156,6 +4180,23 @@ def spmd_query(session, device, mesh, what, sql, want_rows, want):
             if want["tiers"].get("merge-pallas", 0) >= 1 and merge.launches < 1:
                 raise AssertionError(f"{what} (spmd) selected merge-pallas but launched the "
                                      f"merge kernel no time")
+    # a miss for every run that compiled (the regrowths' too), a hit only
+    # for a replay
+    if rec["cold_ledger"] != ["miss"] * (dq.recompiles + 1) or rec["warm_ledger"] != ["hit"]:
+        raise AssertionError(f"{what} (spmd): compile ledger {rec['cold_ledger']} cold, "
+                             f"{rec['warm_ledger']} warm, with {dq.recompiles} regrowths")
+    if device.type == "cuda":
+        rec["capture"] = spmd_capture_record(dq, mesh)
+        if rec["warm_executors"]:
+            raise AssertionError(f"{what} (spmd): the warm run built {rec['warm_executors']} "
+                                 f"SpmdExecutors; a replay builds none")
+        for label, p in pages.items():
+            diff = spmd_page_diff(p, dq.warmup_page)
+            if diff is not None:
+                raise AssertionError(f"{what} (spmd): the {label} run's replayed page differs "
+                                     f"from the eager warm-up's: {diff}")
+        rec["replays_bit_identical"] = True
+    del pages
     xchg = spmd_xchg(dq)
     rec.update({"xchg": xchg, "recompiles": dq.recompiles, "rows": len(want_rows)})
     if want is None:
@@ -4168,16 +4209,81 @@ def spmd_query(session, device, mesh, what, sql, want_rows, want):
     return dq, page, rec
 
 
+@contextlib.contextmanager
+def counting_executors(spmd):
+    """Counts the SpmdExecutors built inside the block (one entry each)."""
+    cls, built = spmd.SpmdExecutor, []
+    init = cls.__init__
+
+    def counted(executor, *args, **kwargs):
+        built.append(1)
+        init(executor, *args, **kwargs)
+
+    cls.__init__ = counted
+    try:
+        yield built
+    finally:
+        cls.__init__ = init
+
+
+def spmd_capture_record(dq, mesh):
+    """The latest capture of every rank of a DistributedQuery on the card:
+    its segments and steps (one each for every rank: the ranks agree),
+    and by rank the warm-up and capture seconds, the graph pool's and the
+    receive buffers' bytes, the host µs launching the segments and the
+    seconds in the collectives of the latest replay (the warm run's)."""
+    latest = {}
+    for c in dq.captures:
+        latest[c["rank"]] = c
+    if sorted(latest) != list(mesh.local):
+        raise AssertionError(f"captures of ranks {sorted(latest)}, the mesh runs {mesh.local}")
+    recs = [latest[r] for r in mesh.local]
+    if len({(c["segments"], c["steps"]) for c in recs}) != 1 or \
+            any(c["segments"] != c["steps"] + 1 for c in recs):
+        raise AssertionError(f"the ranks' captures disagree: {recs}")
+    if any(c["replays"] != 2 for c in recs):
+        raise AssertionError(f"each rank's capture should have replayed twice: {recs}")
+    out = {"captures": len(dq.captures) // len(mesh.local), "segments": recs[0]["segments"],
+           "steps": recs[0]["steps"]}
+    for key in ("warmup_s", "capture_s", "pool_bytes", "buffer_bytes", "replay_host_us",
+                "collective_s"):
+        out[key] = [c[key] for c in recs]
+    return out
+
+
 def spmd_pages_equal(a, b) -> bool:
     """Bit for bit: every flat array and the static layout."""
+    return spmd_page_diff(a, b) is None
+
+
+def spmd_page_diff(a, b):
+    """None where two pages are equal bit for bit (every flat array, dead
+    slots included, and the static layout, a dictionary by its strings: a
+    code must mean the same string); else what differs first."""
+    import dataclasses
+
     import torch
 
     from trino_tpu_torch.exec.page_tree import flatten_page
 
+    def layout(spec):
+        return [dataclasses.replace(c, dictionary=None) for c in spec.col_specs], \
+            [None if c.dictionary is None else c.dictionary.values for c in spec.col_specs], \
+            spec.has_sel, spec.live_prefix
+
     (xa, sa), (xb, sb) = flatten_page(a), flatten_page(b)
-    return sa == sb and len(xa) == len(xb) and all(
-        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
-        for x, y in zip(xa, xb))
+    if layout(sa) != layout(sb) or len(xa) != len(xb):
+        return f"layouts differ: {sa} against {sb}"
+    for i, (x, y) in enumerate(zip(xa, xb)):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return f"array {i}: {x.dtype} {tuple(x.shape)} against {y.dtype} {tuple(y.shape)}"
+        if not torch.equal(x, y):
+            bad = (x != y).reshape(x.shape[0], -1).any(dim=1) if x.dim() else (x != y)
+            live = a.sel if a.sel is not None and a.sel.shape[:1] == x.shape[:1] else None
+            dead_only = None if live is None else not bool((bad & live).any())
+            return (f"array {i} ({x.dtype} {tuple(x.shape)}): {int(bad.sum())} rows differ, "
+                    f"first {bad.nonzero()[:4].flatten().tolist()}, dead slots only: {dead_only}")
+    return None
 
 
 def phase_spmd(device, expected, spmdexp, card, schema="sf1", queries=range(1, 23)):
@@ -4210,6 +4316,7 @@ def phase_spmd(device, expected, spmdexp, card, schema="sf1", queries=range(1, 2
         dry = {}
         _dq, _page, dry["q3"] = spmd_query(session, device, mesh, "Q3", expected["3"]["sql"],
                                           expected["3"]["rows"], spmdexp["dryrun"].get("q3"))
+        _dq.close()
         del _dq, _page
         saved = {k: getattr(stats, k) for k in SPMD_HASHED}
         try:
@@ -4218,6 +4325,7 @@ def phase_spmd(device, expected, spmdexp, card, schema="sf1", queries=range(1, 2
             _dq, one_shot, dry["q3_hashed"] = spmd_query(
                 session, device, mesh, "Q3 hashed", expected["3"]["sql"],
                 expected["3"]["rows"], spmdexp["dryrun"].get("q3_hashed"))
+            _dq.close()
             del _dq
             if not dry["q3_hashed"]["xchg"]:
                 raise AssertionError("the hashed Q3 made no exchange hint")
@@ -4227,6 +4335,7 @@ def phase_spmd(device, expected, spmdexp, card, schema="sf1", queries=range(1, 2
             _dq, overlapped, dry["q3_overlapped"] = spmd_query(
                 overlapped_session, device, mesh, "Q3 hashed, overlapped",
                 expected["3"]["sql"], expected["3"]["rows"], spmdexp["dryrun"].get("q3_hashed"))
+            _dq.close()
             del _dq
             dry["q3_overlapped"]["overlapped_exchanges"] = \
                 M.EXCHANGE_OVERLAPPED.value(str(SPMD_OVERLAP_BLOCKS)) - n0
@@ -4242,6 +4351,7 @@ def phase_spmd(device, expected, spmdexp, card, schema="sf1", queries=range(1, 2
         _dq, _page, dry["q18"] = spmd_query(session, device, mesh, "Q18",
                                            expected["18"]["sql"], expected["18"]["rows"],
                                            spmdexp["dryrun"].get("q18"))
+        _dq.close()
         del _dq, _page
         for name, rec in dry.items():
             print("spmd", json.dumps({"dryrun": name, **rec, "card": card}), flush=True)
@@ -4260,6 +4370,7 @@ def phase_spmd(device, expected, spmdexp, card, schema="sf1", queries=range(1, 2
                                      f"{spmdexp['refused'][key]}")
             _dq, _page, rec = spmd_query(session, device, mesh, f"Q{q}", expected[key]["sql"],
                                          expected[key]["rows"], spmdexp["queries"].get(key))
+            _dq.close()
             del _dq, _page
             rec["card"] = card
             out["queries"][key] = rec
@@ -4272,6 +4383,7 @@ def phase_spmd(device, expected, spmdexp, card, schema="sf1", queries=range(1, 2
             _dq, _page, rec = spmd_query(session, device, mesh1, f"Q{key} (1 rank)",
                                          expected[key]["sql"], expected[key]["rows"],
                                          spmdexp["world1"].get(key))
+            _dq.close()
             del _dq, _page
             out["world1"][key] = rec
             print("spmd", json.dumps({"world1": key, **rec, "backend": mesh1.backend,
@@ -4292,6 +4404,24 @@ def phase_spmd(device, expected, spmdexp, card, schema="sf1", queries=range(1, 2
     cold = [r["cold_wall_s"] for r in out["queries"].values()]
     warm = [r["warm_wall_s"] for r in out["queries"].values()]
     out["cold_total_s"], out["warm_total_s"] = sum(cold), sum(warm)
+    caps = [r["capture"] for r in out["queries"].values() if "capture" in r]
+    if caps:
+        # each rank's seconds in collectives over the warm pass (the
+        # replays), beside the warm sum of walls
+        per_rank = [sum(c["collective_s"][i] for c in caps) for i in range(SPMD_WIDTH)]
+        out["capture_totals"] = {
+            "segments": sum(c["segments"] for c in caps),
+            "steps": sum(c["steps"] for c in caps),
+            "captures": sum(c["captures"] for c in caps),
+            "capture_s_max_rank": max(sum(c["capture_s"][i] for c in caps)
+                                      for i in range(SPMD_WIDTH)),
+            "warmup_s_max_rank": max(sum(c["warmup_s"][i] for c in caps)
+                                     for i in range(SPMD_WIDTH)),
+            "pool_bytes_max": max(max(c["pool_bytes"]) for c in caps),
+            "replay_host_us_by_rank": [sum(c["replay_host_us"][i] for c in caps)
+                                       for i in range(SPMD_WIDTH)],
+            "warm_collective_s_by_rank": per_rank,
+            "warm_collective_share_by_rank": [x / out["warm_total_s"] for x in per_rank]}
     out["phase_s"] = time.perf_counter() - t_phase
     print("spmd_total", json.dumps({k: v for k, v in out.items()
                                     if k not in ("queries", "dryrun", "world1")}), flush=True)

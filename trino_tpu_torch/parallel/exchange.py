@@ -129,9 +129,9 @@ def _send_plan(page: Page, pid: torch.Tensor, n_devices: int):
     return order, starts, counts
 
 
-def _xchg_start(page: Page, order, starts, counts, lo: int, cap: int, comm):
-    """Issue the exchange of send slots [lo, lo + cap) of every partition:
-    gather the block's rows and start swapping them over the mesh."""
+def _xchg_arrays(page: Page, order, starts, counts, lo: int, cap: int):
+    """The send blocks of slots [lo, lo + cap) of every partition: each
+    column's rows gathered into ``[n_devices, cap]``, then the live mask."""
     n = page.num_rows
     j = lo + torch.arange(cap, dtype=torch.int32, device=order.device)
     slot_idx = torch.clamp(starts[:, None] + j[None, :], 0, n - 1)  # [ndev, cap]
@@ -143,12 +143,18 @@ def _xchg_start(page: Page, order, starts, counts, lo: int, cap: int, comm):
         if c.nulls is not None:
             arrays.append(c.nulls[rows])
     arrays.append(send_live)
-    return comm.all_to_all_start(arrays)
+    return arrays
 
 
-def _xchg_finish(page: Page, pending) -> Page:
-    """The received page of an issued block exchange (pad slots dead)."""
-    recv = iter(pending.wait())
+def _xchg_start(page: Page, order, starts, counts, lo: int, cap: int, comm):
+    """Issue the exchange of send slots [lo, lo + cap) of every partition:
+    gather the block's rows and start swapping them over the mesh."""
+    return comm.all_to_all_start(_xchg_arrays(page, order, starts, counts, lo, cap))
+
+
+def _xchg_page(page: Page, received: List[torch.Tensor]) -> Page:
+    """The received page of a block exchange (pad slots dead)."""
+    recv = iter(received)
     out_cols = []
     for c in page.columns:
         vals = next(recv)
@@ -157,11 +163,11 @@ def _xchg_finish(page: Page, pending) -> Page:
     return Page(out_cols, next(recv), replicated=False)
 
 
-def _xchg_block(page: Page, order, starts, counts, lo: int, cap: int,
-                n_devices: int, comm) -> Page:
-    """Exchange send slots [lo, lo + cap) of every partition: gather the
-    block's rows, swap them over the mesh, assemble the received page."""
-    return _xchg_finish(page, _xchg_start(page, order, starts, counts, lo, cap, comm))
+def _xchg_block(page: Page, order, starts, counts, lo: int, cap: int, comm) -> Page:
+    """Exchange send slots [lo, lo + cap) of every partition in one
+    blocking all-to-all: gather the block's rows, swap them over the mesh,
+    assemble the received page."""
+    return _xchg_page(page, comm.all_to_all(_xchg_arrays(page, order, starts, counts, lo, cap)))
 
 
 def repartition_by_pid(page: Page, pid: torch.Tensor, n_devices: int,
@@ -171,7 +177,7 @@ def repartition_by_pid(page: Page, pid: torch.Tensor, n_devices: int,
     sorted tier's range exchange."""
     order, starts, counts = _send_plan(page, pid, n_devices)
     overflow = (counts > capacity).any()
-    out = _xchg_block(page, order, starts, counts, 0, capacity, n_devices, comm)
+    out = _xchg_block(page, order, starts, counts, 0, capacity, comm)
     return out, overflow
 
 
@@ -199,12 +205,12 @@ def repartition_page_overlapped(page: Page, key_channels: List[int], n_devices: 
     order, starts, counts = _send_plan(page, pid, n_devices)
     overflow = (counts > bcap * n_blocks).any()
     out_pages: List[Page] = []
-    prev = _xchg_finish(page, _xchg_start(page, order, starts, counts, 0, bcap, comm))
+    prev = _xchg_block(page, order, starts, counts, 0, bcap, comm)
     for b in range(1, n_blocks):
         # block b travels while block b-1 is consumed
         nxt = _xchg_start(page, order, starts, counts, b * bcap, bcap, comm)
         out_pages.append(consume(prev))
-        prev = _xchg_finish(page, nxt)
+        prev = _xchg_page(page, nxt.wait())
     out_pages.append(consume(prev))
     return _restack_blocks(out_pages, n_devices, bcap), overflow
 

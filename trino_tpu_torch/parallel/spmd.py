@@ -4,8 +4,10 @@ Reference: the distributed data plane (splits scheduled across workers,
 hash-repartition shuffles between stages). The reference compiles the
 whole multi-stage pipeline into one ``shard_map`` program over a device
 mesh; here every rank of a :class:`~trino_tpu_torch.parallel.mesh.Mesh`
-runs the same plan eagerly (the executor with ``eager_tier`` off, as the
-compiled tier's body) and the exchanges are the mesh's collectives:
+runs the same plan (the executor with ``eager_tier`` off, as the compiled
+tier's body), captured on CUDA into graph segments cut at its collectives
+and replayed (:class:`DistributedQuery`), and the exchanges are the
+mesh's collectives:
 
 - leaf scans = data-parallel splits, one shard a rank (padded to a common
   shape; the pad rows carry sel=False) — SOURCE_DISTRIBUTION;
@@ -26,10 +28,12 @@ collective comes from the plan, the stats, the capacity hints, the
 ``replicated`` flags or the static shapes, which padding makes equal on
 every rank, or from a value all ranks agree on (the all-reduced error
 flags). No rank's own data decides one. A divergence would block in a
-collective until the group's timeout.
+collective until the group's timeout; one that only changes a step's
+bytes fails the compiling run's schedule check (``Comm.agree``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time as _time
 import types
@@ -40,9 +44,10 @@ import torch
 
 from trino_tpu_torch.connector import spi as spi_mod
 from trino_tpu_torch.data import page as page_mod
-from trino_tpu_torch.data.page import Column, Page
+from trino_tpu_torch.data.page import Column, ConstantStore, Page, constant_store
 from trino_tpu_torch.exec.executor import Executor, QueryError, _col_to_lowered
-from trino_tpu_torch.exec.page_tree import ColSpec, PageSpec, unflatten_page
+from trino_tpu_torch.exec.page_tree import ColSpec, PageSpec, flatten_page, unflatten_page
+from trino_tpu_torch.parallel.mesh import RankProgram, Step
 from trino_tpu_torch.sql.planner import plan as P
 
 
@@ -603,7 +608,25 @@ def _pad(a: np.ndarray, n: int) -> np.ndarray:
 @dataclasses.dataclass
 class DistributedQuery:
     """One query over a mesh: built once (phase 1, sharded staging, hints),
-    then each ``run()`` runs the plan on every rank."""
+    then each ``run()`` runs the plan on every rank.
+
+    On CUDA the first ``run()`` compiles the query, the counterpart of the
+    reference's ``jax.jit(shard_map(per_shard))``: each rank runs the body
+    eagerly on its own stream (the warm-up: it fills the rank's
+    ``ConstantStore`` and records the rank's schedule of collectives,
+    which every rank must agree on step for step), then captures the same
+    body as CUDA graph segments cut at its collectives
+    (parallel/mesh.py ``RankProgram``) and replays them. Every later run
+    replays: no ``SpmdExecutor`` is built and no plan node visited, and the
+    one host read is the all-reduced error flags. A capacity overflow drops
+    every rank's graphs and pool, doubles the hint and compiles again (a
+    warm-up whose flags fired is not captured). The staged shards are the
+    graphs' inputs at fixed addresses, held for the query's lifetime.
+
+    On the CPU, which only the tests ask for, nothing is captured: every
+    run executes the body eagerly and records each rank's schedule. On
+    CUDA a failed capture or a schedule mismatch raises; it never falls
+    back to eager execution."""
 
     mesh: object
     session: object
@@ -617,6 +640,18 @@ class DistributedQuery:
     df_apply_s: float = 0.0
     # capacity overflows that grew a hint and ran again
     recompiles: int = 0
+    # one record per capture per rank on CUDA: warm-up and capture seconds,
+    # segments, steps, the graph pool's and the fixed receive buffers'
+    # bytes, replays, and the latest replay's host seconds launching the
+    # segments and in the collectives
+    captures: List[dict] = dataclasses.field(default_factory=list)
+    # each rank's schedule of its latest eager run (the warm-up on CUDA),
+    # and the agreed schedule of every run that compiled (one more a
+    # regrowth)
+    schedules: Dict[int, List[Step]] = dataclasses.field(default_factory=dict)
+    recorded: List[List[Step]] = dataclasses.field(default_factory=list)
+    # the first local rank's page of the latest warm-up (CUDA)
+    warmup_page: Optional[Page] = None
     # kernel ledger (obs/devprofiler.py): one "SpmdBody" row over this
     # query's runs
     kernel_stats: Dict[tuple, dict] = dataclasses.field(default_factory=dict)
@@ -663,12 +698,16 @@ class DistributedQuery:
         dq.phase1_s = phase1_s
         dq.df_apply_s = prof.get("df_apply_s", 0.0)
         dq._post_sort = post_sort
+        dq._programs = {}
         dq._fresh = True
         return dq
 
-    def _per_rank(self, comm, count_tiers: bool):
-        """One rank's run: (its output page, gathered where sharded, the
-        error codes, each flag fired on any rank)."""
+    # ------------------------------------------------------------ body
+    def _body(self, comm, count_tiers: bool):
+        """One rank's execution of the plan: (its output page's flat
+        arrays, gathered where sharded, the page spec, the error codes,
+        each flag fired on any rank as a device tensor or None). No host
+        read."""
         pages = {nid: unflatten_page(self.specs[nid], shards[comm.rank])
                  for nid, shards in self.staged.items()}
         ex = SpmdExecutor(self.session, pages, dict(self.capacity_hints), comm)
@@ -679,12 +718,93 @@ class DistributedQuery:
             # a scan/filter/project-only plan meets no exchange: gather,
             # or the caller would see rank 0's shard alone
             out = gather_page(out, comm)
+        arrays, spec = flatten_page(out)
         codes = [c for c, _ in ex.errors]
-        fired: List[bool] = []
+        fired = None
         if ex.errors:
-            fired = comm.any(torch.stack(
-                [f.reshape(-1).any() for _, f in ex.errors])).tolist()
-        return out, codes, fired
+            fired = comm.any(torch.stack([f.reshape(-1).any() for _, f in ex.errors]))
+        return arrays, spec, codes, fired
+
+    def _eager(self, comm, count_tiers: bool, check: bool, store=None):
+        """The body run eagerly with the rank's schedule recorded (and
+        agreed by every rank when ``check``), its constants uploaded
+        through ``store`` when given: (arrays, spec, codes, host flags, the
+        rank's program)."""
+        prog = RankProgram(comm.rank, comm.device)
+        comm.attach(prog)
+        try:
+            with constant_store(store) if store is not None else contextlib.nullcontext():
+                arrays, spec, codes, fired = self._body(comm, count_tiers)
+        finally:
+            comm.attach(None)
+        fired = fired.tolist() if fired is not None else []
+        self.schedules[comm.rank] = prog.schedule
+        if check:
+            comm.agree(prog.schedule)
+            if comm.rank == self.mesh.local[0]:
+                self.recorded.append(prog.schedule)
+        return arrays, spec, codes, fired, prog
+
+    def _rank_run(self, comm, fresh: bool):
+        """One rank's run: (output arrays, spec, error codes, host flags).
+        On the CPU the body runs eagerly. On CUDA a rank without a program
+        warms up, agrees on its schedule and captures, then replays."""
+        if comm.device.type != "cuda":
+            return self._eager(comm, fresh, check=fresh)[:4]
+        prog = self._programs.get(comm.rank)
+        if prog is None:
+            # the warm-up: the rank's constants land in its store, which
+            # the capture then reads (a capture cannot copy from the host)
+            store = ConstantStore()
+            t0 = _time.perf_counter()
+            arrays, spec, codes, fired, prog = self._eager(comm, True, check=True,
+                                                           store=store)
+            torch.cuda.current_stream(comm.device).synchronize()
+            warmup_s = _time.perf_counter() - t0
+            if comm.rank == self.mesh.local[0]:
+                self.warmup_page = unflatten_page(spec, arrays)
+            if any(fired):
+                # a regrowth or an error: the graphs would be thrown away
+                return arrays, spec, codes, fired
+            store.frozen = True
+            t1 = _time.perf_counter()
+            comm.attach(prog)
+            try:
+                with constant_store(store):
+                    prog.capture(lambda: self._body(comm, False))
+            finally:
+                comm.attach(None)
+            prog.store = store  # the graphs read its tensors
+            prog.stats = {
+                "rank": comm.rank, "capture": self.recompiles, "warmup_s": warmup_s,
+                "capture_s": _time.perf_counter() - t1, "segments": len(prog.segments),
+                "steps": len(prog.schedule), "pool_bytes": prog.pool_bytes(),
+                "buffer_bytes": prog.buffer_bytes(), "constants": len(store),
+                "replays": 0}
+            self.captures.append(prog.stats)
+            self._programs[comm.rank] = prog
+        launch_s, collective_s = prog.replay(comm)
+        arrays, spec, codes, fired = prog.outputs
+        fired = fired.tolist() if fired is not None else []  # the one read
+        prog.stats["replays"] += 1
+        prog.stats["replay_host_us"] = launch_s * 1e6
+        prog.stats["collective_s"] = collective_s
+        return arrays, spec, codes, fired
+
+    def _reset(self) -> None:
+        """Drop every rank's program: the next run compiles anew."""
+        if self._programs:
+            for rank in self._programs:
+                self.mesh.stream(rank).synchronize()
+            for prog in self._programs.values():
+                prog.reset()
+        self._programs = {}
+        self._fresh = True
+
+    def close(self) -> None:
+        """Release every rank's graphs, pool and fixed buffers."""
+        self._reset()
+        self.warmup_page = None
 
     def _shape_signature(self) -> str:
         """The compile ledger's shapes: every staged array with the mesh
@@ -699,7 +819,8 @@ class DistributedQuery:
     def _profile_run(self, fresh: bool, wall_s: float, body_device_s: float,
                      estimated: bool) -> None:
         """Feed the device profiler: one compile-ledger event a run (a miss
-        on a fresh run, a hit after) and the ``SpmdBody`` kernel row."""
+        on a run that compiled, a hit on a replay; on the CPU a miss on the
+        first run and after a regrowth) and the ``SpmdBody`` kernel row."""
         from trino_tpu_torch.cache.plan_key import plan_fingerprint
         from trino_tpu_torch.obs.devprofiler import DEVICE_PROFILER
 
@@ -736,9 +857,12 @@ class DistributedQuery:
             if fresh:
                 DEVICE_PROFILER.compile_started()
             t0 = _time.perf_counter()
-            page, codes, fired = self.mesh.run(
-                lambda comm, fresh=fresh: self._per_rank(comm, fresh))[0]
+            arrays, spec, codes, fired = self.mesh.run(
+                lambda comm, fresh=fresh: self._rank_run(comm, fresh))[0]
             wall_s = _time.perf_counter() - t0
+            cuda = self.mesh.devices[self.mesh.local[0]].type == "cuda"
+            # a replay's outputs are rewritten by the next one
+            page = unflatten_page(spec, [a.clone() for a in arrays] if cuda else arrays)
             # the ranks read their flags: the run's device work is done, and
             # its wall is the body's device time when profiling
             if profiling:
@@ -746,14 +870,15 @@ class DistributedQuery:
             else:
                 body_device_s, estimated = (0.0 if fresh else wall_s), True
             self._profile_run(fresh, wall_s, body_device_s, estimated)
-            self._fresh = False
+            # a CUDA run is fresh until every rank holds a captured program
+            self._fresh = cuda and len(self._programs) < len(self.mesh.local)
             # capacity first: another flag of the same run may be an
             # artifact of the truncated output
             grown = stats.grow_overflowed_hints(self.capacity_hints, codes, fired)
             if grown is not None:
                 self.capacity_hints = grown
                 self.recompiles += 1
-                self._fresh = True
+                self._reset()
                 continue
             raise_fired(codes, fired)
             if self._post_sort is not None:
