@@ -182,7 +182,10 @@ def test_serving_series_declared_as_the_reference():
             ref.name, ref.type_name, ref.help, ref.labelnames), attr
         if hasattr(ref, "buckets"):
             assert mine.buckets == ref.buckets, attr
-    assert set(TORCH.M.REGISTRY.names()) <= set(JAX.M.REGISTRY.names())
+    # beyond the reference's series, only the port's own host-time series
+    ours = set(TORCH.M.PORT_SERIES)
+    assert set(TORCH.M.REGISTRY.names()) - ours <= set(JAX.M.REGISTRY.names())
+    assert ours <= set(TORCH.M.REGISTRY.names()) and not ours & set(JAX.M.REGISTRY.names())
 
 
 def test_renderer_escapes_and_histograms():

@@ -30,6 +30,8 @@ import torch
 
 from trino_tpu_torch import types as T
 from trino_tpu_torch.data.dictionary import NULL_CODE, Dictionary
+from trino_tpu_torch.obs import metrics as M
+from trino_tpu_torch.obs import trace as tracing
 
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
@@ -144,9 +146,15 @@ class Column:
         """Device -> host, decoding reprs back to Python values (rows
         ``idx`` only, when given). A NULL row's slot is never decoded: it
         may hold anything (the identity of an empty group's max)."""
+        return self._python_values(self._host_copy(idx))
+
+    def _host_copy(self, idx: Optional[np.ndarray] = None):
+        """Every device-to-host copy ``to_python`` makes, rows ``idx`` only:
+        for a nested column the column on the host; else the values with a
+        NULL row's slot cleared, the NULL flags and the high limbs, as
+        numpy arrays (``_python_values`` decodes either)."""
         if self.type.is_nested:
-            col = self if idx is None else host_take(self, idx, torch.device("cpu"))
-            return col._nested_to_python()
+            return self._on_host() if idx is None else host_take(self, idx, torch.device("cpu"))
 
         def host(t):
             a = to_numpy(t)
@@ -154,13 +162,28 @@ class Column:
 
         nulls = host(self.nulls) if self.nulls is not None else None
         vals = host(self.values)
+        his = host(self.hi) if self.hi is not None else None
         if nulls is not None:
             vals = np.where(nulls, vals.dtype.type(NULL_CODE if self.type.is_varchar else 0),
                             vals)
-        if self.hi is not None:
-            his = host(self.hi)
-            if nulls is not None:
+            if his is not None:
                 his = np.where(nulls, 0, his)
+        return vals, nulls, his
+
+    def _on_host(self) -> "Column":
+        """This column, its NULL flags, high limbs and children on the host."""
+        return dataclasses.replace(
+            self, values=self.values.cpu(),
+            nulls=None if self.nulls is None else self.nulls.cpu(),
+            hi=None if self.hi is None else self.hi.cpu(),
+            children=None if self.children is None else [k._on_host() for k in self.children])
+
+    def _python_values(self, host) -> List:
+        """The Python values of ``_host_copy``'s result."""
+        if self.type.is_nested:
+            return host._nested_to_python()
+        vals, nulls, his = host
+        if his is not None:
             los = vals.astype(np.int64).view(np.uint64).tolist()
             decode = _repr_decoder(self.type)
             out = [decode((h << 64) | lo) for h, lo in zip(his.tolist(), los)]
@@ -577,14 +600,20 @@ class Page:
         return max(total, 1)
 
     def to_pylist(self) -> List[tuple]:
-        """Materialize live rows as Python tuples (host side)."""
-        idx = None
-        n = self.num_rows
-        if self.sel is not None:
-            idx = np.nonzero(to_numpy(self.sel))[0]
-            n = len(idx)
-        cols = [c.to_python(idx) for c in self.columns]
-        return list(zip(*cols)) if cols else [()] * n
+        """Materialize live rows as Python tuples (host side): the
+        ``rows/copy`` span (the selection and every column's host copies,
+        its seconds to ``trino_tpu_rows_copy_seconds_total``), then
+        ``rows/convert`` (the Python values and their tuples)."""
+        with tracing.timed("rows/copy", M.ROWS_COPY_SECONDS, detail=True):
+            idx = None
+            n = self.num_rows
+            if self.sel is not None:
+                idx = np.nonzero(to_numpy(self.sel))[0]
+                n = len(idx)
+            hosts = [c._host_copy(idx) for c in self.columns]
+        with tracing.timed("rows/convert", detail=True):
+            cols = [c._python_values(h) for c, h in zip(self.columns, hosts)]
+            return list(zip(*cols)) if cols else [()] * n
 
 
 def page_from_numpy(columns: Iterable, sel=None, *, live_prefix: bool = False,

@@ -38,6 +38,7 @@ given.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional, Tuple
@@ -179,8 +180,10 @@ class CompiledQuery:
     # kernel ledger (obs/devprofiler.py): one "CompiledBody" row over this
     # query's runs of the body
     kernel_stats: Dict[tuple, dict] = dataclasses.field(default_factory=dict)
-    # the compile ledger's identity, computed once on the first run
+    # the compile ledger's identity, computed once on the first run, and
+    # the inputs' shape signature, once a capture
     _fingerprint: str = ""
+    _shape_sig: str = ""
 
     MAX_RECOMPILES = 16  # doubling buckets: 2^16x headroom over the estimate
 
@@ -385,19 +388,27 @@ class CompiledQuery:
 
     def _run_once(self, events=None):
         """(flat outputs, output spec, codes, fired flags as host bools).
-        ``events``: a pair of CUDA events recorded around the replay."""
+        ``events``: a pair of CUDA events recorded around the replay. The
+        ``device/replay`` span enqueues the graph (on the CPU: runs the
+        body); ``device/flag-read`` waits for it, and on a replay its
+        seconds go to ``trino_tpu_replay_wait_seconds_total``."""
+        wait = None if self._fresh else M.REPLAY_WAIT_SECONDS
         if self.session.device.type != "cuda":
-            out_arrays, out_spec, codes, flags = self._execute_body(count_tiers=self._fresh)
-            return out_arrays, out_spec, codes, fired_flags(flags)
+            with tracing.timed("device/replay", detail=True):
+                out_arrays, out_spec, codes, flags = self._execute_body(count_tiers=self._fresh)
+            with tracing.timed("device/flag-read", wait, detail=True):
+                return out_arrays, out_spec, codes, fired_flags(flags)
         if self._graph is None:
             self._capture()
-        if events is not None:
-            events[0].record()
-        self._graph.replay()
-        if events is not None:
-            events[1].record()
+        with tracing.timed("device/replay", detail=True):
+            if events is not None:
+                events[0].record()
+            self._graph.replay()
+            if events is not None:
+                events[1].record()
         self.captures[-1]["replays"] += 1
-        fired = self._fired.tolist() if self._fired is not None else []  # one read
+        with tracing.timed("device/flag-read", wait, detail=True):
+            fired = self._fired.tolist() if self._fired is not None else []  # one read
         return self._outputs, self._out_spec, self._codes, fired
 
     def _profile_run(self, fresh: bool, dispatch_wall_s: float, body_device_s: float,
@@ -412,8 +423,11 @@ class CompiledQuery:
 
         if not self._fingerprint:
             self._fingerprint = plan_fingerprint(self.root)
+        if fresh:
+            # the inputs are fixed between captures: sign them once a capture
+            self._shape_sig = shape_signature(self.input_arrays)
         DEVICE_PROFILER.record_compile(
-            "compiled", self._fingerprint, shape_signature(self.input_arrays),
+            "compiled", self._fingerprint, self._shape_sig,
             dispatch_wall_s if fresh else 0.0, "miss" if fresh else "hit", started=fresh)
         wall = body_device_s if fresh else dispatch_wall_s + (0.0 if estimated else body_device_s)
         key = (str(self.root.id), "CompiledBody", "compiled")
@@ -431,7 +445,15 @@ class CompiledQuery:
 
     def run(self) -> Page:
         """Replay the captured body (capturing it first when needed); on a
-        capacity overflow, double the offending hint and capture again."""
+        capacity overflow, double the offending hint and capture again.
+
+        A replay is the ``device/execute`` span, whose seconds go to
+        ``trino_tpu_compiled_run_seconds_total``; its children are
+        ``device/replay`` and ``device/flag-read`` (``_run_once``),
+        ``device/ledger`` (the device profiler's rows, the hint and flag
+        checks) and ``device/outputs`` (the outputs' clone into a page). A
+        run that captures is ``device/compile`` around ``_run_once`` alone,
+        and its ledger and outputs follow it."""
         from trino_tpu_torch.sql.planner import stats
 
         props = getattr(self.session, "properties", None) or {}
@@ -444,38 +466,47 @@ class CompiledQuery:
                           torch.cuda.Event(enable_timing=True))
             if fresh:
                 DEVICE_PROFILER.compile_started()
-            with tracing.span("device/compile" if fresh else "device/execute") as sp:
+            with contextlib.ExitStack() as run_span:
+                sp = run_span.enter_context(tracing.timed(
+                    "device/compile" if fresh else "device/execute",
+                    None if fresh else M.COMPILED_RUN_SECONDS))
                 t0 = time.perf_counter()
                 out_arrays, out_spec, codes, fired = self._run_once(events)
                 device_s = time.perf_counter() - t0
                 sp.set("device_seconds", round(device_s, 6))
                 sp.set("staged_rows", int(sum(self.scan_rows.values())))
-            # the body's device seconds: with device_profiling, the CUDA
-            # events around the replay (the flag read above waited for
-            # it), or on the CPU the body's own wall (it ran synchronously);
-            # otherwise estimated from the wall, 0 on a capturing run
-            if events is not None:
-                events[1].synchronize()
-                body_device_s, estimated = events[0].elapsed_time(events[1]) / 1e3, False
-            elif profiling:
-                body_device_s, estimated = device_s, False
-            else:
-                body_device_s, estimated = (0.0 if fresh else device_s), True
-            self._profile_run(fresh, device_s, body_device_s, estimated)
-            self._fresh = False
-            (M.COMPILE_CACHE_MISSES if fresh else M.COMPILE_CACHE_HITS).inc()
-            (M.COMPILE_SECONDS if fresh else M.DEVICE_SECONDS).inc(device_s)
-            # capacity overflows first: another flag of the same run may be
-            # an artifact of the truncated output
-            grown = stats.grow_overflowed_hints(self.capacity_hints, codes, fired)
-            if grown is not None:
-                self.capacity_hints = grown
-                self.recompiles += 1
-                self._reset()
-                continue
-            raise_fired(codes, fired)
-            # the graph's outputs are overwritten by the next replay
-            return unflatten_page(out_spec, [t.clone() for t in out_arrays])
+                if fresh:
+                    run_span.close()  # device/compile: the capturing run alone
+                with tracing.timed("device/ledger", detail=True):
+                    # the body's device seconds: with device_profiling, the
+                    # CUDA events around the replay (the flag read above
+                    # waited for it), or on the CPU the body's own wall (it
+                    # ran synchronously); otherwise estimated from the
+                    # wall, 0 on a capturing run
+                    if events is not None:
+                        events[1].synchronize()
+                        body_device_s = events[0].elapsed_time(events[1]) / 1e3
+                        estimated = False
+                    elif profiling:
+                        body_device_s, estimated = device_s, False
+                    else:
+                        body_device_s, estimated = (0.0 if fresh else device_s), True
+                    self._profile_run(fresh, device_s, body_device_s, estimated)
+                    self._fresh = False
+                    (M.COMPILE_CACHE_MISSES if fresh else M.COMPILE_CACHE_HITS).inc()
+                    (M.COMPILE_SECONDS if fresh else M.DEVICE_SECONDS).inc(device_s)
+                    # capacity overflows first: another flag of the same run
+                    # may be an artifact of the truncated output
+                    grown = stats.grow_overflowed_hints(self.capacity_hints, codes, fired)
+                    if grown is None:
+                        raise_fired(codes, fired)
+                if grown is None:
+                    # the graph's outputs are overwritten by the next replay
+                    with tracing.timed("device/outputs", detail=True):
+                        return unflatten_page(out_spec, [t.clone() for t in out_arrays])
+            self.capacity_hints = grown
+            self.recompiles += 1
+            self._reset()
         raise QueryError("capacity still exceeded after recompiles (join or exchange bucket)")
 
     def close(self) -> None:

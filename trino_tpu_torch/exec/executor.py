@@ -55,6 +55,7 @@ from trino_tpu_torch.data.page import (Column, Page, column_data_from_python, co
 from trino_tpu_torch.exec import memory as _mem
 from trino_tpu_torch.exec.operator_stats import OperatorStats
 from trino_tpu_torch.obs import metrics as M
+from trino_tpu_torch.obs import trace as tracing
 from trino_tpu_torch.obs.devprofiler import DEVICE_PROFILER
 from trino_tpu_torch.ops import aggregate as agg_ops
 from trino_tpu_torch.ops import expr_lower as L
@@ -304,10 +305,14 @@ class Executor:
 
     # ------------------------------------------------------------------ api
     def execute_checked(self, node: P.PlanNode) -> Page:
-        page = self.execute(node)
-        self.raise_errors()
-        if self.collect_stats:
-            self.resolve_stats()
+        """Run the plan, raise its deferred errors and read its stats: the
+        ``exec/run`` span, whose seconds go to
+        ``trino_tpu_executor_seconds_total``."""
+        with tracing.timed("exec/run", M.EXECUTOR_SECONDS, detail=True):
+            page = self.execute(node)
+            self.raise_errors()
+            if self.collect_stats:
+                self.resolve_stats()
         return page
 
     def raise_errors(self):
@@ -324,14 +329,22 @@ class Executor:
             # each operator's output rolls into the query's peak (exact bytes)
             self.memory.observe(_mem.page_bytes(page))
             return page
+        operator = type(node).__name__.replace("Node", "")
         self._child_wall.append(0.0)
+        # under a tracer that keeps detail, the node's inclusive wall is its
+        # exec/<operator> span, from the same clock reads
+        cur = tracing.current(detail=True)
         t0 = time.perf_counter()
+        if cur is not None:
+            span, token = tracing.open_span(cur, f"exec/{operator}", t0, node=node.id)
         try:
             page = method(node)
         finally:
             # keep the stack balanced on error paths: the parent is still
             # charged the subtree's time
             wall = time.perf_counter() - t0
+            if cur is not None:
+                tracing.close_span(cur, span, token, wall)
             child_wall = self._child_wall.pop()
             self._child_wall[-1] += wall
         excl_wall = max(0.0, wall - child_wall)
@@ -348,7 +361,6 @@ class Executor:
             # exclusive wall stays exclusive of it
             self._child_wall[-1] += device_s
         nbytes = _mem.page_bytes(page)
-        operator = type(node).__name__.replace("Node", "")
         # one launch a node execution (each _exec_ dispatches this node's
         # device ops); the wall is exclusive, with the measured wait added
         # back, so wall - device is the node's dispatch overhead
@@ -1753,10 +1765,15 @@ class Executor:
         Refused in the compiled tier, as in the reference."""
         if not self.eager_tier:
             raise NotImplementedError("MATCH_RECOGNIZE executes on the host tier")
+        page = self.execute(node.source)
+        with tracing.timed("exec/host-pass", M.NESTED_HOST_SECONDS, detail=True,
+                           fn="match_recognize",
+                           entries=page.num_rows):
+            return self._match_recognize_host(node, page)
+
+    def _match_recognize_host(self, node: P.MatchRecognizeNode, page: Page) -> Page:
         from trino_tpu_torch.exec.match_recognize import run_match_recognize
 
-        page = self.execute(node.source)
-        t0 = time.perf_counter()
         names = node.input_names or node.source.output_names
         # case-insensitive, as the analyzer resolves names
         lnames = [n.lower() for n in names]
@@ -1777,13 +1794,10 @@ class Executor:
                     list(node.measures), node.after_match):
                 out_rows.append(key + mvals)
         if not out_rows:
-            out = Page.all_dead(node.output_types, self.device)
-        else:
-            out = Page([column_to_device(column_data_from_python(t, [r[i] for r in out_rows]),
-                                         self.device)
-                        for i, t in enumerate(node.output_types)])
-        M.NESTED_HOST_SECONDS.inc(time.perf_counter() - t0)
-        return out
+            return Page.all_dead(node.output_types, self.device)
+        return Page([column_to_device(column_data_from_python(t, [r[i] for r in out_rows]),
+                                      self.device)
+                     for i, t in enumerate(node.output_types)])
 
     # ------------------------------------------------------------- ordering
     def _exec_SortNode(self, node: P.SortNode) -> Page:
@@ -1798,10 +1812,10 @@ class Executor:
             if not self.eager_tier:
                 raise NotImplementedError(
                     "ORDER BY of a page with array/map columns in the compiled tier")
-            t0 = time.perf_counter()
-            out = self._sorted_page_host(page, sort_channels, limit)
-            M.NESTED_HOST_SECONDS.inc(time.perf_counter() - t0)
-            return out
+            with tracing.timed("exec/host-pass", M.NESTED_HOST_SECONDS, detail=True,
+                           fn="sort_nested",
+                               entries=page.num_rows):
+                return self._sorted_page_host(page, sort_channels, limit)
         n = page.num_rows
         keys = [(kl, asc, nf) for c, asc, nf in sort_channels
                 for kl in _key_lowereds(page.columns[c])]

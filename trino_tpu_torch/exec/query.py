@@ -21,6 +21,8 @@ import dataclasses
 import time
 
 from trino_tpu_torch.exec.executor import Executor, QueryResult
+from trino_tpu_torch.obs import metrics as M
+from trino_tpu_torch.obs import trace as tracing
 from trino_tpu_torch.sql.parser import ast
 from trino_tpu_torch.sql.parser.parser import parse_statement
 from trino_tpu_torch.sql.planner.optimizer import optimize
@@ -40,29 +42,31 @@ def _expand_udfs(session, stmt):
     return expand_udfs(stmt, udfs)
 
 
+def _parse(sql: str):
+    with tracing.timed("parse", M.PLAN_SECONDS):
+        return parse_statement(sql)
+
+
 def _plan(session, query):
-    """The optimized plan of a ``Query`` AST, its routines inlined."""
-    return optimize(Planner(session).plan(_expand_udfs(session, query)), session)
+    """The optimized plan of a ``Query`` AST, its routines inlined.
+    Parsing (``_parse``), planning and optimizing each record a span into
+    the ambient tracer, when there is one (the coordinator's per-query
+    tracer), and add their seconds to ``trino_tpu_plan_seconds_total``."""
+    with tracing.timed("analyze/plan", M.PLAN_SECONDS):
+        root = Planner(session).plan(_expand_udfs(session, query))
+    with tracing.timed("optimize", M.PLAN_SECONDS):
+        return optimize(root, session)
 
 
 def plan_sql(session, sql: str):
     """The optimized plan of a ``Query`` statement; any other statement
-    comes back parsed (``run_query`` dispatches it). Parsing, planning and
-    optimizing each record a span into the ambient tracer, when there is
-    one (the coordinator's per-query tracer)."""
-    from trino_tpu_torch.obs import trace as tracing
-
-    with tracing.span("parse"):
-        stmt = parse_statement(sql)
+    comes back parsed (``run_query`` dispatches it)."""
+    stmt = _parse(sql)
     if isinstance(stmt, ast.Explain):
         raise ValueError("use explain_query")
     if not isinstance(stmt, ast.Query):
         return stmt
-    stmt = _expand_udfs(session, stmt)
-    with tracing.span("analyze/plan"):
-        root = Planner(session).plan(stmt)
-    with tracing.span("optimize"):
-        return optimize(root, session)
+    return _plan(session, stmt)
 
 
 def _plan_substituted(session, query):
@@ -74,7 +78,7 @@ def _plan_substituted(session, query):
 
 
 def run_query(session, sql: str) -> QueryResult:
-    return _dispatch_statement(session, parse_statement(sql), sql=sql)
+    return _dispatch_statement(session, _parse(sql), sql=sql)
 
 
 def dispatch_statement(session, stmt) -> QueryResult:
@@ -258,7 +262,7 @@ def explain_query(session, sql, mode: str = "logical", stmt=None) -> str:
     ``format_plan``), after the materialized-view substitution pass, under
     a header line for each substitution decision."""
     if stmt is None:
-        stmt = parse_statement(sql)
+        stmt = _parse(sql)
         if isinstance(stmt, ast.Explain):
             mode = stmt.mode
             stmt = stmt.statement

@@ -233,7 +233,7 @@ def substitute_plan(session, root: P.PlanNode
         _set_sources(clone, new_srcs)
         return clone
 
-    with tracing.span("plan/mv-substitute") as sp:
+    with tracing.timed("plan/mv-substitute", M.PLAN_SECONDS) as sp:
         new_root = rewrite(root)
         if new_root is not root:
             # the rewrite must uphold every plan invariant (arity/

@@ -13,14 +13,16 @@ and those of the fault-tolerant tier and the spooled result protocol (spool
 reads, result segments, inline-result rejections), and the series the
 reference registers for the join tiers, the staging, device-cache,
 compile, serde, result-cache, plan-cache and view counters: the port's
-registry has every series of the reference's.
+registry has every series of the reference's, and a few of its own
+(``PORT_SERIES``: the host seconds of planning, the eager executor, the
+host passes, the compiled replay and the result rows' copies).
 ``render_registry`` renders them as the Prometheus text page that
 ``GET /v1/metrics`` serves on the coordinator and the workers, and
 ``registry_samples`` as the rows of ``system.metrics.metrics``, so both
 packages' pages carry the same series. The counters the reference has no
-series for are plain and unregistered (the host-to-device bytes, the host
-passes' and the serde's seconds, the views' warm rows): the tests and
-``chip_smoke.py`` read them.
+series for, and the port does not export, are plain and unregistered (the
+host-to-device bytes, the serde's seconds, the views' warm rows): the tests
+and ``chip_smoke.py`` read them.
 
 Server-derived gauges are refreshed from the owning server just before a
 render, under ``RENDER_LOCK`` (server/events.render_metrics), and cleared
@@ -308,14 +310,51 @@ HOST_CACHE_BYTES = REGISTRY.gauge(
     "host RAM held by the columnar page cache (the second revocable tier — "
     "sheds before the warm-HBM tier under node pressure)")
 
-# host seconds of the scalar lowerings' passes over a vocabulary or a table
-# of days (ops/expr_lower.py): string work run once a distinct value on the
-# host, before one gather by code on the device
-SCALAR_HOST_SECONDS = Counter("scalar_host_seconds_total")
-# host seconds of the nested slice's host passes (exec/executor.py): the
-# MATCH_RECOGNIZE matcher with its row conversions, and the ORDER BY of a
-# page holding nested columns
-NESTED_HOST_SECONDS = Counter("nested_host_seconds_total")
+# the port's own host-time series, each fed at one boundary together with
+# its span (obs/trace.py ``timed``; the outermost span of a family counts):
+# planning (the ``parse``, ``analyze/plan``, ``optimize`` and
+# ``plan/mv-substitute`` spans), the eager executor's run (``exec/run``),
+# the scalar lowerings' passes over a vocabulary or a table of days
+# (ops/expr_lower.py: string work run once a distinct value on the host,
+# before one gather by code on the device) and the nested slice's host
+# passes (exec/executor.py: the MATCH_RECOGNIZE matcher with its row
+# conversions, the ORDER BY of a page holding nested columns), both
+# ``exec/host-pass``; the compiled tier's replay path (``device/execute``)
+# and its wait for the replay (``device/flag-read``); the result rows'
+# device-to-host copies (``rows/copy``). The reference has no such series
+PLAN_SECONDS = REGISTRY.counter(
+    "trino_tpu_plan_seconds_total",
+    "host seconds parsing, analyzing, planning and optimizing statements "
+    "(and substituting materialized views), nested planning counted once")
+EXECUTOR_SECONDS = REGISTRY.counter(
+    "trino_tpu_executor_seconds_total",
+    "wall seconds of eager executor runs (Executor.execute_checked: the "
+    "plan's dispatch, its host passes, the error flags and the batched "
+    "stats read), a run nested in another counted once")
+SCALAR_HOST_SECONDS = REGISTRY.counter(
+    "trino_tpu_scalar_host_seconds_total",
+    "host seconds of the scalar lowerings' passes over a dictionary's "
+    "vocabulary or a table of days")
+NESTED_HOST_SECONDS = REGISTRY.counter(
+    "trino_tpu_nested_host_seconds_total",
+    "host seconds of the nested slice's host passes (the MATCH_RECOGNIZE "
+    "matcher, the ORDER BY of a page holding nested columns)")
+COMPILED_RUN_SECONDS = REGISTRY.counter(
+    "trino_tpu_compiled_run_seconds_total",
+    "wall seconds of compiled-query replays (CompiledQuery.run on a "
+    "captured graph: enqueue, flag read, ledger, output clone)")
+REPLAY_WAIT_SECONDS = REGISTRY.counter(
+    "trino_tpu_replay_wait_seconds_total",
+    "host seconds compiled-query replays waited for the card (the read of "
+    "the fired error flags)")
+ROWS_COPY_SECONDS = REGISTRY.counter(
+    "trino_tpu_rows_copy_seconds_total",
+    "host seconds of the result rows' device-to-host copies (the selection "
+    "and every column, before the Python conversion)")
+# the series above, which only the port registers
+PORT_SERIES = (PLAN_SECONDS.name, EXECUTOR_SECONDS.name, SCALAR_HOST_SECONDS.name,
+               NESTED_HOST_SECONDS.name, COMPILED_RUN_SECONDS.name,
+               REPLAY_WAIT_SECONDS.name, ROWS_COPY_SECONDS.name)
 
 # the compiled tier (exec/compiled.py): a run that captures its body into a
 # CUDA graph (warm-up, capture, first replay) is a miss and its wall goes to

@@ -17,7 +17,14 @@ Two usage surfaces:
   grow a tracer parameter (planner, compiled execution). Ambient spans
   attach to whatever tracer ``activate()``-d on this thread and no-op
   (recording nothing, at ~dict-lookup cost) when none is active, so
-  instrumentation is safe on every path including bare-``Session`` use.
+  instrumentation is safe on every path including bare-``Session`` use;
+- timed: ``with timed("parse", M.PLAN_SECONDS): ...`` — an ambient span
+  that also adds its seconds to a registered counter, with or without a
+  tracer, from the same two clock reads. Only the outermost open span of
+  a counter's family on the thread feeds it, so nested work counts once.
+  The port's own fine-grained spans (``detail=True``) go only into
+  tracers that keep detail (``Tracer.detail``, off for the serving
+  tiers' per-query and per-task tracers).
 """
 from __future__ import annotations
 
@@ -68,13 +75,15 @@ class Span:
         # mutated, with no per-span lock
         self.attributes = {**self.attributes, key: value}
 
-    def close(self) -> bool:
+    def close(self, duration: Optional[float] = None) -> bool:
         """Close once; True only on the closing transition (end_span uses
         this to record each span into the flight recorder exactly once
-        even though lifecycle code calls it again as a safety net)."""
+        even though lifecycle code calls it again as a safety net).
+        ``duration``: seconds the caller already measured from ``_t0``."""
         if self.end is None:
             self.end = time.time()
-            self.duration = time.perf_counter() - self._t0
+            self.duration = (time.perf_counter() - self._t0 if duration is None
+                             else duration)
             return True
         return False
 
@@ -128,10 +137,17 @@ class Tracer:
 
     def __init__(self, trace_id: Optional[str] = None,
                  root_parent_id: Optional[str] = None,
-                 max_spans: Optional[int] = None):
+                 max_spans: Optional[int] = None, detail: bool = True):
         self.trace_id = trace_id or _hex_id(16)
         self.root_parent_id = root_parent_id
         self.max_spans = DEFAULT_MAX_SPANS if max_spans is None else max_spans
+        # detail: also record the port's own fine-grained host spans (the
+        # executor's run, its plan nodes and host passes, the result rows,
+        # the compiled replay's parts). The serving tiers' per-query and
+        # per-task tracers turn it off: their traces keep the reference's
+        # vocabulary, and a task that runs its fragment once a split or a
+        # batch stays under the span cap
+        self.detail = detail
         # optional per-process FlightRecorder (obs/flightrecorder.py):
         # every closed span also lands in the owning server's bounded
         # ring, which is what the failure postmortem snapshots
@@ -164,8 +180,8 @@ class Tracer:
             M.SPANS_DROPPED.inc()
         return sp
 
-    def end_span(self, span: Span) -> None:
-        if span.close() and self.recorder is not None:
+    def end_span(self, span: Span, duration: Optional[float] = None) -> None:
+        if span.close(duration) and self.recorder is not None:
             self.recorder.record_span(span.to_dict(), self.trace_id)
 
     @contextlib.contextmanager
@@ -210,10 +226,14 @@ def parse_traceparent(value: Optional[str]):
 
 
 # ------------------------------------------------------- ambient trace API
-def current():
+def current(detail: bool = False):
     """``(tracer, span_id)`` of the innermost active ambient span, else
-    None."""
-    return _CURRENT.get()
+    None; with ``detail``, None also where the tracer keeps no detail
+    (``Tracer.detail``)."""
+    cur = _CURRENT.get()
+    if detail and cur is not None and not cur[0].detail:
+        return None
+    return cur
 
 
 @contextlib.contextmanager
@@ -228,21 +248,92 @@ def activate(tracer: Tracer, span_id: Optional[str] = None):
         _CURRENT.reset(token)
 
 
-@contextlib.contextmanager
-def span(name: str, **attributes):
-    """Ambient span: records into the active tracer, no-ops without one."""
-    cur = _CURRENT.get()
-    if cur is None:
-        yield NOOP_SPAN
-        return
+def span(name: str, **attributes) -> "timed":
+    """Ambient span: records into the active tracer, no-ops without one
+    (``timed`` with no counter)."""
+    return timed(name, None, **attributes)
+
+
+def open_span(cur, name: str, t0: float, **attributes):
+    """Open an ambient span under ``cur`` (what ``current()`` returned,
+    not None) that started at ``t0`` on ``time.perf_counter``, and make it
+    the thread's innermost: ``(span, token)`` for ``close_span``."""
     tracer, parent_id = cur
     sp = tracer.start_span(name, parent_id=parent_id, **attributes)
-    token = _CURRENT.set((tracer, sp.span_id))
+    sp._t0 = t0
+    return sp, _CURRENT.set((tracer, sp.span_id))
+
+
+def close_span(cur, sp: Span, token, duration: float) -> None:
+    """Close a span of ``open_span`` after ``duration`` seconds from its
+    ``t0``, restoring the thread's innermost span."""
+    _CURRENT.reset(token)
+    cur[0].end_span(sp, duration)
+
+
+_FAMILIES = threading.local()  # .open: the counters a span on this thread feeds
+
+
+def _open_families() -> set:
     try:
-        yield sp
-    finally:
-        _CURRENT.reset(token)
-        tracer.end_span(sp)
+        return _FAMILIES.open
+    except AttributeError:
+        _FAMILIES.open = set()
+        return _FAMILIES.open
+
+
+class timed:
+    """``with timed(name, counter, detail=False, **attributes) as sp``: an
+    ambient span whose seconds also go to ``counter`` (a registered
+    ``Counter``, or None for a span alone); ``detail`` marks one of the
+    port's own fine-grained spans (``Tracer.detail``).
+
+    With a tracer active it records a ``Span``, and the counter gets that
+    span's own ``duration``. Without one it reads
+    ``time.perf_counter`` twice and makes one ``inc``; no ``Span`` is
+    made, and ``sp`` is ``NOOP_SPAN``. A counter is fed only by the
+    outermost open ``timed`` of its family (the spans that feed it) on
+    the thread, so a plan that plans inside planning, or a host pass
+    inside another, counts once."""
+
+    __slots__ = ("name", "counter", "detail", "attributes", "_cur", "_feeds", "_t0", "_span",
+                 "_token")
+
+    def __init__(self, name: str, counter=None, detail: bool = False, **attributes):
+        self.name = name
+        self.counter = counter
+        self.detail = detail
+        self.attributes = attributes
+
+    def __enter__(self):
+        counter = self.counter
+        feeds = False
+        if counter is not None:
+            families = _open_families()
+            if counter not in families:
+                families.add(counter)
+                feeds = True
+        self._feeds = feeds
+        self._cur = cur = current(self.detail)
+        if cur is None and not feeds:
+            return NOOP_SPAN
+        self._t0 = t0 = time.perf_counter()
+        if cur is None:
+            return NOOP_SPAN
+        self._span, self._token = open_span(cur, self.name, t0, **self.attributes)
+        return self._span
+
+    def __exit__(self, *exc) -> bool:
+        cur = self._cur
+        if cur is None and not self._feeds:
+            return False
+        duration = time.perf_counter() - self._t0
+        if cur is not None:
+            close_span(cur, self._span, self._token, duration)
+        if self._feeds:
+            _FAMILIES.open.discard(self.counter)
+            self.counter.inc(duration)
+        return False
 
 
 # -------------------------------------------------------- tree assembly

@@ -52,6 +52,7 @@ from trino_tpu_torch import types as T
 from trino_tpu_torch.data.dictionary import NULL_CODE, Dictionary
 from trino_tpu_torch.data.page import Column, to_device, torch_dtype
 from trino_tpu_torch.obs import metrics as M
+from trino_tpu_torch.obs import trace as tracing
 from trino_tpu_torch.ops import array_ops as A
 from trino_tpu_torch.ops import datetime_ops as dt
 from trino_tpu_torch.sql import ir
@@ -663,15 +664,14 @@ def _lower_in_list(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
 # reference's fill value.
 
 
-class _HostTimer:
-    """Adds the seconds of a host pass over a vocabulary or a table of days
-    to SCALAR_HOST_SECONDS."""
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-
-    def __exit__(self, *exc):
-        M.SCALAR_HOST_SECONDS.inc(time.perf_counter() - self.t0)
+def _host_pass(fn, entries: int):
+    """A host pass of ``fn`` over a vocabulary or a table of days of
+    ``entries`` values: the ``exec/host-pass`` span, whose seconds go to
+    SCALAR_HOST_SECONDS. ``fn`` is named by the lowering that made it
+    (``substring`` for ``_lower_substring``'s lambda)."""
+    name = getattr(fn, "__qualname__", type(fn).__name__).split(".<locals>")[0]
+    return tracing.timed("exec/host-pass", M.SCALAR_HOST_SECONDS, detail=True,
+                         fn=name.removeprefix("_lower_"), entries=entries)
 
 
 def _code_lut(x: LoweredVal, lut: np.ndarray, miss, device) -> torch.Tensor:
@@ -696,7 +696,7 @@ def _vocab_transform(ctx: LowerCtx, x: LoweredVal, fn) -> LoweredVal:
     """A host string -> string function applied once over the vocabulary,
     an order-preserving dictionary rebuilt from the results, and the codes
     recoded on the device by one gather."""
-    with _HostTimer():
+    with _host_pass(fn, len(x.dictionary.values)):
         mapped = [fn(v) for v in x.dictionary.values]
         codes, d_new = _vocab_codes(ctx, x, mapped)
     return LoweredVal(codes, x.valid, d_new)
@@ -706,7 +706,7 @@ def _vocab_transform_where(ctx: LowerCtx, x: LoweredVal, fn) -> LoweredVal:
     """As ``_vocab_transform`` for a function that may have no answer:
     ``fn`` returns (string, present) and a row whose entry is not present
     is NULL. One host pass gives both tables."""
-    with _HostTimer():
+    with _host_pass(fn, len(x.dictionary.values)):
         res = [fn(v) for v in x.dictionary.values]
         codes, d_new = _vocab_codes(ctx, x, [s for s, _ in res])
         has = np.array([h for _, h in res], dtype=np.bool_)
@@ -717,7 +717,7 @@ def _vocab_transform_where(ctx: LowerCtx, x: LoweredVal, fn) -> LoweredVal:
 def _vocab_lut(ctx: LowerCtx, x: LoweredVal, fn, np_dtype) -> LoweredVal:
     """varchar -> scalar by a table of the host function's result for each
     vocabulary entry; NULL codes read zero."""
-    with _HostTimer():
+    with _host_pass(fn, len(x.dictionary.values)):
         lut = np.array([fn(v) for v in x.dictionary.values], dtype=np_dtype)
     return LoweredVal(_code_lut(x, lut, lut.dtype.type(0).item(), ctx.device), x.valid, None)
 
@@ -1094,7 +1094,7 @@ def _lower_from_hex(ctx: LowerCtx, x: LoweredVal) -> LoweredVal:
             bad_codes.append(i)
             return ""
 
-    with _HostTimer():
+    with _host_pass(conv, len(x.dictionary.values)):
         mapped = [conv(i_s) for i_s in enumerate(x.dictionary.values)]
         codes, d_new = _vocab_codes(ctx, x, mapped)
     if not bad_codes:
@@ -1256,7 +1256,7 @@ def _date_lut(ctx: LowerCtx, x: LoweredVal, pyfn) -> LoweredVal:
     if x.bound is not None:
         lo, hi = max(-x.bound, lo), min(x.bound, hi)
     epoch = datetime.date(1970, 1, 1)
-    with _HostTimer():
+    with _host_pass(pyfn, hi - lo + 1):
         strings = [pyfn(epoch + datetime.timedelta(days=d)) for d in range(lo, hi + 1)]
         d_new = Dictionary.build(strings)
         lut = to_device(np.array([d_new.code_of(s) for s in strings], dtype=np.int32),

@@ -235,7 +235,7 @@ class QueryExecution:
         # every substitution decision (queryStats.mvHits / mvNames)
         self.mv_substitutions: List[str] = []
         self.mv_notes: List[dict] = []
-        self.tracer = tracing.Tracer()
+        self.tracer = tracing.Tracer(detail=False)
         self.failure: Optional[str] = None
         self.columns: List[str] = []
         self.rows: List[tuple] = []

@@ -186,7 +186,7 @@ class SqlTask:
         # header starts a detached trace (a task posted directly)
         ctx = tracing.parse_traceparent(traceparent)
         self.tracer = tracing.Tracer(trace_id=ctx[0] if ctx else None,
-                                     root_parent_id=ctx[1] if ctx else None)
+                                     root_parent_id=ctx[1] if ctx else None, detail=False)
         # closed spans mirror into the worker's flight recorder; the
         # finished task's spans go to the OTLP exporter when there is one
         self.tracer.recorder = recorder
