@@ -20,7 +20,10 @@ from trino_tpu.ops import expr_lower as j_L
 from trino_tpu.sql import ir as j_ir
 
 from trino_tpu_torch import types as TT
+from trino_tpu_torch.data.dictionary import Dictionary as TDictionary
 from trino_tpu_torch.data.page import page_from_numpy
+from trino_tpu_torch.obs import metrics as t_M
+from trino_tpu_torch.obs import trace as t_trace
 from trino_tpu_torch.ops import datetime_ops as t_dt
 from trino_tpu_torch.ops import expr_lower as t_L
 from trino_tpu_torch.sql import ir as t_ir
@@ -218,9 +221,12 @@ def test_like_metacharacters_are_literal():
     assert lt.vals.tolist() == [False, True] + [False] * 7
 
 
-@pytest.mark.parametrize("start,length", [
-    (1, 2), (2, None), (-2, None), (-3, 2), (0, 3), (10, None), (-20, 2), (3, 0),
-    (4, 100), (1, -1)])
+# Q22's (1, 2) first
+SUBSTRING_BOUNDS = [(1, 2), (2, None), (-2, None), (-3, 2), (0, 3), (10, None), (-20, 2),
+                    (3, 0), (4, 100), (1, -1)]
+
+
+@pytest.mark.parametrize("start,length", SUBSTRING_BOUNDS)
 def test_substring_matches_reference(start, length):
     def build(ir, T, c):
         args = (c("s"), _c(ir, T, "bigint", start))
@@ -235,18 +241,105 @@ def test_in_list_lowers_its_operand_once(monkeypatch):
     """Q22's ``substring(c_phone, 1, 2) in (...)``: the operand's host pass
     over the vocabulary runs once, not once for each list item."""
     calls = []
-    orig = t_L._vocab_transform
+    orig = t_L._substring_table
 
     def spy(*args):
         calls.append(args)
         return orig(*args)
 
-    monkeypatch.setattr(t_L, "_vocab_transform", spy)
+    monkeypatch.setattr(t_L, "_substring_table", spy)
     _check(*_both(lambda ir, T, c: ir.Call(T.BOOLEAN, "in_list", (
         ir.Call(T.varchar(), "substring", (c("s"), _c(ir, T, "bigint", 1),
                                            _c(ir, T, "bigint", 2))),
         *(_c(ir, T, "varchar", v) for v in ("sp", "a.", "12", "zz", "(x"))))))
     assert len(calls) == 1
+
+
+# ASCII vocabularies: entries of varying length, '' and one-character
+# entries, the first and last ASCII bytes
+SUBSTRING_VOCABS = {
+    "mixed": ["", "a", "ab", "abc", "12-345-678", "special  pending requests", "(x)",
+              "~\x7f", "\x01z", "zzzzzzzzzzzzzzzzzzzz"],
+    "one_char": ["a", "b", "x"],
+    "empty_string": [""],
+    "empty": [],
+    "phones": [f"{10 + i % 25}-{i % 997:03d}-{i % 991:03d}-{i:04d}" for i in range(500)],
+}
+
+
+@pytest.mark.parametrize("vocab", sorted(SUBSTRING_VOCABS))
+@pytest.mark.parametrize("start,length", SUBSTRING_BOUNDS)
+def test_substring_vector_pass_matches_entries(vocab, start, length):
+    """The pass over the vocabulary's bytes gives the dictionary and the
+    codes that ``_sql_substring`` applied to each entry gives."""
+    d = TDictionary(sorted(set(SUBSTRING_VOCABS[vocab])))
+    assert d.byte_form().ascii
+    got, codes = t_L._substring_table(d.byte_form(), start, length)
+    mapped = [t_L._sql_substring(v, start, length) for v in d.values]
+    want = TDictionary.build(mapped)
+    assert got.values == want.values
+    assert codes.dtype == np.int32
+    assert codes.tolist() == [want.code_of(m) for m in mapped]
+
+
+def _substring_lowered(strings, start, length, tracer=None):
+    """substring(s, start[, length]) over one varchar column holding
+    ``strings``, lowered in both packages, with the port's span under
+    ``tracer``: (port, JAX, port's vector passes, its per-entry passes)."""
+    jp = JaxPage.from_pydict({"s": JT.varchar()}, {"s": strings})
+    tp = page_from_numpy(jp.columns, device="cpu")
+
+    def build(ir, T):
+        args = (ir.ColumnRef(T.varchar(), 0, "s"), _c(ir, T, "bigint", start))
+        if length is not None:
+            args += (_c(ir, T, "bigint", length),)
+        return ir.Call(T.varchar(), "substring", args)
+
+    lj = j_L.lower(build(j_ir, JT), j_L.LowerCtx(jp.columns, len(strings), None))
+    v0, e0 = t_M.SUBSTRING_VECTOR_PASSES.value(), t_M.SUBSTRING_ENTRY_PASSES.value()
+    with t_trace.activate(tracer or t_trace.Tracer()):
+        lt = t_L.lower(build(t_ir, TT), t_L.LowerCtx(tp.columns, len(strings), None, "cpu"))
+    return (lt, lj, t_M.SUBSTRING_VECTOR_PASSES.value() - v0,
+            t_M.SUBSTRING_ENTRY_PASSES.value() - e0)
+
+
+@pytest.mark.parametrize("strings,path", [
+    (["special requests", "a", "", None, "12-345"], "vector"),
+    (["été", "naïve", "ab", None, "Ωmega"], "entries"),
+    (["a\x00", "a", "b\x00c", None, "\x00"], "entries"),
+], ids=["ascii", "non_ascii", "nul"])
+@pytest.mark.parametrize("start,length", SUBSTRING_BOUNDS)
+def test_substring_path_follows_the_vocabulary(strings, path, start, length):
+    """A vocabulary whose characters are not all bytes, or that holds a NUL,
+    takes the per-entry path; every path gives the reference's answer, row
+    for row ``_sql_substring``'s, and the counters and the span's ``path``
+    say which path ran."""
+    tracer = t_trace.Tracer()
+    lt, lj, vector, entries = _substring_lowered(strings, start, length, tracer)
+    _check(lt, lj)
+    rows = lt.dictionary.decode(lt.vals.numpy())
+    assert rows == [None if v is None else t_L._sql_substring(v, start, length)
+                    for v in strings]
+    assert (vector, entries) == ((1, 0) if path == "vector" else (0, 1))
+    (sp,) = [s for s in tracer.spans() if s.name == "exec/host-pass"]
+    assert sp.attributes == {"fn": "substring", "entries": len(set(strings) - {None}),
+                             "path": path}
+
+
+def test_substring_passes_are_not_memoized():
+    """Two lowerings of one substring over one dictionary each make their
+    pass: only the vocabulary's bytes are kept on the dictionary."""
+    _, tp = _pages(None)
+    e = t_ir.Call(TT.varchar(), "substring", (
+        t_ir.ColumnRef(TT.varchar(), ORDER.index("s"), "s"), _c(t_ir, TT, "bigint", 1),
+        _c(t_ir, TT, "bigint", 2)))
+    v0 = t_M.SUBSTRING_VECTOR_PASSES.value()
+    first, second = (t_L.lower(e, t_L.LowerCtx(tp.columns, NULLABLE_ROWS, None, "cpu"))
+                     for _ in range(2))
+    assert t_M.SUBSTRING_VECTOR_PASSES.value() - v0 == 2
+    assert first.dictionary is not second.dictionary
+    assert first.dictionary.values == second.dictionary.values
+    eq(first.vals, second.vals.numpy())
 
 
 def test_unported_expression_raises_naming_itself():

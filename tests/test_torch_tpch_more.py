@@ -62,13 +62,13 @@ def test_q22_vocabulary_passes(monkeypatch):
     filter, the subquery's filter and the projection); each is one host
     pass over the phone vocabulary, whatever the length of its IN list."""
     calls = []
-    orig = torch_expr._vocab_transform
+    orig = torch_expr._substring_table
 
     def spy(*args):
         calls.append(args)
         return orig(*args)
 
-    monkeypatch.setattr(torch_expr, "_vocab_transform", spy)
+    monkeypatch.setattr(torch_expr, "_substring_table", spy)
     TorchSession(properties=_props(), device="cpu").execute(QUERIES[22])
     assert len(calls) == 3
 

@@ -100,6 +100,7 @@ def test_session_execute_names_each_layer(traced, q):
     if q == 22:
         assert passes and all(s.attributes["fn"] == "substring" for s in passes)
         assert all(s.attributes["entries"] > 0 for s in passes)
+        assert all(s.attributes["path"] == "vector" for s in passes)
     else:
         assert not passes
 
@@ -174,6 +175,16 @@ def test_a_tracer_without_detail_keeps_the_reference_spans(session):
     assert {"parse", "analyze/plan", "optimize"} <= names
     assert not {n for n in names if n.startswith(("exec/", "rows/"))}, names
     assert all(after[m] > before[m] for m in FAMILIES)
+
+
+def test_q22_substrings_take_the_vector_path(session):
+    """Q22's three ``substring(c_phone, 1, 2)`` passes over the ASCII phone
+    vocabulary run vectorized, each run of the query again (no memo)."""
+    for _ in range(2):
+        v0, e0 = M.SUBSTRING_VECTOR_PASSES.value(), M.SUBSTRING_ENTRY_PASSES.value()
+        session.execute(QUERIES[22])
+        assert M.SUBSTRING_VECTOR_PASSES.value() - v0 == 3
+        assert M.SUBSTRING_ENTRY_PASSES.value() - e0 == 0
 
 
 def test_nested_host_passes_and_rows_keep_their_values(session):

@@ -15,7 +15,8 @@ reference registers for the join tiers, the staging, device-cache,
 compile, serde, result-cache, plan-cache and view counters: the port's
 registry has every series of the reference's, and a few of its own
 (``PORT_SERIES``: the host seconds of planning, the eager executor, the
-host passes, the compiled replay and the result rows' copies).
+host passes, the compiled replay and the result rows' copies, and the
+count of substring passes by path).
 ``render_registry`` renders them as the Prometheus text page that
 ``GET /v1/metrics`` serves on the coordinator and the workers, and
 ``registry_samples`` as the rows of ``system.metrics.metrics``, so both
@@ -351,10 +352,23 @@ ROWS_COPY_SECONDS = REGISTRY.counter(
     "trino_tpu_rows_copy_seconds_total",
     "host seconds of the result rows' device-to-host copies (the selection "
     "and every column, before the Python conversion)")
+# substring's host passes by path (ops/expr_lower.py ``_lower_substring``,
+# the ``path`` attribute of their ``exec/host-pass`` spans): one numpy pass
+# over an ASCII vocabulary's bytes, or one call a vocabulary entry where a
+# character is not a byte or an entry holds a NUL
+SUBSTRING_VECTOR_PASSES = REGISTRY.counter(
+    "trino_tpu_substring_vector_passes_total",
+    "substring host passes run as one vectorized pass over an ASCII "
+    "vocabulary's bytes")
+SUBSTRING_ENTRY_PASSES = REGISTRY.counter(
+    "trino_tpu_substring_entry_passes_total",
+    "substring host passes run once a vocabulary entry (a vocabulary with a "
+    "non-ASCII character or a NUL)")
 # the series above, which only the port registers
 PORT_SERIES = (PLAN_SECONDS.name, EXECUTOR_SECONDS.name, SCALAR_HOST_SECONDS.name,
                NESTED_HOST_SECONDS.name, COMPILED_RUN_SECONDS.name,
-               REPLAY_WAIT_SECONDS.name, ROWS_COPY_SECONDS.name)
+               REPLAY_WAIT_SECONDS.name, ROWS_COPY_SECONDS.name,
+               SUBSTRING_VECTOR_PASSES.name, SUBSTRING_ENTRY_PASSES.name)
 
 # the compiled tier (exec/compiled.py): a run that captures its body into a
 # CUDA graph (warm-up, capture, first replay) is a miss and its wall goes to

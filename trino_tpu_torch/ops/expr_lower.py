@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from trino_tpu_torch import types as T
-from trino_tpu_torch.data.dictionary import NULL_CODE, Dictionary
+from trino_tpu_torch.data.dictionary import NULL_CODE, Dictionary, VocabBytes
 from trino_tpu_torch.data.page import Column, to_device, torch_dtype
 from trino_tpu_torch.obs import metrics as M
 from trino_tpu_torch.obs import trace as tracing
@@ -664,14 +664,15 @@ def _lower_in_list(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
 # reference's fill value.
 
 
-def _host_pass(fn, entries: int):
+def _host_pass(fn, entries: int, **attributes):
     """A host pass of ``fn`` over a vocabulary or a table of days of
     ``entries`` values: the ``exec/host-pass`` span, whose seconds go to
     SCALAR_HOST_SECONDS. ``fn`` is named by the lowering that made it
-    (``substring`` for ``_lower_substring``'s lambda)."""
+    (``substring`` for ``_lower_substring``'s inner function); ``attributes``
+    go to the span."""
     name = getattr(fn, "__qualname__", type(fn).__name__).split(".<locals>")[0]
     return tracing.timed("exec/host-pass", M.SCALAR_HOST_SECONDS, detail=True,
-                         fn=name.removeprefix("_lower_"), entries=entries)
+                         fn=name.removeprefix("_lower_"), entries=entries, **attributes)
 
 
 def _code_lut(x: LoweredVal, lut: np.ndarray, miss, device) -> torch.Tensor:
@@ -692,11 +693,11 @@ def _vocab_codes(ctx: LowerCtx, x: LoweredVal, mapped: List[Optional[str]]):
     return _code_lut(x, lut, NULL_CODE, ctx.device), d_new
 
 
-def _vocab_transform(ctx: LowerCtx, x: LoweredVal, fn) -> LoweredVal:
+def _vocab_transform(ctx: LowerCtx, x: LoweredVal, fn, **attributes) -> LoweredVal:
     """A host string -> string function applied once over the vocabulary,
     an order-preserving dictionary rebuilt from the results, and the codes
-    recoded on the device by one gather."""
-    with _host_pass(fn, len(x.dictionary.values)):
+    recoded on the device by one gather. ``attributes`` go to the span."""
+    with _host_pass(fn, len(x.dictionary.values), **attributes):
         mapped = [fn(v) for v in x.dictionary.values]
         codes, d_new = _vocab_codes(ctx, x, mapped)
     return LoweredVal(codes, x.valid, d_new)
@@ -788,14 +789,61 @@ def _sql_substring(v: str, start: int, length: Optional[int]) -> str:
     return v[i:end]
 
 
+def _substring_table(vocab: VocabBytes, start: int, length: Optional[int]):
+    """``_sql_substring`` over every entry of an ASCII vocabulary in one
+    numpy pass: (the dictionary of the distinct results, each entry's code
+    in it as int32). Each entry's window comes from its length, gathered
+    into zero-padded rows as wide as the longest result; one ``np.unique``
+    over the rows gives the results in bytewise order, which is the
+    dictionary's order for ASCII, and each entry's index among them."""
+    n = vocab.lengths
+    widest = int(n.max()) if len(n) else 0
+    # bounds past every entry act as those just past the longest one, so
+    # the int64 arithmetic below cannot overflow
+    start = max(min(start, widest + 1), -widest - 1)
+    if start > 0:
+        i = np.full_like(n, start - 1)
+    elif start < 0:
+        i = n + start
+    else:
+        i = n  # start 0: an empty window at every entry
+    take = n - i
+    if length is not None:
+        take = np.minimum(take, max(min(length, widest), 0))
+    take = np.where(i >= 0, np.maximum(take, 0), 0)  # a start past either end gives ''
+    first = vocab.offsets[:-1] + i
+    k = int(take.max()) if len(take) else 0
+    rows = np.zeros((len(n), max(k, 1)), dtype=np.uint8)
+    for j in range(k):  # one column of result bytes at a time
+        at = np.clip(first + j, 0, len(vocab.data) - 1)
+        rows[:, j] = np.where(take > j, vocab.data[at], 0)
+    results, codes = np.unique(rows.view(f"S{rows.shape[1]}")[:, 0], return_inverse=True)
+    return Dictionary([r.decode("ascii") for r in results.tolist()]), codes.astype(np.int32)
+
+
 def _lower_substring(ctx: LowerCtx, expr: ir.Call) -> LoweredVal:
+    """One host pass over the vocabulary: vectorized over its bytes where
+    every character is one byte and no entry holds a NUL, else one
+    ``_sql_substring`` call an entry."""
     x = lower(expr.args[0], ctx)
     consts = expr.args[1:]
     if x.dictionary is None or not all(isinstance(c, ir.Constant) for c in consts):
         raise NotImplementedError("substring with non-literal bounds")
     start = int(consts[0].value)
     length = int(consts[1].value) if len(consts) > 1 else None
-    return _vocab_transform(ctx, x, lambda v: _sql_substring(v, start, length))
+
+    def substring(v):
+        return _sql_substring(v, start, length)
+
+    vocab = x.dictionary.byte_form()
+    if not vocab.ascii:
+        M.SUBSTRING_ENTRY_PASSES.inc()
+        return _vocab_transform(ctx, x, substring, path="entries")
+    M.SUBSTRING_VECTOR_PASSES.inc()
+    with _host_pass(substring, len(x.dictionary.values), path="vector"):
+        d_new, table = _substring_table(vocab, start, length)
+        codes = _code_lut(x, table, NULL_CODE, ctx.device)
+    return LoweredVal(codes, x.valid, d_new)
 
 
 def _lower_str_fn(pyfn) -> Callable:
