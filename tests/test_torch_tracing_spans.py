@@ -31,6 +31,8 @@ FAMILIES = {
     M.SCALAR_HOST_SECONDS: ("exec/host-pass",),
     M.ROWS_COPY_SECONDS: ("rows/copy",),
 }
+# the executor's spans inside a plan node's own: they name a part of it
+OPERATOR_PARTS = ("exec/dynamic-filter", "exec/window", "exec/set-op")
 # a sort of a page holding nested columns (a nested host pass), a long
 # decimal, NULLs and a selection
 MIXED_SQL = """select x, s, d * d as dd, array[x, 2], row(x, s) from (values
@@ -89,11 +91,18 @@ def test_session_execute_names_each_layer(traced, q):
     for name in ("parse", "analyze/plan", "optimize", "exec/run", "rows/copy", "rows/convert"):
         assert names.count(name) == 1, (name, names)
     # one exec/<operator> span a plan node execution, named as the kernel
-    # ledger names the node
+    # ledger names the node; a join's dynamic filter is a span inside its
+    # join's, under the join's node
     (ex,) = executors
     nodes = [(s.attributes["node"], s.name[len("exec/"):]) for s in spans
-             if s.name.startswith("exec/") and "node" in s.attributes]
+             if s.name.startswith("exec/") and "node" in s.attributes
+             and s.name not in OPERATOR_PARTS]
     assert set(nodes) == set(ex.kernel_stats)
+    by_id = {s.span_id: s for s in spans}
+    for s in spans:
+        if s.name == "exec/dynamic-filter":
+            assert (s.attributes["node"], "Join") in ex.kernel_stats
+            assert by_id[s.parent_id].name == "exec/Join"
     assert len(nodes) == sum(k["launches"] for k in ex.kernel_stats.values())
     assert {"Join", "TableScan", "Output"} <= {op for _, op in nodes}
     passes = [s for s in spans if s.name == "exec/host-pass"]

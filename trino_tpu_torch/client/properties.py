@@ -164,9 +164,11 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             "device_cache_max_bytes",
             "per-staging admission cap against the device table cache: "
             "entries above min(this, the server-wide budget) are staged "
-            "but not retained (the shared budget itself is fixed at "
-            "process scope — one session cannot resize it)",
-            int, 1 << 30, _positive,
+            "but not retained; unset, the cap is a quarter of the "
+            "server-wide budget, so it grows with the card (the shared "
+            "budget itself is fixed at process scope — one session cannot "
+            "resize it)",
+            int, None, lambda v: _positive(v) if v is not None else None,
         ),
         PropertyMetadata(
             "staging_parallelism",

@@ -34,12 +34,18 @@ def cache_enabled(session) -> bool:
     return bool(props.get("device_cache_enabled", False))
 
 
-def admit_budget(session) -> Optional[int]:
-    """The session's per-admission byte cap (min-ed with the server-wide
-    budget at admit time — mirrors result_cache_max_bytes semantics)."""
+def admit_budget(session) -> int:
+    """The session's per-admission byte cap, min-ed with the server-wide
+    budget at admit time (mirrors result_cache_max_bytes semantics):
+    ``device_cache_max_bytes`` where the session sets it, else a quarter of
+    the pool's budget."""
     props = getattr(session, "properties", None) or {}
     v = props.get("device_cache_max_bytes")
-    return int(v) if v is not None else None
+    if v is not None:
+        return int(v)
+    from trino_tpu_torch.devcache.cache import DEVICE_CACHE
+
+    return DEVICE_CACHE.max_bytes // 4
 
 
 def _update_domain(h, dom) -> None:

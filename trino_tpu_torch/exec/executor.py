@@ -506,15 +506,18 @@ class Executor:
         """UNION ALL: row-wise concatenation of the branches (dead rows stay
         dead; differing varchar vocabularies merge)."""
         pages = [self.execute(s) for s in node.sources_]
-        out = pages[0]
-        for p in pages[1:]:
-            out = Page.concat_pages(out, p)
+        with tracing.timed("exec/set-op", M.SET_OP_SECONDS, detail=True, op="union_all",
+                           branches=len(pages)):
+            out = pages[0]
+            for p in pages[1:]:
+                out = Page.concat_pages(out, p)
         return out
 
     def _exec_SetOpNode(self, node: P.SetOpNode) -> Page:
         left = self.execute(node.left)
         right = self.execute(node.right)
-        return self.set_op_pages(node, left, right)
+        with tracing.timed("exec/set-op", M.SET_OP_SECONDS, detail=True, op=node.op):
+            return self.set_op_pages(node, left, right)
 
     def set_op_pages(self, node: P.SetOpNode, left: Page, right: Page) -> Page:
         """INTERSECT/EXCEPT DISTINCT: both sides concatenated with a side
@@ -1283,7 +1286,10 @@ class Executor:
 
     # -------------------------------------------------------------- window
     def _exec_WindowNode(self, node: P.WindowNode) -> Page:
-        return self.window_over_page(node, self.execute(node.source))
+        page = self.execute(node.source)
+        with tracing.timed("exec/window", M.WINDOW_SECONDS, detail=True,
+                           calls=len(node.calls)):
+            return self.window_over_page(node, page)
 
     def window_over_page(self, node: P.WindowNode, page: Page) -> Page:
         """Every window call of the node over one shared sorted layout; the
@@ -1405,26 +1411,43 @@ class Executor:
 
     def _collect_dynamic_filters(self, node: P.JoinNode, build: Page) -> None:
         """Build-side key domains, extracted host-side (one device sync per
-        key), for the probe scans the optimizer annotated."""
+        key), for the probe scans the optimizer annotated: the
+        ``exec/dynamic-filter`` span, whose seconds go to
+        ``trino_tpu_dynamic_filter_seconds_total`` and whose copies' bytes
+        to ``trino_tpu_dynamic_filter_host_bytes_total``."""
         from trino_tpu_torch.connector.predicate import Domain
 
-        for i in node.dyn_filter_keys:
-            col = build.columns[node.right_keys[i]]
-            if col.type.is_varchar:
-                continue  # dictionary codes are page-local, not portable
-            vals = to_numpy(col.values)
-            live = (np.ones(len(vals), bool) if build.sel is None
-                    else to_numpy(build.sel).copy())
-            if col.nulls is not None:
-                live &= ~to_numpy(col.nulls)
-            lv = vals[live]
-            if len(lv) == 0:
-                dom = Domain(values=frozenset())  # provably empty probe
-            elif len(lv) <= self.DYNAMIC_FILTER_MAX_SET:
-                dom = Domain.from_values(np.unique(lv).tolist())
-            else:
-                dom = Domain.range(low=lv.min().item(), high=lv.max().item())
-            self.dyn_domains[(node.id, i)] = dom
+        with tracing.timed("exec/dynamic-filter", M.DYNAMIC_FILTER_SECONDS, detail=True,
+                           node=node.id, keys=len(node.dyn_filter_keys),
+                           rows=build.num_rows) as sp:
+            nbytes, kinds = 0, []
+            for i in node.dyn_filter_keys:
+                col = build.columns[node.right_keys[i]]
+                if col.type.is_varchar:
+                    continue  # dictionary codes are page-local, not portable
+                vals = to_numpy(col.values)
+                nbytes += vals.nbytes
+                if build.sel is None:
+                    live = np.ones(len(vals), bool)
+                else:
+                    live = to_numpy(build.sel).copy()
+                    nbytes += live.nbytes
+                if col.nulls is not None:
+                    nulls = to_numpy(col.nulls)
+                    nbytes += nulls.nbytes
+                    live &= ~nulls
+                lv = vals[live]
+                if len(lv) == 0:
+                    dom, kind = Domain(values=frozenset()), "empty"  # provably empty probe
+                elif len(lv) <= self.DYNAMIC_FILTER_MAX_SET:
+                    dom, kind = Domain.from_values(np.unique(lv).tolist()), "set"
+                else:
+                    dom, kind = Domain.range(low=lv.min().item(), high=lv.max().item()), "range"
+                self.dyn_domains[(node.id, i)] = dom
+                kinds.append(kind)
+            M.DYNAMIC_FILTER_HOST_BYTES.inc(nbytes)
+            sp.set("bytes", nbytes)
+            sp.set("kind", ",".join(kinds))
 
     @staticmethod
     def _join_keys_aligned(left: Page, right: Page, left_keys, right_keys):
