@@ -45,8 +45,16 @@ _TORCH_DTYPES = {
 }
 
 
+_NUMPY_DTYPES = {t: d for d, t in _TORCH_DTYPES.items()}
+
+
 def torch_dtype(np_dtype) -> torch.dtype:
     return _TORCH_DTYPES[np.dtype(np_dtype)]
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype ``to_numpy`` gives a tensor of ``dtype``."""
+    return _NUMPY_DTYPES[dtype]
 
 
 def to_device(arr, device) -> torch.Tensor:

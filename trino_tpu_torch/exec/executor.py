@@ -51,7 +51,8 @@ import torch
 
 from trino_tpu_torch import types as T
 from trino_tpu_torch.data.page import (Column, Page, column_data_from_python, column_to_device,
-                                      host_take, to_device, to_numpy, torch_dtype)
+                                      host_take, numpy_dtype, to_device, to_numpy,
+                                      torch_dtype)
 from trino_tpu_torch.exec import memory as _mem
 from trino_tpu_torch.exec.operator_stats import OperatorStats
 from trino_tpu_torch.obs import metrics as M
@@ -219,6 +220,70 @@ def apply_dynamic_domains(node, dyn_domains, datas, allow=None):
             continue
         out.append({name: column_data_take(cd, keep) for name, cd in d.items()})
     return out
+
+
+def _int64_bits(x: torch.Tensor) -> torch.Tensor:
+    """A 0-d integer or float tensor carried exactly in an int64."""
+    if x.is_floating_point():
+        return x.to(torch.float64).view(torch.int64)
+    return x.to(torch.int64)
+
+
+def _from_int64_bits(bits: int, dtype: np.dtype):
+    """The Python scalar ``_int64_bits`` carried, as ``.item()`` of a numpy
+    scalar of ``dtype`` gives it."""
+    a = np.array(bits, dtype=np.int64)
+    if dtype.kind == "f":
+        a = a.view(np.float64)
+    return a.astype(dtype).item()
+
+
+def reduced_key_domains(build: Page, cols: List[Column], max_set: int):
+    """The key columns' domains reduced on the device: each key's live
+    count, min and max (masked by a sentinel, NaN propagating as in numpy),
+    read for all keys at once. A key of no live row is provably empty; one
+    of at most ``max_set`` live rows (duplicates counted) copies those rows
+    alone for the set of its distinct values; a larger one is the [min, max]
+    range. [(Domain, kind)], the bytes copied and the number of keys whose
+    rows were copied."""
+    from trino_tpu_torch.connector.predicate import Domain
+
+    if not cols or build.num_rows == 0:
+        return [(Domain(values=frozenset()), "empty")] * len(cols), 0, 0
+    lives, parts = [], []
+    for col in cols:
+        v = col.values.view(torch.uint8) if col.values.dtype == torch.bool else col.values
+        live = build.sel
+        if col.nulls is not None:
+            live = ~col.nulls if live is None else live & ~col.nulls
+        lives.append(live)
+        if live is None:
+            count, lo, hi = v.new_full((), len(v), dtype=torch.int64), v.amin(), v.amax()
+        else:
+            if v.is_floating_point():
+                top, bottom = float("inf"), float("-inf")
+            else:
+                top, bottom = torch.iinfo(v.dtype).max, torch.iinfo(v.dtype).min
+            count = live.sum()
+            lo = torch.where(live, v, top).amin()
+            hi = torch.where(live, v, bottom).amax()
+        parts.append(torch.stack([count, _int64_bits(lo), _int64_bits(hi)]))
+    scalars = torch.stack(parts)
+    nbytes = scalars.numel() * scalars.element_size()
+    out, copied = [], 0
+    for col, live, (count, lo, hi) in zip(cols, lives, scalars.tolist()):
+        if count == 0:
+            out.append((Domain(values=frozenset()), "empty"))  # provably empty probe
+        elif count <= max_set:
+            lv = to_numpy(col.values if live is None else col.values[live])
+            nbytes += lv.nbytes
+            copied += 1
+            out.append((Domain.from_values(np.unique(lv).tolist()), "set"))
+        else:
+            dtype = numpy_dtype(col.values.dtype)
+            out.append((Domain.range(low=_from_int64_bits(lo, dtype),
+                                     high=_from_int64_bits(hi, dtype)), "range"))
+    return out, nbytes, copied
 
 
 class Executor:
@@ -1410,44 +1475,31 @@ class Executor:
         return self.expand_join(node, left, right)
 
     def _collect_dynamic_filters(self, node: P.JoinNode, build: Page) -> None:
-        """Build-side key domains, extracted host-side (one device sync per
-        key), for the probe scans the optimizer annotated: the
+        """Build-side key domains for the probe scans the optimizer
+        annotated, reduced on the device (``reduced_key_domains``): one read
+        a join, and a key's live rows copied only where they form a set. The
         ``exec/dynamic-filter`` span, whose seconds go to
         ``trino_tpu_dynamic_filter_seconds_total`` and whose copies' bytes
-        to ``trino_tpu_dynamic_filter_host_bytes_total``."""
-        from trino_tpu_torch.connector.predicate import Domain
-
+        to ``trino_tpu_dynamic_filter_host_bytes_total``; the keys whose
+        rows were copied count in ``trino_tpu_dynamic_filter_copied_keys_total``."""
         with tracing.timed("exec/dynamic-filter", M.DYNAMIC_FILTER_SECONDS, detail=True,
                            node=node.id, keys=len(node.dyn_filter_keys),
                            rows=build.num_rows) as sp:
-            nbytes, kinds = 0, []
+            keys, cols = [], []
             for i in node.dyn_filter_keys:
                 col = build.columns[node.right_keys[i]]
-                if col.type.is_varchar:
-                    continue  # dictionary codes are page-local, not portable
-                vals = to_numpy(col.values)
-                nbytes += vals.nbytes
-                if build.sel is None:
-                    live = np.ones(len(vals), bool)
-                else:
-                    live = to_numpy(build.sel).copy()
-                    nbytes += live.nbytes
-                if col.nulls is not None:
-                    nulls = to_numpy(col.nulls)
-                    nbytes += nulls.nbytes
-                    live &= ~nulls
-                lv = vals[live]
-                if len(lv) == 0:
-                    dom, kind = Domain(values=frozenset()), "empty"  # provably empty probe
-                elif len(lv) <= self.DYNAMIC_FILTER_MAX_SET:
-                    dom, kind = Domain.from_values(np.unique(lv).tolist()), "set"
-                else:
-                    dom, kind = Domain.range(low=lv.min().item(), high=lv.max().item()), "range"
+                # varchar dictionary codes are page-local, not portable; a
+                # two-limb key's ``values`` holds its low limb alone
+                if not col.type.is_varchar and col.hi is None:
+                    keys.append(i)
+                    cols.append(col)
+            found, nbytes, copied = reduced_key_domains(build, cols, self.DYNAMIC_FILTER_MAX_SET)
+            for i, (dom, _) in zip(keys, found):
                 self.dyn_domains[(node.id, i)] = dom
-                kinds.append(kind)
+            M.DYNAMIC_FILTER_COPIED_KEYS.inc(copied)
             M.DYNAMIC_FILTER_HOST_BYTES.inc(nbytes)
             sp.set("bytes", nbytes)
-            sp.set("kind", ",".join(kinds))
+            sp.set("kind", ",".join(kind for _, kind in found))
 
     @staticmethod
     def _join_keys_aligned(left: Page, right: Page, left_keys, right_keys):

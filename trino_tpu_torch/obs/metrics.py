@@ -16,8 +16,8 @@ compile, serde, result-cache, plan-cache and view counters: the port's
 registry has every series of the reference's, and a few of its own
 (``PORT_SERIES``: the host seconds of planning, the eager executor, the
 host passes, the compiled replay and the result rows' copies, the count of
-substring passes by path, and the seconds and host bytes of the executor's
-dynamic filters and the seconds of its windows and set operations).
+substring passes by path, the seconds, host bytes and copied keys of the
+executor's dynamic filters and the seconds of its windows and set operations).
 ``render_registry`` renders them as the Prometheus text page that
 ``GET /v1/metrics`` serves on the coordinator and the workers, and
 ``registry_samples`` as the rows of ``system.metrics.metrics``, so both
@@ -366,19 +366,25 @@ SUBSTRING_ENTRY_PASSES = REGISTRY.counter(
     "substring host passes run once a vocabulary entry (a vocabulary with a "
     "non-ASCII character or a NUL)")
 # the eager executor's dynamic filters (exec/executor.py
-# ``_collect_dynamic_filters``, the ``exec/dynamic-filter`` spans: the
-# build-side key columns copied to the host and reduced to a set or a range),
+# ``_collect_dynamic_filters``, the ``exec/dynamic-filter`` spans: each build
+# key reduced on the device to its live count, min and max, its domain a set
+# of its live rows copied to the host or a range),
 # its windows (``exec/window``, ``window_over_page``) and its set operations
 # (``exec/set-op``: UNION ALL's concatenation, ``set_op_pages``); each inside
 # an ``exec/run`` span, so their seconds are also executor seconds
 DYNAMIC_FILTER_SECONDS = REGISTRY.counter(
     "trino_tpu_dynamic_filter_seconds_total",
     "host seconds of the eager executor's dynamic filters (the build-side "
-    "key columns' copies to the host and their set or range)")
+    "keys' reductions, their reads to the host and their set or range)")
 DYNAMIC_FILTER_HOST_BYTES = REGISTRY.counter(
     "trino_tpu_dynamic_filter_host_bytes_total",
     "bytes the eager executor's dynamic filters copied from the device to "
-    "the host (build-side key columns, their selection and nulls)")
+    "the host (each build key's live count, min and max, and the live "
+    "values of a key that forms a set)")
+DYNAMIC_FILTER_COPIED_KEYS = REGISTRY.counter(
+    "trino_tpu_dynamic_filter_copied_keys_total",
+    "build keys whose live rows the eager executor's dynamic filters copied "
+    "to the host (a set of at most 1024 values)")
 WINDOW_SECONDS = REGISTRY.counter(
     "trino_tpu_window_seconds_total",
     "host seconds of the eager executor's window operators (the layout and "
@@ -393,6 +399,7 @@ PORT_SERIES = (PLAN_SECONDS.name, EXECUTOR_SECONDS.name, SCALAR_HOST_SECONDS.nam
                REPLAY_WAIT_SECONDS.name, ROWS_COPY_SECONDS.name,
                SUBSTRING_VECTOR_PASSES.name, SUBSTRING_ENTRY_PASSES.name,
                DYNAMIC_FILTER_SECONDS.name, DYNAMIC_FILTER_HOST_BYTES.name,
+               DYNAMIC_FILTER_COPIED_KEYS.name,
                WINDOW_SECONDS.name, SET_OP_SECONDS.name)
 
 # the compiled tier (exec/compiled.py): a run that captures its body into a
